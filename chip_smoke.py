@@ -136,7 +136,7 @@ def compare_call(name, args, kw):
 
     if name == "fused_sa_cuda":
         xyz, feat, new_xyz, radius, nsample, kernels, biases, window = args
-        out = fused_sa.fused_sa_cuda(*args)
+        out = fused_sa.fused_sa_cuda(*args, **kw)
         ref = fused_sa.fused_sa_plain(xyz, feat, new_xyz, radius, nsample,
                                       kernels, biases)
         err = (out - ref).abs().max().item()
@@ -146,7 +146,7 @@ def compare_call(name, args, kw):
             raise AssertionError(f"fused_sa window={window} "
                                  f"{tuple(xyz.shape)}: max|diff| {err} > {tol}")
         key = "fused_sa_window" if window else "fused_sa_full"
-        ms = cuda_ms(lambda: fused_sa.fused_sa_cuda(*args), 5)
+        ms = cuda_ms(lambda: fused_sa.fused_sa_cuda(*args, **kw), 5)
         plain = cuda_ms(lambda: fused_sa.fused_sa_plain(
             xyz, feat, new_xyz, radius, nsample, kernels, biases), 1)
         B, P, C = feat.shape
@@ -250,6 +250,8 @@ def main() -> int:
     from ws3d_tpu_torch.pipeline import make_two_stage_fn
     from ws3d_tpu_torch.weights import load_npz
 
+    # f32 throughout, as the plain versions and the JAX reference compute:
+    # no TF32 in the dense layers, nor in any cuDNN op a later slice adds
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()

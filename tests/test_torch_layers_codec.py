@@ -71,6 +71,37 @@ def test_shared_mlp_and_fold_match_flax(rng, use_bn):
     np.testing.assert_allclose(n(h), np.asarray(ref), atol=1e-5, rtol=1e-5)
 
 
+def test_fold_cache_follows_the_weights(rng):
+    """SharedMLP.folded()/packed() are made once per state of the weights:
+    the same objects while nothing changes, a refold after load_flat or an
+    in-place edit, and a fresh fold under autograd."""
+    from ws3d_tpu_torch.ops.fused_sa import pack_params
+    tm = SharedMLP(6, [8, 12])
+    flat = {"params/" + k.replace(".", "/") if not k.endswith(("mean", "var"))
+            else "batch_stats/" + k.replace(".", "/"): n(v)
+            for k, v in tm.state_dict().items()}
+
+    def same_as_uncached(fold, packed):
+        ref = folded_mlp_params(tm)
+        for a, b in zip(fold[0] + fold[1], ref[0] + ref[1]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(packed, pack_params(*ref), rtol=0, atol=0)
+
+    with torch.no_grad():
+        fold, packed = tm.folded(), tm.packed()
+        assert tm.folded() is fold and tm.packed() is packed
+        load_flat(tm, _randomize(flat, rng))
+        fold2, packed2 = tm.folded(), tm.packed()
+        assert fold2 is not fold and packed2 is not packed
+        same_as_uncached(fold2, packed2)
+        tm.BatchNorm_1.var.mul_(2.0)
+        fold3 = tm.folded()
+        assert fold3 is not fold2
+        same_as_uncached(fold3, tm.packed())
+    assert tm.folded() is not tm.folded()
+    assert tm.folded()[0][0].requires_grad
+
+
 def test_head_mlp_matches_flax(rng):
     x = rng.randn(4, 16).astype(np.float32)
     jm = jlayers.HeadMLP([10], out_channels=3, use_bn=True, dp_ratio=0.5)

@@ -79,6 +79,46 @@ def synthetic_batch(n_scenes: int, n_points: int, seed: int = 3):
                            shuffle=False))["pts_input"]
 
 
+def two_stage_pair(pts, max_proposals: int, rcnn_budget: int,
+                   ioun_budget: int):
+    """make_two_stage_fn of both packages on `pts` with the given stage-2
+    budgets (on copies of the cached configs) -> (ref, got) numpy dicts."""
+    import copy
+    import jax
+    import jax.numpy as jnp
+    from ws3d_tpu.pipeline import make_two_stage_fn as jax_two_stage
+    from ws3d_tpu_torch.pipeline import make_two_stage_fn
+    jmodel, variables, jcfg = jax_detector()
+    tmodel, tcfg = torch_detector()
+    jcfg, tcfg = copy.deepcopy(jcfg), copy.deepcopy(tcfg)
+    for cfg in (jcfg, tcfg):
+        cfg.TPU.RCNN_BUDGET_PER_SCENE = rcnn_budget
+        cfg.TPU.IOUN_BUDGET_PER_SCENE = ioun_budget
+    ref = jax.jit(jax_two_stage(jmodel, jcfg, max_proposals=max_proposals))(
+        variables, jnp.asarray(pts))
+    got = make_two_stage_fn(tmodel, tcfg, max_proposals=max_proposals)(t(pts))
+    return ({k: np.asarray(v) for k, v in ref.items()},
+            {k: n(v) for k, v in got.items()})
+
+
+def assert_compacted_match(ref, got, atol: float = 1e-3):
+    """Equal `spilled` (> 0, so the budget really cut) and `n_live`, the
+    same proposal slots and keep set, live boxes/scores within `atol`."""
+    assert int(ref["spilled"]) > 0, "fixture should overflow the budget"
+    assert int(got["spilled"]) == int(ref["spilled"])
+    assert int(got["n_live"]) == int(ref["n_live"])
+    np.testing.assert_array_equal(got["proposal_valid"],
+                                  ref["proposal_valid"])
+    assert ref["keep"].any()
+    np.testing.assert_array_equal(got["keep"], ref["keep"])
+    live = ref["proposal_valid"]
+    np.testing.assert_allclose(got["boxes"][live], ref["boxes"][live],
+                               atol=atol, rtol=1e-4)
+    np.testing.assert_allclose(got["scores"][live], ref["scores"][live],
+                               atol=atol, rtol=1e-4)
+    assert got["packed"].shape == ref["packed"].shape
+
+
 def sorted_cloud(rng, B, P, C, spread=3.0):
     """Points sorted ascending by z, features in [0, 1)."""
     xyz = rng.randn(B, P, 3).astype(np.float32) * spread

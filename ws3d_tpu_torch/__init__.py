@@ -4,11 +4,9 @@ Plain tensor code is PyTorch; every TPU kernel of the ported path is a CUDA
 kernel written by hand (csrc/), built at first use. Entry points run on CUDA
 unless the caller passes device="cpu", where each kernel's plain PyTorch
 version runs instead. The package imports neither JAX nor ws3d_tpu.
+
+The dense layers are plain f32 matmuls and expect PyTorch's default
+``torch.backends.cuda.matmul.allow_tf32 = False``; the package sets no
+global flag itself.
 """
-import torch
-
-# geometry and the f32 reference numerics must not run through TF32
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-
 __version__ = "0.1.0"

@@ -12,6 +12,8 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ws3d_tpu_torch.ops.fused_sa import pack_params
+
 BN_EPS = 1e-5
 
 
@@ -53,6 +55,9 @@ class SharedMLP(nn.Module):
             if use_bn:
                 self.add_module(f"BatchNorm_{k}", BatchNorm(c))
             cin = c
+        self._fold_key = None
+        self._fold = None
+        self._packed = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for k in range(len(self.channels)):
@@ -61,6 +66,32 @@ class SharedMLP(nn.Module):
                 x = getattr(self, f"BatchNorm_{k}")(x)
             x = torch.relu(x)
         return x
+
+    def folded(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """folded_mlp_params(self), made once per state of the weights.
+
+        The cache is keyed by every parameter's and buffer's storage and
+        version counter, so load_state_dict, in-place edits and .to() refold.
+        With autograd on, the fold is made afresh on every call."""
+        if torch.is_grad_enabled():
+            return folded_mlp_params(self)
+        key = tuple((t.data_ptr(), t._version)
+                    for t in (*self.parameters(), *self.buffers()))
+        if key != self._fold_key:
+            self._fold = folded_mlp_params(self)
+            self._packed = None
+            self._fold_key = key
+        return self._fold
+
+    def packed(self) -> torch.Tensor:
+        """The folded weights as the fused-SA kernel's single f32 buffer
+        (ops.fused_sa.pack_params), cached with the fold."""
+        kernels, biases = self.folded()
+        if torch.is_grad_enabled():
+            return pack_params(kernels, biases)
+        if self._packed is None:
+            self._packed = pack_params(kernels, biases)
+        return self._packed
 
 
 class HeadMLP(nn.Module):

@@ -14,7 +14,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ws3d_tpu_torch.models.layers import SharedMLP, folded_mlp_params
+from ws3d_tpu_torch.models.layers import SharedMLP
 from ws3d_tpu_torch.ops.fused_sa import fused_sa
 from ws3d_tpu_torch.ops.grouping import group_all
 from ws3d_tpu_torch.ops.interpolate import interpolate_features
@@ -66,9 +66,11 @@ class PointnetSAModuleMSG(nn.Module):
                 h = mlp(group_all(xyz, features))
                 outs.append(torch.amax(h, dim=2))
                 continue
-            kernels, biases = folded_mlp_params(mlp)
-            outs.append(fused_sa(xyz, features, new_xyz, self.radii[i],
-                                 self.nsamples[i], kernels, biases, window))
+            kernels, biases = mlp.folded()
+            outs.append(fused_sa(
+                xyz, features, new_xyz, self.radii[i], self.nsamples[i],
+                kernels, biases, window,
+                params=mlp.packed() if xyz.is_cuda else None))
         return new_xyz, torch.cat(outs, dim=-1)
 
 
@@ -86,7 +88,7 @@ class PointnetFPModule(nn.Module):
     def forward(self, unknown: torch.Tensor, known: torch.Tensor,
                 unknown_feats: Optional[torch.Tensor],
                 known_feats: torch.Tensor) -> torch.Tensor:
-        kernels, biases = folded_mlp_params(self.SharedMLP_0)
+        kernels, biases = self.SharedMLP_0.folded()
         ci = self.c_known
         feats_f = torch.matmul(known_feats, kernels[0][:ci]).contiguous()
         h = interpolate_features(unknown, known, feats_f)

@@ -44,9 +44,11 @@ def pack_params(kernels, biases) -> torch.Tensor:
 
 
 def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
-                  kernels, biases, window: bool) -> torch.Tensor:
+                  kernels, biases, window: bool,
+                  params: torch.Tensor | None = None) -> torch.Tensor:
     """Kernels 2 (window=True) and 3: (B, P, 3), (B, P, C), (B, M, 3) f32
-    CUDA -> (B, M, C_last)."""
+    CUDA -> (B, M, C_last). `params` is pack_params(kernels, biases) made
+    ahead by the caller, or None to pack here."""
     B, P, _ = xyz.shape
     M = new_xyz.shape[1]
     C = features.shape[-1]
@@ -65,8 +67,11 @@ def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
             raise ValueError(f"fused_sa layer {i}: kernel {tuple(k.shape)} "
                              f"bias {tuple(b.shape)} do not chain from "
                              f"{widths[i]}")
-    params = pack_params(kernels, biases)
-    _kernels.check_cuda(params, "fused_sa params", torch.float32, (None,))
+    if params is None:
+        params = pack_params(kernels, biases)
+    n_params = sum(-(-w // 4) * 4 * wo + wo
+                   for w, wo in zip(widths[:-1], widths[1:]))
+    _kernels.check_cuda(params, "fused_sa params", torch.float32, (n_params,))
     out = torch.empty((B, M, widths[-1]), dtype=torch.float32,
                       device=xyz.device)
     r = float(radius)
@@ -83,11 +88,13 @@ def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
 
 
 def fused_sa(xyz, features, new_xyz, radius: float, nsample: int, kernels,
-             biases, window: bool) -> torch.Tensor:
+             biases, window: bool,
+             params: torch.Tensor | None = None) -> torch.Tensor:
     """Set abstraction for one scale: the kernel on CUDA tensors, the plain
-    version on CPU tensors. `window` requires z-sorted points and queries."""
+    version on CPU tensors. `window` requires z-sorted points and queries;
+    `params` (the kernel's packed weights) is used only on CUDA."""
     if xyz.is_cuda:
         return fused_sa_cuda(xyz, features, new_xyz, radius, nsample,
-                             kernels, biases, window)
+                             kernels, biases, window, params=params)
     return fused_sa_plain(xyz, features, new_xyz, radius, nsample, kernels,
                           biases)
