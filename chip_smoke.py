@@ -10,13 +10,28 @@ Phases (any failure exits non-zero; nothing is caught):
      against its plain PyTorch version on the recorded inputs (indices
      exact, floats within the stated tolerance), with CUDA-event times, the
      plain version's time and a roofline bound;
-  3. the main path: 16 synthetic scenes at full width with the fitted
+  3. the inference path: 16 synthetic scenes at full width with the fitted
      weights (ws3d_tpu/data/bench_weights.npz) through make_two_stage_fn,
      one warm-up and timed batches closed by torch.cuda.synchronize();
-     every kernel's launch count must rise during this run;
+     every kernel of the path must be launched during this run; then one
+     batch under torch.profiler;
   4. one scene through the port on the GPU and on the CPU (the plain
      versions); the detections must agree;
-  5. print the kernel table, the card's name and power limit, and the
+  5. the stage-1 train step at full width (batch 16, TRAIN batches, the
+     fitted stage-1 weights): record every kernel call of one step, forward
+     and backward, and hold the ball query (kernel 6) and the 3-NN search
+     (kernel 7) against their plain versions on the recorded inputs
+     (indices exact, d2 bit-exact), and the interpolation's backward
+     against autograd through its plain forward;
+  6. the training path: one warm-up step through Trainer.train_steps, then
+     timed steps closed by torch.cuda.synchronize() (steps/s, scenes/s,
+     peak memory, the loss of each step); fps, three_interpolate,
+     ball_query and three_nn must be launched, the BN running statistics
+     must move; then one step under torch.profiler;
+  7. one train step on 2 scenes on the GPU and on the CPU (the plain
+     versions) from the same weights and batch, no dropout: loss and
+     every gradient must agree;
+  8. print the kernel table, the card's name and power limit, and the
      result line.
 
 Prints nothing of the result and exits 2 without a CUDA device or outside
@@ -25,6 +40,7 @@ a checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -34,6 +50,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "ws3d_tpu", "data", "bench_weights.npz")
 BATCH = 16
 TIMED_ITERS = 3
+TIMED_STEPS = 5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 SIMT FLOP/s
 PEAK_BYTES = 3.35e12
@@ -50,7 +67,14 @@ KERNELS = {
                           "ws3d_tpu/ops/three_nn_pallas.py:49"),
     "crop_gather": ("ws3d_tpu_torch/csrc/crop_gather.cu",
                     "ws3d_tpu/ops/ball_query_pallas.py:113"),
+    "ball_query": ("ws3d_tpu_torch/csrc/ball_query.cu",
+                   "ws3d_tpu/ops/ball_query_pallas.py:34"),
+    "three_nn": ("ws3d_tpu_torch/csrc/three_nn.cu",
+                 "ws3d_tpu/ops/three_nn_pallas.py:21"),
 }
+INFERENCE_KERNELS = ("fps", "fused_sa_window", "fused_sa_full",
+                     "three_interpolate", "crop_gather")
+TRAIN_KERNELS = ("fps", "three_interpolate", "ball_query", "three_nn")
 
 
 def card_line() -> str:
@@ -76,28 +100,35 @@ def cuda_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------- recording
 class Recorder:
     """Wraps each kernel wrapper to keep a copy of the inputs of every call
-    the pipeline makes (phase 2 replays them)."""
+    the pipeline makes (phases 2 and 5 replay them)."""
 
     def __init__(self):
-        from ws3d_tpu_torch.ops import (crop_gather, fused_sa, interpolate,
-                                        sampling)
+        from ws3d_tpu_torch.ops import (ball_query, crop_gather, fused_sa,
+                                        interpolate, sampling)
         self.calls = []
         self.targets = [(sampling, "fps_cuda"), (fused_sa, "fused_sa_cuda"),
                         (interpolate, "three_interpolate_cuda"),
-                        (crop_gather, "crop_gather_cuda")]
+                        (crop_gather, "crop_gather_cuda"),
+                        (ball_query, "ball_query_multi_cuda"),
+                        (interpolate, "three_nn_cuda")]
         self.saved = {}
 
     def __enter__(self):
         import torch
+
+        def keep(a):
+            if isinstance(a, torch.Tensor):
+                return a.detach().clone()
+            if isinstance(a, (list, tuple)):
+                return [keep(x) for x in a]
+            return a
         for mod, name in self.targets:
             orig = getattr(mod, name)
             self.saved[(mod, name)] = orig
 
             def wrapped(*args, _orig=orig, _name=name, **kw):
-                keep = [a.clone() if isinstance(a, torch.Tensor) else
-                        [t.clone() for t in a] if isinstance(a, (list, tuple))
-                        else a for a in args]
-                self.calls.append((_name, keep, dict(kw)))
+                self.calls.append((_name, [keep(a) for a in args],
+                                   dict(kw)))
                 return _orig(*args, **kw)
             setattr(mod, name, wrapped)
         return self
@@ -112,7 +143,8 @@ class Recorder:
 def compare_call(name, args, kw):
     """-> (kernel key, max_abs_err, ms, plain_ms, bytes, ops, shape note)."""
     import torch
-    from ws3d_tpu_torch.ops import crop_gather, fused_sa, interpolate, sampling
+    from ws3d_tpu_torch.ops import (ball_query, crop_gather, fused_sa,
+                                    interpolate, sampling)
 
     if name == "fps_cuda":
         xyz, npoint = args
@@ -198,7 +230,67 @@ def compare_call(name, args, kw):
         ops = B * M * N * 6
         return ("crop_gather", err, ms, plain, nbytes, ops,
                 f"B{B} N{N} M{M} k{k}")
+
+    if name == "ball_query_multi_cuda":
+        radii, nsamples, xyz, new_xyz = args
+        out = ball_query.ball_query_multi_cuda(*args)
+        ref = ball_query.ball_query_multi_plain(*args)
+        for o, r, k in zip(out, ref, nsamples):
+            if not torch.equal(o, r):
+                bad = (o != r).sum().item()
+                raise AssertionError(f"ball_query {tuple(xyz.shape)} S{k}: "
+                                     f"{bad} indices differ from the plain "
+                                     f"version")
+        ms = cuda_ms(lambda: ball_query.ball_query_multi_cuda(*args), 5)
+        plain = cuda_ms(lambda: ball_query.ball_query_multi_plain(*args), 1)
+        B, N, _ = xyz.shape
+        M = new_xyz.shape[1]
+        nbytes = 4 * (B * N * 3 + B * M * 3 + B * M * sum(nsamples))
+        ops = (8 + len(radii)) * _tested_points(radii, nsamples, xyz,
+                                                new_xyz)
+        return ("ball_query", 0.0, ms, plain, nbytes, ops,
+                f"B{B} N{N} M{M} r{radii} S{nsamples}")
+
+    if name == "three_nn_cuda":
+        unknown, known = args
+        d2, idx = interpolate.three_nn_cuda(*args)
+        rd2, ridx = interpolate.three_nn_plain(*args)
+        if not torch.equal(idx, ridx):
+            bad = (idx != ridx).sum().item()
+            raise AssertionError(f"three_nn {tuple(unknown.shape)}: {bad} "
+                                 f"indices differ from the plain version")
+        err = (d2 - rd2).abs().max().item()
+        if err != 0.0:
+            raise AssertionError(f"three_nn d2 differs by {err}")
+        ms = cuda_ms(lambda: interpolate.three_nn_cuda(*args), 5)
+        plain = cuda_ms(lambda: interpolate.three_nn_plain(*args), 1)
+        B, n, _ = unknown.shape
+        m = known.shape[1]
+        nbytes = 4 * (B * n * 3 + B * m * 3 + B * n * 6)
+        ops = B * n * m * 10
+        return ("three_nn", err, ms, plain, nbytes, ops, f"B{B} n{n} m{m}")
     raise KeyError(name)
+
+
+def _tested_points(radii, nsamples, xyz, new_xyz) -> int:
+    """Points the multi-scale ball query must test: per query, up to and
+    including the S_i-th hit of the scale that fills last (all points when
+    a scale does not fill)."""
+    import torch
+    from ws3d_tpu_torch.ops.grouping import pairwise_sqdist, radius_sq
+    N = xyz.shape[1]
+    total = 0
+    for m0 in range(0, new_xyz.shape[1], 256):
+        d2 = pairwise_sqdist(new_xyz[:, m0:m0 + 256], xyz)      # (B, m, N)
+        reach = None
+        for r, k in zip(radii, nsamples):
+            cum = torch.cumsum(d2 < radius_sq(r, xyz.device), dim=-1)
+            pos = torch.searchsorted(cum, torch.full_like(
+                cum[..., :1], int(k)))[..., 0] + 1
+            pos = torch.where(cum[..., -1] >= k, pos, N)
+            reach = pos if reach is None else torch.maximum(reach, pos)
+        total += int(reach.sum())
+    return total
 
 
 def _scanned_points(xyz, new_xyz, radius, nsample, window) -> int:
@@ -291,29 +383,15 @@ def main() -> int:
         torch.cuda.synchronize()
     per_kernel = {k: {"err": 0.0, "ms": 0.0, "plain": 0.0, "bound": 0.0,
                       "by_bytes": 0.0} for k in KERNELS}
-    with torch.no_grad():
-        for name, args, kw in rec.calls:
-            key, err, ms, plain, nbytes, ops, note = compare_call(name, args,
-                                                                  kw)
-            t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-            agg = per_kernel[key]
-            agg["err"] = max(agg["err"], err)
-            agg["ms"] += ms
-            agg["plain"] += plain
-            agg["bound"] += max(t_bytes, t_ops)
-            agg["by_bytes"] += t_bytes if t_bytes >= t_ops else 0.0
-            print(f"#   {key:17s} {note:44s} err {err:.3g} kernel {ms:.4f} ms"
-                  f" plain {plain:.3f} ms bound {max(t_bytes, t_ops):.4f} ms "
-                  f"({'bytes' if t_bytes >= t_ops else 'operations'})",
-                  flush=True)
-    for key, agg in per_kernel.items():
-        if agg["ms"] == 0.0:
+    _compare_calls(rec.calls, per_kernel)
+    for key in INFERENCE_KERNELS:
+        if per_kernel[key]["ms"] == 0.0:
             raise AssertionError(f"kernel {key} was never called on the "
-                                 f"main path")
+                                 f"inference path")
     print(f"# phase 2: {len(rec.calls)} kernel calls compared in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- 3. the main path
+    # ---- 3. the inference path
     _kernels.reset_launch_counts()
     t0 = time.perf_counter()
     out = fn(bufs[0])
@@ -326,10 +404,10 @@ def main() -> int:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         outs.append(out)
-    launches = dict(_kernels.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    launches = {"inference": dict(_kernels.LAUNCHES)}
+    missing = [k for k in INFERENCE_KERNELS if launches["inference"][k] == 0]
     if missing:
-        raise AssertionError(f"main path launched no {missing}")
+        raise AssertionError(f"inference path launched no {missing}")
     packed = outs[-1]["packed"]
     keep = outs[-1]["keep"]
     # boxes are finite everywhere; a score is -inf where the cascade did
@@ -347,9 +425,11 @@ def main() -> int:
           f"(batch {BATCH}, {TIMED_ITERS} timed batches "
           f"{[round(t * 1e3, 1) for t in times]} ms, warm-up "
           f"{warm * 1e3:.1f} ms); detections {n_det}, n_live {n_live}, "
-          f"max spilled {spilled}; launches {launches}", flush=True)
+          f"max spilled {spilled}; launches {launches['inference']}",
+          flush=True)
 
-    _profile_batch(fn, bufs[1], 1e3 * sum(times) / len(times))
+    _profile(lambda: fn(bufs[1]), 1e3 * sum(times) / len(times),
+             "phase 3 profile", "batch")
 
     # ---- 4. one scene: GPU port vs CPU plain versions
     t0 = time.perf_counter()
@@ -362,14 +442,20 @@ def main() -> int:
     print(f"# phase 4: one scene GPU vs CPU plain: {int(gpu['keep'].sum())} "
           f"vs {int(cpu['keep'].sum())} detections agree "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del model, fn, cpu_model, bufs
 
-    # ---- 5. report
+    # ---- 5.-7. the stage-1 training path
+    launches["train"] = _train_phases(card, per_kernel)
+
+    # ---- 8. report
     table = []
     for key, (source, replaces) in KERNELS.items():
         agg = per_kernel[key]
+        by_path = {p: v[key] for p, v in launches.items() if v[key]}
         table.append({
             "name": key, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": agg["err"], "ms": agg["ms"],
             "plain_ms": agg["plain"], "bound_ms": agg["bound"],
             "bound_by": ("bytes" if agg["by_bytes"] >= agg["bound"] / 2
@@ -383,34 +469,201 @@ def main() -> int:
     return 0
 
 
-def _profile_batch(fn, batch, batch_ms: float) -> None:
-    """One main-path batch under torch.profiler: device time by kernel (the
-    hand-written five first) and the device's busy share of a batch timed
-    without the profiler (`batch_ms`; the profiler slows the host)."""
+def _compare_calls(calls, per_kernel) -> None:
+    """Replay recorded kernel calls against their plain versions and add
+    each call's error, times and bound to `per_kernel`."""
+    import torch
+    with torch.no_grad():
+        for name, args, kw in calls:
+            key, err, ms, plain, nbytes, ops, note = compare_call(name, args,
+                                                                  kw)
+            t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+            agg = per_kernel[key]
+            agg["err"] = max(agg["err"], err)
+            agg["ms"] += ms
+            agg["plain"] += plain
+            agg["bound"] += max(t_bytes, t_ops)
+            agg["by_bytes"] += t_bytes if t_bytes >= t_ops else 0.0
+            print(f"#   {key:17s} {note:44s} err {err:.3g} kernel {ms:.4f} ms"
+                  f" plain {plain:.3f} ms bound {max(t_bytes, t_ops):.4f} ms "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'})",
+                  flush=True)
+
+
+def _rpn_model(cfg, device):
+    """The stage-1 model with the fitted npz's stage-1 entries."""
+    import numpy as np
+    from ws3d_tpu_torch.models import build_model
+    from ws3d_tpu_torch.weights import load_flat
+    model = build_model(cfg, device=device)
+    with np.load(WEIGHTS) as z:
+        load_flat(model, {k: z[k] for k in z.files
+                          if k.split("/")[1] == "rpn"})
+    return model
+
+
+def _train_phases(card, per_kernel) -> dict:
+    """Phases 5-7 on the stage-1 train step at batch 16; returns the
+    training path's launch counts."""
+    import torch
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.datasets import RPNDataset, SyntheticKitti
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.ops.interpolate import (interpolate_features,
+                                                three_interpolate_plain)
+    from ws3d_tpu_torch.training import Trainer
+    from ws3d_tpu_torch.training.trainer import batch_to_device, rpn_gradients
+
+    t0 = time.perf_counter()
+    cfg = load_config()                       # stage 1, DP_RATIO 0.5
+    model = _rpn_model(cfg, "cuda")
+    src = SyntheticKitti(num_scenes=BATCH * 2, points_per_scene=20000, seed=3)
+    ds = RPNDataset(src, cfg, mode="TRAIN", seed=0)
+    host = list(ds.batches(BATCH, steps=TIMED_STEPS + 2, shuffle=True))
+    batches = [batch_to_device(b, "cuda") for b in host]
+    trainer = Trainer(model, cfg, total_steps=1000, seed=0,
+                      log_fn=lambda msg: print("#   " + msg, flush=True))
+    print(f"# phase 5: {len(host)} TRAIN batches of {BATCH} made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 5. kernels 6 and 7 on the inputs of one step, and the backward
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        rpn_gradients(model, cfg, batches[0], trainer.generator, 0.1,
+                      trainer.optimizer.params)
+        torch.cuda.synchronize()
+    calls = [c for c in rec.calls
+             if c[0] in ("ball_query_multi_cuda", "three_nn_cuda")]
+    _compare_calls(calls, per_kernel)
+    for key in ("ball_query", "three_nn"):
+        if per_kernel[key]["ms"] == 0.0:
+            raise AssertionError(f"kernel {key} was never called in a step")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, args, _ in rec.calls:
+        if name != "three_interpolate_cuda":
+            continue
+        unknown, known, feats = args
+        g = torch.randn(unknown.shape[:2] + feats.shape[2:], device="cuda",
+                        generator=gen)
+        f1 = feats.clone().requires_grad_(True)
+        f2 = feats.clone().requires_grad_(True)
+        (interpolate_features(unknown, known, f1) * g).sum().backward()
+        (three_interpolate_plain(unknown, known, f2) * g).sum().backward()
+        err = (f1.grad - f2.grad).abs().max().item()
+        # the same weighted sums, added by atomics in another order
+        tol = 1e-5 * f2.grad.abs().max().item() + 1e-6
+        print(f"#   interpolate backward n{unknown.shape[1]} "
+              f"m{known.shape[1]} C{feats.shape[2]}: max|diff| {err:.3g} "
+              f"(tol {tol:.3g})", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"interpolation backward differs by {err}")
+    print(f"# phase 5: {len(calls)} kernel calls of one train step compared "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 6. the training path
+    bn = model.rpn.backbone.sa_0.mlp_0.BatchNorm_0
+    stats = (bn.mean.clone(), bn.var.clone())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train_steps([host[0]], total_steps=1, log_every=1,
+                        prefetch_size=0)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    times, step_losses = [], []
+    for i in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        aux = trainer.step_fn(batches[1 + i], trainer.generator,
+                              trainer.bn_sched(0))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        step_losses.append(aux["loss"])
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_losses = [float(v) for v in step_losses]
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"training path launched no {missing}")
+    if not all(math.isfinite(v) for v in step_losses):
+        raise AssertionError(f"non-finite loss {step_losses}")
+    if torch.equal(stats[0], bn.mean) or torch.equal(stats[1], bn.var):
+        raise AssertionError("the BN running statistics did not move")
+    if trainer.step != 1 + TIMED_STEPS:
+        raise AssertionError(f"optimizer count {trainer.step}")
+    step_ms = 1e3 * sum(times) / len(times)
+    print(f"# phase 6: {card}: {1e3 / step_ms:.3f} steps/s, "
+          f"{BATCH * 1e3 / step_ms:.2f} scenes/s (batch {BATCH}, "
+          f"{TIMED_STEPS} timed steps {[round(t * 1e3, 1) for t in times]} "
+          f"ms, warm-up {warm * 1e3:.1f} ms); peak memory "
+          f"{peak / 2**30:.2f} GiB; losses "
+          f"{[round(v, 5) for v in step_losses]}; launches {launches}",
+          flush=True)
+    _profile(lambda: trainer.step_fn(batches[-1], trainer.generator,
+                                     trainer.bn_sched(0)),
+             step_ms, "phase 6 profile", "step")
+
+    # ---- 7. one train step on 2 scenes: GPU vs CPU plain versions
+    t0 = time.perf_counter()
+    cfg.RPN.DP_RATIO = 0.0
+    two = {k: v[:2] for k, v in host[0].items()}
+    res = []
+    for device in ("cuda", "cpu"):
+        m = _rpn_model(cfg, device)
+        loss, _, grads = rpn_gradients(
+            m, cfg, batch_to_device(two, device), None, 0.1,
+            dict(m.rpn.named_parameters(prefix="rpn")))
+        res.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+    (gl, gg), (cl, cg) = res
+    rel = abs(gl - cl) / abs(cl)
+    if not rel <= 1e-3:
+        raise AssertionError(f"train-step loss GPU {gl} vs CPU {cl}")
+    worst = ("", 0.0)
+    for k, g in gg.items():
+        e = ((g - cg[k]).abs().max() / cg[k].abs().max()).item()
+        if not e <= 1e-3:
+            raise AssertionError(f"gradient {k}: GPU vs CPU {e:.3g} of its "
+                                 f"largest magnitude")
+        worst = max(worst, (k, e), key=lambda x: x[1])
+    print(f"# phase 7: train step on 2 scenes GPU vs CPU plain: loss {gl:.6f} "
+          f"vs {cl:.6f} (rel {rel:.3g}); worst gradient {worst[0]} "
+          f"{worst[1]:.3g} of its largest magnitude "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return launches
+
+
+def _profile(run, ms: float, label: str, unit: str) -> None:
+    """One run under torch.profiler: device time by kernel (the
+    hand-written ones first) and the device's busy share of a run timed
+    without the profiler (`ms`; the profiler slows the host)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn(batch)
+        run()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     busy = sum(r[1] for r in rows)
-    print(f"# phase 3 profile: {busy:.1f} ms of kernels in one batch, "
-          f"{100 * busy / batch_ms:.1f} % of the {batch_ms:.1f} ms batch "
+    print(f"# {label}: {busy:.1f} ms of kernels in one {unit}, "
+          f"{100 * busy / ms:.1f} % of the {ms:.1f} ms {unit} "
           f"({len(rows)} kernel names)")
     ours = ("fps_kernel", "fused_sa_kernel", "three_interp_kernel",
-            "crop_gather_kernel")
+            "crop_gather_kernel", "ball_query_kernel", "three_nn_kernel")
     rows.sort(key=lambda r: -r[1])
-    mine = sum(r[1] for r in rows if any(o in r[0] for o in ours))
-    print(f"#   {mine:9.3f} ms in the five hand-written kernels")
-    for key, ms, count in rows[:14]:
-        print(f"#   {ms:9.3f} ms {count:6d}x  {key[:90]}")
+    for o in ours:
+        mine = [r for r in rows if o in r[0]]
+        if mine:
+            print(f"#   {sum(r[1] for r in mine):9.3f} ms "
+                  f"{sum(r[2] for r in mine):6d}x  {o} (hand-written)")
+    for key, ms_k, count in rows[:14]:
+        print(f"#   {ms_k:9.3f} ms {count:6d}x  {key[:90]}")
     rest = sum(r[1] for r in rows[14:])
-    print(f"#   {rest:9.3f} ms in {max(len(rows) - 14, 0)} other kernels")
+    print(f"#   {rest:9.3f} ms in {max(len(rows) - 14, 0)} other kernels",
+          flush=True)
 
 
 def _check_detections(a, b, score_thresh: float) -> None:

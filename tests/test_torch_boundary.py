@@ -9,7 +9,8 @@ import torch
 
 from torch_port_helpers import REPO
 
-BANNED = ("jax", "flax", "optax")
+# JAX and its libraries; the repo's tools/ (tools/common.py imports JAX)
+BANNED = ("jax", "flax", "optax", "orbax", "tools", "common")
 
 
 def _port_files():
@@ -41,7 +42,9 @@ def test_no_jax_or_reference_package_imports(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, ws3d_tpu_torch.pipeline, ws3d_tpu_torch.datasets, "
-            "ws3d_tpu_torch.weights; "
+            "ws3d_tpu_torch.weights, ws3d_tpu_torch.training, "
+            "ws3d_tpu_torch.losses, ws3d_tpu_torch.ops.ball_query, "
+            "ws3d_tpu_torch.tools.train_rpn; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'ws3d_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -50,7 +53,7 @@ def test_import_leaves_jax_unloaded():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def test_entry_points_need_an_explicit_cpu_request(monkeypatch):
+def test_entry_points_need_an_explicit_cpu_request(monkeypatch, tmp_path):
     from ws3d_tpu_torch.config import load_config
     from ws3d_tpu_torch.device import resolve_device
     from ws3d_tpu_torch.models import build_model
@@ -59,12 +62,22 @@ def test_entry_points_need_an_explicit_cpu_request(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError):
         build_model(load_config())
+    from ws3d_tpu_torch.tools import train_rpn
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_rpn.main(["--synthetic", "--steps", "1", "--scenes", "2",
+                        "--batch", "1", "--points", "256",
+                        "--output_dir", str(tmp_path)])
     assert resolve_device("cpu").type == "cpu"
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
-    from ws3d_tpu_torch.ops import crop_gather, fused_sa, interpolate, sampling
+    from ws3d_tpu_torch.ops import (ball_query, crop_gather, fused_sa,
+                                    interpolate, sampling)
     x = torch.zeros(1, 128, 3)
+    with pytest.raises(ValueError):
+        ball_query.ball_query_multi_cuda([0.5], [8], x, x[:, :8])
+    with pytest.raises(ValueError):
+        interpolate.three_nn_cuda(x, x)
     with pytest.raises(ValueError):
         sampling.fps_cuda(x, 8)
     with pytest.raises(ValueError):

@@ -80,3 +80,48 @@ def test_crop_gather_kernel(dev, rng, grouped):
     rv, rc = crop_gather_plain(*args, 4.0, 128, grouped)
     assert torch.equal(cnt, rc)
     assert torch.equal(vals, rv)
+
+
+def test_ball_query_kernel(dev, rng):
+    from ws3d_tpu_torch.ops.ball_query import (ball_query_multi_cuda,
+                                               ball_query_multi_plain)
+    xyz, _ = sorted_cloud(rng, 2, 4096, 1, spread=2.0)
+    new_xyz = xyz[:, np.sort(rng.choice(4096, 1024, replace=False))].copy()
+    new_xyz[:, :8] = 50.0                       # empty balls
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (xyz, new_xyz)]
+    for radii, ks in (([0.1, 0.5], [16, 32]), ([0.3], [8]),
+                      ([0.2, 0.4, 0.8, 1.6], [4, 8, 16, 64])):
+        got = ball_query_multi_cuda(radii, ks, *args)
+        ref = ball_query_multi_plain(radii, ks, *args)
+        for g, r in zip(got, ref):
+            assert g.dtype == torch.int32
+            assert torch.equal(g, r)
+
+
+def test_three_nn_kernel(dev, rng):
+    from ws3d_tpu_torch.ops.interpolate import three_nn_cuda, three_nn_plain
+    for m in (1, 2, 3, 300, 2500):
+        u = torch.from_numpy(rng.randn(2, 700, 3).astype(np.float32)).to(dev)
+        k = torch.from_numpy(rng.randn(2, m, 3).astype(np.float32)).to(dev)
+        if m > 3:
+            k[:, 1] = k[:, 0]                    # a tie
+        d2, idx = three_nn_cuda(u, k)
+        rd2, ridx = three_nn_plain(u, k)
+        assert torch.equal(idx, ridx)
+        assert torch.equal(d2, rd2)
+
+
+def test_interpolate_backward(dev, rng):
+    from ws3d_tpu_torch.ops.interpolate import (interpolate_features,
+                                                three_interpolate_plain)
+    u = torch.from_numpy(rng.randn(2, 3000, 3).astype(np.float32)).to(dev)
+    k = torch.from_numpy(rng.randn(2, 700, 3).astype(np.float32)).to(dev)
+    f = torch.from_numpy(rng.randn(2, 700, 64).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(2, 3000, 64).astype(np.float32)).to(dev)
+    f1 = f.clone().requires_grad_(True)
+    f2 = f.clone().requires_grad_(True)
+    (interpolate_features(u, k, f1) * g).sum().backward()
+    (three_interpolate_plain(u, k, f2) * g).sum().backward()
+    # atomics and another order of the three weighted rows
+    torch.testing.assert_close(f1.grad, f2.grad, atol=1e-5, rtol=1e-5)

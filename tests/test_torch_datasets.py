@@ -37,4 +37,5 @@ def test_batches_stack_in_sample_order():
     assert batches[1]["sample_id"].tolist() == [2, 3]
     assert batches[0]["pts_input"].shape == (2, 1024, 4)
     with pytest.raises(NotImplementedError):
-        RPNDataset(ds.source, load_config(), mode="TRAIN")
+        RPNDataset(ds.source, load_config(), mode="TRAIN",
+                   gt_database=([], []))

@@ -66,6 +66,38 @@ def torch_detector(n_points: int = 4096, npoints=(1024, 256, 64, 16)):
     return model, cfg
 
 
+def rpn_cfg(load_config, n_points: int = 2048):
+    """Stage 1 alone at full widths on a small cloud, NPOINTS scaled as
+    tools/train_rpn.py scales them, no dropout (either package's
+    load_config)."""
+    cfg = load_config()
+    cfg.RPN.NUM_POINTS = n_points
+    cfg.RPN.SA_CONFIG.NPOINTS = [n_points // 4, n_points // 16,
+                                 n_points // 64, n_points // 256]
+    cfg.RPN.DP_RATIO = 0.0
+    return cfg
+
+
+@functools.lru_cache(maxsize=None)
+def rpn_flat_weights():
+    """The fitted npz's stage-1 entries ({npz key: array})."""
+    with np.load(WEIGHTS) as z:
+        return {k: z[k] for k in z.files if k.split("/")[1] == "rpn"}
+
+
+def train_batch(n_scenes: int, n_points: int, seed: int = 3):
+    """A TRAIN batch (shuffled, augmented, Gaussian labels) of the JAX
+    package's loader."""
+    from ws3d_tpu.config import load_config
+    from ws3d_tpu.datasets import SyntheticKitti
+    from ws3d_tpu.datasets.rpn_dataset import RPNDataset
+    src = SyntheticKitti(num_scenes=2 * n_scenes, points_per_scene=20000,
+                         seed=seed)
+    ds = RPNDataset(src, load_config(), mode="TRAIN", npoints=n_points,
+                    seed=0)
+    return next(ds.batches(batch_size=n_scenes, steps=1))
+
+
 def synthetic_batch(n_scenes: int, n_points: int, seed: int = 3):
     """EVAL pts_input (B, N, 4) of the JAX package's loader."""
     from ws3d_tpu.config import load_config

@@ -28,3 +28,121 @@ static inline int ws3d_set_smem(const void* kernel, size_t bytes) {
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
 }
+
+// ---- ball query: shared by ball_query.cu and fused_sa.cu -------------------
+
+constexpr int kMaxScales = 4;
+
+struct BallScales {
+  int n;                 // scales in use, 1..kMaxScales
+  float r2[kMaxScales];  // f32 rounding of the double product radius * radius
+  int S[kMaxScales];     // samples per scale
+};
+
+// One warp scans points [lo, hi) of `pts` ((x, y, z) rows) in ascending
+// index, 32 at a time, computes each d2 once and tests it against every
+// scale. rows[s] receives the first S[s] indices with d2 < r2[s], padded with
+// the first hit, all 0 when the ball is empty. The scan stops once every
+// scale has its S hits. All 32 lanes call it with the same arguments.
+__device__ __forceinline__ void warp_ball_query(
+    const float* __restrict__ pts, int lo, int hi, float qx, float qy,
+    float qz, const BallScales& sc, int* const* rows) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int cnt[kMaxScales];
+#pragma unroll
+  for (int s = 0; s < kMaxScales; ++s) cnt[s] = 0;
+  bool full = false;
+  for (int base = lo; base < hi && !full; base += 32) {
+    const int j = base + lane;
+    const float d = j < hi ? sqdist3(qx - pts[3 * j], qy - pts[3 * j + 1],
+                                     qz - pts[3 * j + 2])
+                           : __int_as_float(0x7f800000);
+    full = true;
+#pragma unroll
+    for (int s = 0; s < kMaxScales; ++s) {
+      if (s < sc.n) {  // warp-uniform
+        const bool in = d < sc.r2[s];
+        const unsigned m = __ballot_sync(0xffffffffu, in);
+        const int rank = cnt[s] + __popc(m & below);
+        if (in && rank < sc.S[s]) rows[s][rank] = j;
+        cnt[s] += __popc(m);
+        full = full && cnt[s] >= sc.S[s];
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < kMaxScales; ++s) {
+    if (s < sc.n) {
+      const int n = min(cnt[s], sc.S[s]);
+      const int first = n > 0 ? rows[s][0] : 0;
+      for (int k = n + lane; k < sc.S[s]; k += 32) rows[s][k] = first;
+    }
+  }
+  __syncwarp();
+}
+
+// ---- 3-NN search: shared by three_nn.cu and interpolate.cu -----------------
+
+constexpr int kNNThreads = 128;  // unknown points per block, one per thread
+constexpr int kNNTile = 1024;    // known points per shared-memory tile
+
+// The three known points of `kb` ((x, y, z) rows, m of them) nearest to
+// (qx, qy, qz): d2 ascending, the lowest index first on ties, the nearest
+// repeated when m < 3. A running top-3 with strict < over ascending indices
+// gives the order of the TPU's three masked-min passes. Every thread of a
+// kNNThreads-thread block calls it (it synchronises the block); `tile` is
+// 3 * kNNTile floats of shared memory.
+__device__ __forceinline__ void block_three_nn(const float* __restrict__ kb,
+                                               int m, float qx, float qy,
+                                               float qz, float* tile,
+                                               float (&d)[3], int (&i)[3]) {
+  float* kx = tile;
+  float* ky = tile + kNNTile;
+  float* kz = tile + 2 * kNNTile;
+  const int tid = threadIdx.x;
+  const float inf = __int_as_float(0x7f800000);
+  d[0] = d[1] = d[2] = inf;
+  i[0] = i[1] = i[2] = -1;
+  for (int t0 = 0; t0 < m; t0 += kNNTile) {
+    const int cnt = min(kNNTile, m - t0);
+    __syncthreads();
+    for (int t = tid; t < cnt; t += kNNThreads) {
+      kx[t] = kb[3 * (t0 + t)];
+      ky[t] = kb[3 * (t0 + t) + 1];
+      kz[t] = kb[3 * (t0 + t) + 2];
+    }
+    __syncthreads();
+    for (int t = 0; t < cnt; ++t) {
+      const float v = sqdist3(qx - kx[t], qy - ky[t], qz - kz[t]);
+      const int j = t0 + t;
+      if (v < d[2]) {
+        if (v < d[1]) {
+          d[2] = d[1];
+          i[2] = i[1];
+          if (v < d[0]) {
+            d[1] = d[0];
+            i[1] = i[0];
+            d[0] = v;
+            i[0] = j;
+          } else {
+            d[1] = v;
+            i[1] = j;
+          }
+        } else {
+          d[2] = v;
+          i[2] = j;
+        }
+      }
+    }
+  }
+  if (i[1] < 0) {  // m < 3: repeat the nearest
+    d[1] = d[0];
+    i[1] = i[0];
+  }
+  if (i[2] < 0) {
+    d[2] = d[0];
+    i[2] = i[0];
+  }
+}

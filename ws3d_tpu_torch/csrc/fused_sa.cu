@@ -96,6 +96,10 @@ fused_sa_kernel(const float* __restrict__ xyz, const float* __restrict__ feat,
   __syncthreads();
 
   // ---- ball query: one warp per query, ascending index, stop after S hits
+  BallScales sc;
+  sc.n = 1;
+  sc.r2[0] = r2;
+  sc.S[0] = S;
   for (int qi = warp; qi < nq; qi += nwarps) {
     const float qx = qs[3 * qi], qy = qs[3 * qi + 1], qz = qs[3 * qi + 2];
     int lo = 0, hi = P;
@@ -103,23 +107,8 @@ fused_sa_kernel(const float* __restrict__ xyz, const float* __restrict__ feat,
       lo = lower_bound_z(pb, P, (double)qz - (double)win);
       hi = upper_bound_z(pb, P, (double)qz + (double)win);
     }
-    int* row = idx + qi * S;
-    int cnt = 0;
-    for (int base = lo; base < hi && cnt < S; base += 32) {
-      const int j = base + lane;
-      bool in = false;
-      if (j < hi)
-        in = sqdist3(qx - pb[3 * j], qy - pb[3 * j + 1], qz - pb[3 * j + 2]) <
-             r2;
-      const unsigned m = __ballot_sync(0xffffffffu, in);
-      const int rank = cnt + __popc(m & ((1u << lane) - 1u));
-      if (in && rank < S) row[rank] = j;
-      cnt += __popc(m);
-    }
-    __syncwarp();
-    const int n = min(cnt, S);
-    const int first = n > 0 ? row[0] : 0;
-    for (int s = n + lane; s < S; s += 32) row[s] = first;
+    int* rows[kMaxScales] = {idx + qi * S};
+    warp_ball_query(pb, lo, hi, qx, qy, qz, sc, rows);
   }
   __syncthreads();
 

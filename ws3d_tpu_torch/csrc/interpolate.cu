@@ -14,22 +14,23 @@
 //
 // Design: a block of 128 threads owns 128 unknown points; known points are
 // staged through shared memory in tiles and each thread keeps a running
-// top-3 with strict < while scanning in ascending index, which yields the
-// (d2, index) order of the TPU's three masked-min passes. The block then
-// writes the output rows with threads across channels (coalesced).
+// top-3 with strict < while scanning in ascending index (block_three_nn in
+// common.cuh, which the 3-NN kernel of the backward shares, so both pick the
+// same neighbours), which yields the (d2, index) order of the TPU's three
+// masked-min passes. The block then writes the output rows with threads
+// across channels (coalesced).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kQ = 128;      // unknown points per block
-constexpr int kTile = 1024;  // known points per shared-memory tile
+constexpr int kQ = kNNThreads;  // unknown points per block
 
 __global__ void __launch_bounds__(kQ)
 three_interp_kernel(const float* __restrict__ unknown,
                     const float* __restrict__ known,
                     const float* __restrict__ feats, int n, int m, int C,
                     float* __restrict__ out) {
-  __shared__ float kx[kTile], ky[kTile], kz[kTile];
+  __shared__ float tile[3 * kNNTile];
   __shared__ int s_idx[kQ][3];
   __shared__ float s_w[kQ][3];
   const int tiles = (n + kQ - 1) / kQ;
@@ -47,49 +48,11 @@ three_interp_kernel(const float* __restrict__ unknown,
     qy = ub[3 * u + 1];
     qz = ub[3 * u + 2];
   }
-  const float inf = __int_as_float(0x7f800000);
-  float d0 = inf, d1 = inf, d2 = inf;
-  int i0 = -1, i1 = -1, i2 = -1;
-  for (int t0 = 0; t0 < m; t0 += kTile) {
-    const int cnt = min(kTile, m - t0);
-    __syncthreads();
-    for (int t = tid; t < cnt; t += kQ) {
-      kx[t] = kb[3 * (t0 + t)];
-      ky[t] = kb[3 * (t0 + t) + 1];
-      kz[t] = kb[3 * (t0 + t) + 2];
-    }
-    __syncthreads();
-    for (int t = 0; t < cnt; ++t) {
-      const float d = sqdist3(qx - kx[t], qy - ky[t], qz - kz[t]);
-      const int j = t0 + t;
-      if (d < d2) {
-        if (d < d1) {
-          d2 = d1;
-          i2 = i1;
-          if (d < d0) {
-            d1 = d0;
-            i1 = i0;
-            d0 = d;
-            i0 = j;
-          } else {
-            d1 = d;
-            i1 = j;
-          }
-        } else {
-          d2 = d;
-          i2 = j;
-        }
-      }
-    }
-  }
-  if (i1 < 0) {  // m < 3: repeat the nearest
-    d1 = d0;
-    i1 = i0;
-  }
-  if (i2 < 0) {
-    d2 = d0;
-    i2 = i0;
-  }
+  float d[3];
+  int nn[3];
+  block_three_nn(kb, m, qx, qy, qz, tile, d, nn);
+  const float d0 = d[0], d1 = d[1], d2 = d[2];
+  const int i0 = nn[0], i1 = nn[1], i2 = nn[2];
   const float r0 = 1.0f / (d0 + 1e-8f), r1 = 1.0f / (d1 + 1e-8f),
               r2 = 1.0f / (d2 + 1e-8f);
   const float norm = __fadd_rn(__fadd_rn(r0, r1), r2);

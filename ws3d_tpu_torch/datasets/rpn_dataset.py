@@ -1,10 +1,16 @@
-"""EVAL-mode scene loader (NumPy copy of the EVAL path of
-ws3d_tpu/datasets/rpn_dataset.py): image-FOV + range crop, the near/far
-16,384-point sample drawn from a per-scene RNG, intensity shifted to
-[-0.5, 0.5] and a stable sort ascending by rect z."""
+"""Stage-1 scene loader (NumPy copy of ws3d_tpu/datasets/rpn_dataset.py):
+image-FOV + range crop, the near/far 16,384-point sample, intensity shifted
+to [-0.5, 0.5] and a stable sort ascending by rect z.
+
+EVAL draws each scene's sample from an RNG of its own. TRAIN draws the
+sample, the global augmentation (rotation, scaling, x-flip) and the
+shuffle from one stream, `self.rng`, in the JAX package's order, so both
+packages give the same batches for the same seed; its labels are Gaussian
+soft labels around the noisy weak-label centres. The GT-database copy-paste
+augmentation is not ported."""
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -51,21 +57,103 @@ def sample_npoints(n_have: int, npoints: int, depth: np.ndarray,
     return choice
 
 
+def rotate_pc_along_y_np(pc: np.ndarray, angle: float) -> np.ndarray:
+    """In-place x/z rotation."""
+    c, s = np.cos(angle), np.sin(angle)
+    R = np.array([[c, -s], [s, c]], dtype=pc.dtype)
+    pc[:, [0, 2]] = pc[:, [0, 2]] @ R
+    return pc
+
+
+def augment_scene(pts_rect: np.ndarray, gt_boxes3d: np.ndarray,
+                  rng: np.random.RandomState,
+                  rot_range: float = 18.0,
+                  method_prob: Sequence[float] = (1.0, 1.0, 0.5)):
+    """Global rotation / scaling / x-flip, each taken with its probability;
+    -> (pts_rect, gt_boxes3d, methods)."""
+    enable = 1.0 - rng.rand(3)
+    methods = []
+    if enable[0] < method_prob[0]:
+        angle = rng.uniform(-np.pi / rot_range, np.pi / rot_range)
+        pts_rect = rotate_pc_along_y_np(pts_rect.copy(), angle)
+        gt_boxes3d = rotate_pc_along_y_np(gt_boxes3d.copy(), angle)
+        methods.append(("rotation", angle))
+    if enable[1] < method_prob[1]:
+        scale = rng.uniform(0.95, 1.05)
+        pts_rect = pts_rect * scale
+        gt_boxes3d = gt_boxes3d.copy()
+        gt_boxes3d[:, 0:6] *= scale
+        methods.append(("scaling", scale))
+    if enable[2] < method_prob[2]:
+        pts_rect = pts_rect.copy()
+        gt_boxes3d = gt_boxes3d.copy()
+        pts_rect[:, 0] = -pts_rect[:, 0]
+        gt_boxes3d[:, 0] = -gt_boxes3d[:, 0]
+        methods.append(("flip",))
+    return pts_rect, gt_boxes3d, methods
+
+
+def gaussian_weak_labels(pts_rect: np.ndarray, gt_centers: np.ndarray,
+                         gauss_height: float = 0.707,
+                         gauss_status: float = 0.7,
+                         gauss_cov: float = 1.5):
+    """Gaussian soft cls labels + nearest-centre reg targets.
+
+    cls = exp(-clip(d - status, 0)^2 / (2 cov)) with
+    d = sqrt((x-cx)^2 + (y*gauss_height)^2 + (z-cz)^2) to the nearest
+    centre; reg = (dx, 0, dz) to it for points with d < 4 m."""
+    n = pts_rect.shape[0]
+    cls_label = np.zeros((n,), np.float32)
+    reg_label = np.zeros((n, 3), np.float32)
+    if gt_centers.shape[0] == 0:
+        return cls_label, reg_label
+    dx = pts_rect[:, 0:1] - gt_centers[None, :, 0]
+    dz = pts_rect[:, 2:3] - gt_centers[None, :, 2]
+    y2 = np.square(pts_rect[:, 1:2] * gauss_height)
+    dist = np.sqrt(np.square(dx) + y2 + np.square(dz))     # (N, K)
+    min_dist = np.clip(dist.min(axis=1) - gauss_status, 0.0, 100.0)
+    cls_label = np.exp(-np.square(min_dist)
+                       / (2.0 * gauss_cov)).astype(np.float32)
+    nearest = dist.argmin(axis=1)
+    fg = dist.min(axis=1) < 4.0
+    reg_label[fg, 0] = gt_centers[nearest[fg], 0] - pts_rect[fg, 0]
+    reg_label[fg, 2] = gt_centers[nearest[fg], 2] - pts_rect[fg, 2]
+    return cls_label, reg_label
+
+
 class RPNDataset:
-    """Fixed-shape EVAL batches from a scene source (an object with
-    .sample_ids and .get_scene(i, with_noise), e.g. SyntheticKitti)."""
+    """Fixed-shape batches from a scene source (an object with .sample_ids
+    and .get_scene(i, with_noise), e.g. SyntheticKitti).
+
+    TRAIN with `weakly_num` keeps the first weakly_num scenes that have
+    weak labels. A `gt_database` (copy-paste augmentation) is refused."""
 
     def __init__(self, source, cfg, mode: str = "EVAL",
-                 npoints: Optional[int] = None, seed: int = 0):
-        if mode != "EVAL":
-            raise NotImplementedError("only the EVAL path is ported")
+                 npoints: Optional[int] = None,
+                 weakly_num: Optional[int] = None, seed: int = 0,
+                 gt_database=None):
+        if mode not in ("TRAIN", "EVAL"):
+            raise ValueError(f"mode {mode!r}: TRAIN or EVAL")
+        if gt_database is not None:
+            raise NotImplementedError("GT-database augmentation is not "
+                                      "ported")
         self.source = source
         self.cfg = cfg
         self.mode = mode
         self.npoints = npoints or cfg.RPN.NUM_POINTS
         self.seed = seed
+        self.rng = np.random.RandomState(seed)
         self.sort_z = bool(cfg.TPU.get("SORT_POINTS_Z", True))
-        self.sample_ids = list(source.sample_ids)
+        ids = list(source.sample_ids)
+        if weakly_num is not None and mode == "TRAIN":
+            kept = []
+            for sid in ids:
+                if len(source.get_scene(sid, with_noise=True).noise_labels):
+                    kept.append(sid)
+                if len(kept) >= weakly_num:
+                    break
+            ids = kept
+        self.sample_ids = ids
 
     def __len__(self):
         return len(self.sample_ids)
@@ -89,8 +177,9 @@ class RPNDataset:
                               cfg.PC_AREA_SCOPE if cfg.PC_REDUCE_BY_RANGE
                               else None)
         pts_rect, intensity, depth = pts_rect[ok], intensity[ok], depth[ok]
-        choice = sample_npoints(len(pts_rect), self.npoints, depth,
-                                self._eval_rng(index))
+        train = self.mode == "TRAIN"
+        rng = self.rng if train else self._eval_rng(index)
+        choice = sample_npoints(len(pts_rect), self.npoints, depth, rng)
         pts_rect = pts_rect[choice]
         intensity = intensity[choice] - 0.5
         if cfg.RPN.USE_INTENSITY:
@@ -98,25 +187,57 @@ class RPNDataset:
                                    intensity[:, None]]).astype(np.float32)
         else:
             pts_input = pts_rect.astype(np.float32)
+
+        gt_objs = scene.noise_labels if train else scene.labels
+        gt = objs_to_boxes3d([o for o in gt_objs
+                              if o.cls_type in ("Car", "Van")])
+        if train and cfg.AUG_DATA:
+            aug_pts, gt, _ = augment_scene(
+                pts_input[:, :3], gt.reshape(-1, 7), self.rng,
+                rot_range=cfg.AUG_ROT_RANGE, method_prob=cfg.AUG_METHOD_PROB)
+            pts_input = pts_input.copy()
+            pts_input[:, :3] = aug_pts
         if self.sort_z:
+            # after the augmentation (rotation changes z); labels follow
             pts_input = pts_input[np.argsort(pts_input[:, 2], kind="stable")]
 
-        gt = objs_to_boxes3d([o for o in scene.labels
-                              if o.cls_type in ("Car", "Van")])
         n_gt = min(len(gt), MAX_GT)
         gt_pad = np.zeros((MAX_GT, 7), np.float32)
         gt_pad[:n_gt] = gt[:n_gt]
-        return {"sample_id": np.int32(scene.sample_id),
-                "pts_input": pts_input, "gt_boxes3d": gt_pad,
-                "gt_count": np.int32(n_gt)}
+        sample = {"sample_id": np.int32(scene.sample_id),
+                  "pts_input": pts_input}
+        if train:
+            cls_label, reg_label = gaussian_weak_labels(
+                pts_input[:, :3], gt[:, :3] if len(gt) else
+                np.zeros((0, 3), np.float32),
+                gauss_height=cfg.RPN.GAUSS_HEIGHT,
+                gauss_status=cfg.RPN.GAUSS_STATUS,
+                gauss_cov=cfg.RPN.GAUSS_COV)
+            gt_centers = np.zeros((MAX_GT, 3), np.float32)
+            gt_centers[:n_gt] = gt[:n_gt, :3]
+            sample.update(rpn_cls_label=cls_label, rpn_reg_label=reg_label,
+                          gt_centers=gt_centers)
+        sample.update(gt_boxes3d=gt_pad, gt_count=np.int32(n_gt))
+        return sample
 
-    def batches(self, batch_size: int,
-                steps: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
-        """Stacked batches in sample order (`steps` of them, or one pass)."""
+    def batches(self, batch_size: int, steps: Optional[int] = None,
+                shuffle: bool = False) -> Iterator[Dict[str, np.ndarray]]:
+        """Stacked batches, `steps` of them. With shuffle, each pass takes
+        a fresh permutation from self.rng and passes repeat (forever when
+        steps is None); without, samples go in order and steps=None means
+        one pass. A pass yields len // batch_size batches."""
+        if batch_size > len(self):
+            raise ValueError(f"batch {batch_size} > {len(self)} scenes")
         count = 0
-        for lo in range(0, len(self) - batch_size + 1, batch_size):
-            chunk = [self.get_sample(i) for i in range(lo, lo + batch_size)]
-            yield {k: np.stack([c[k] for c in chunk]) for k in chunk[0]}
-            count += 1
-            if steps is not None and count >= steps:
+        while True:
+            idxs = (self.rng.permutation(len(self)) if shuffle
+                    else np.arange(len(self)))
+            for lo in range(0, len(idxs) - batch_size + 1, batch_size):
+                chunk = [self.get_sample(int(i))
+                         for i in idxs[lo:lo + batch_size]]
+                yield {k: np.stack([c[k] for c in chunk]) for k in chunk[0]}
+                count += 1
+                if steps is not None and count >= steps:
+                    return
+            if steps is None and not shuffle:
                 return

@@ -37,16 +37,19 @@ class Pointnet2MSG(nn.Module):
             self.add_module(f"fp_{i}", PointnetFPModule(
                 c_known, skip[i], fp_mlps[i], use_bn=use_bn))
 
-    def forward(self, pts: torch.Tensor):
+    def forward(self, pts: torch.Tensor, train: bool = False,
+                bn_momentum: float = 0.1):
         """pts (B, N, 3+C) -> (xyz (B, N, 3), features (B, N, fp_mlps[0][-1]))."""
         xyz = pts[..., 0:3].contiguous()
         features = pts[..., 3:].contiguous() if pts.shape[-1] > 3 else None
         l_xyz, l_feats = [xyz], [features]
         for k in range(self.n_sa):
-            new_xyz, new_feats = getattr(self, f"sa_{k}")(l_xyz[k], l_feats[k])
+            new_xyz, new_feats = getattr(self, f"sa_{k}")(
+                l_xyz[k], l_feats[k], train, bn_momentum)
             l_xyz.append(new_xyz)
             l_feats.append(new_feats)
         for i in range(self.n_fp - 1, -1, -1):
             l_feats[i] = getattr(self, f"fp_{i}")(
-                l_xyz[i], l_xyz[i + 1], l_feats[i], l_feats[i + 1])
+                l_xyz[i], l_xyz[i + 1], l_feats[i], l_feats[i + 1], train,
+                bn_momentum)
         return l_xyz[0], l_feats[0]

@@ -21,8 +21,10 @@ class PointRCNN(nn.Module):
         self.rcnn: Optional[RCNNNet] = (
             RCNNNet(cfg) if (cfg.RCNN.ENABLED or cfg.IOUN.ENABLED) else None)
 
-    def rpn_forward(self, batch):
-        return self.rpn(batch["pts_input"])
+    def rpn_forward(self, batch, train: bool = False,
+                    bn_momentum: float = 0.1,
+                    generator: Optional[torch.Generator] = None):
+        return self.rpn(batch["pts_input"], train, bn_momentum, generator)
 
     def rcnn_trunk_forward(self, batch):
         return self.rcnn.trunk(batch["cur_box_point"],
@@ -34,17 +36,39 @@ class PointRCNN(nn.Module):
             batch["train_mask"], batch["pred_boxes3d"])
 
 
+# stddev of a unit normal truncated to [-2, 2]; flax's truncated-normal
+# variance scaling divides by it
+_TRUNC_STD = 0.87962566103423978
+
+
 def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Random weights from a seed: He-normal kernels, zero biases, identity
-    BatchNorm statistics (the JAX package's init, not its random bits)."""
+    """Random weights from a seed, in the JAX package's distributions (not
+    its random bits): Dense kernels He-normal as flax draws it (a normal
+    truncated to two standard deviations, scaled to variance 2 / fan_in),
+    zero biases, identity BatchNorm; the RPN cls head's final bias is
+    FOCAL_PRIOR_BIAS and the reg head's final kernel N(0, 0.001)
+    (ws3d_tpu/models/rpn.py). The stage-2 layers take He-normal too."""
+    from ws3d_tpu_torch.models.rpn import FOCAL_PRIOR_BIAS
     gen = torch.Generator().manual_seed(int(seed))
+    finals = {}
+    if getattr(model, "rpn", None) is not None:
+        for head in ("cls_head", "reg_head"):
+            n = getattr(model.rpn, head).n_hidden
+            finals[f"rpn.{head}.Dense_{n}"] = head
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith(".kernel"):
-                std = math.sqrt(2.0 / p.shape[0])
-                p.copy_(torch.randn(p.shape, generator=gen) * std)
-            elif name.endswith(".scale"):
+            layer, leaf = name.rsplit(".", 1)
+            head = finals.get(layer)
+            if leaf == "kernel" and head == "reg_head":
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.001)
+            elif leaf == "kernel":
+                std = math.sqrt(2.0 / p.shape[0]) / _TRUNC_STD
+                nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=gen)
+                p.mul_(std)
+            elif leaf == "scale":
                 p.fill_(1.0)
+            elif head == "cls_head":
+                p.fill_(FOCAL_PRIOR_BIAS)
             else:
                 p.zero_()
     return model

@@ -1,13 +1,16 @@
-"""Channel-last layers (port of ws3d_tpu/models/layers.py), eval only.
+"""Channel-last layers (port of ws3d_tpu/models/layers.py).
 
 Parameters keep the JAX package's names and layouts so the flat npz keys
 map one to one: ``Dense_k.kernel`` is (Cin, Cout), ``BatchNorm_k`` holds
 ``scale``/``bias`` parameters and ``mean``/``var`` buffers (eps 1e-5).
-Dropout is off at inference and has no module here.
+Train mode is an argument of each forward, as in the JAX package: BatchNorm
+then normalises with the batch statistics and updates its running ones with
+the momentum it is given, and HeadMLP applies dropout drawn from the
+caller's torch.Generator.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -29,7 +32,11 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the trailing channel axis."""
+    """BatchNorm over the trailing channel axis.
+
+    train=True normalises with the mean and the biased variance over all
+    leading axes and updates running = (1 - m) * running + m * batch, the
+    variance biased too (nn.BatchNorm would store the unbiased one)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -38,9 +45,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.reciprocal(torch.sqrt(self.var + BN_EPS))
-        return (x - self.mean) * inv * self.scale + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False,
+                momentum: float = 0.1) -> torch.Tensor:
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            mean = torch.mean(x, dim=axes)
+            var = torch.var(x, dim=axes, correction=0)
+            with torch.no_grad():
+                m = float(momentum)
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var + m * var)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.reciprocal(torch.sqrt(var + BN_EPS))
+        return (x - mean) * inv * self.scale + self.bias
 
 
 class SharedMLP(nn.Module):
@@ -59,11 +77,12 @@ class SharedMLP(nn.Module):
         self._fold = None
         self._packed = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                bn_momentum: float = 0.1) -> torch.Tensor:
         for k in range(len(self.channels)):
             x = getattr(self, f"Dense_{k}")(x)
             if self.use_bn:
-                x = getattr(self, f"BatchNorm_{k}")(x)
+                x = getattr(self, f"BatchNorm_{k}")(x, train, bn_momentum)
             x = torch.relu(x)
         return x
 
@@ -72,7 +91,9 @@ class SharedMLP(nn.Module):
 
         The cache is keyed by every parameter's and buffer's storage and
         version counter, so load_state_dict, in-place edits and .to() refold.
-        With autograd on, the fold is made afresh on every call."""
+        With autograd on, the fold is made afresh on every call. The fold
+        uses the running statistics: eval only, never a train-mode
+        forward."""
         if torch.is_grad_enabled():
             return folded_mlp_params(self)
         key = tuple((t.data_ptr(), t._version)
@@ -95,13 +116,16 @@ class SharedMLP(nn.Module):
 
 
 class HeadMLP(nn.Module):
-    """Hidden Dense(+BN)+ReLU layers, then a linear output layer."""
+    """Hidden Dense(+BN)+ReLU layers, then a linear output layer. In train
+    mode, dropout with rate `dp_ratio` after the ReLU of hidden layer 0
+    (inverted: kept values scale by 1 / (1 - p))."""
 
     def __init__(self, cin: int, hidden: Sequence[int], out_channels: int,
-                 use_bn: bool = True):
+                 use_bn: bool = True, dp_ratio: float = 0.0):
         super().__init__()
         self.n_hidden = len(hidden)
         self.use_bn = use_bn
+        self.dp_ratio = float(dp_ratio)
         for i, c in enumerate(hidden):
             self.add_module(f"Dense_{i}", Dense(cin, c, use_bias=not use_bn))
             if use_bn:
@@ -109,13 +133,28 @@ class HeadMLP(nn.Module):
             cin = c
         self.add_module(f"Dense_{self.n_hidden}", Dense(cin, out_channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                bn_momentum: float = 0.1,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.n_hidden):
             x = getattr(self, f"Dense_{i}")(x)
             if self.use_bn:
-                x = getattr(self, f"BatchNorm_{i}")(x)
+                x = getattr(self, f"BatchNorm_{i}")(x, train, bn_momentum)
             x = torch.relu(x)
+            if i == 0 and train and self.dp_ratio > 0:
+                x = dropout(x, self.dp_ratio, generator)
         return getattr(self, f"Dense_{self.n_hidden}")(x)
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax.linen.Dropout: keep with probability 1 - p,
+    kept values divided by 1 - p. Draws from `generator` (on x's device)."""
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 def folded_mlp_params(mlp: SharedMLP) -> Tuple[List[torch.Tensor],

@@ -1,11 +1,15 @@
-"""PointNet++ set abstraction / feature propagation, channel-last, eval
-(port of ws3d_tpu/models/pointnet2.py).
+"""PointNet++ set abstraction / feature propagation, channel-last (port of
+ws3d_tpu/models/pointnet2.py).
 
-Every SA scale with a sampled centre set goes through the fused SA kernel
-(the windowed entry for z-sorted inputs where the JAX package dispatches
-its windowed kernel, the full entry elsewhere); GroupAll is plain tensor
-code. FP stages use the eval layer-0 fold around the 3-NN interpolation
-kernel.
+Eval: every SA scale with a sampled centre set goes through the fused SA
+kernel (the windowed entry for z-sorted inputs where the JAX package
+dispatches its windowed kernel, the full entry elsewhere) with BatchNorm
+folded into the weights; FP stages use the layer-0 fold around the 3-NN
+interpolation kernel. Train (train=True): BatchNorm needs the batch
+statistics, so, as the JAX package declines its fused kernels there, an SA
+stage runs the multi-scale ball query kernel, a differentiable gather, the
+MLP and a max over the samples, and FP interpolates, concatenates the skip
+features and runs the MLP unfolded. GroupAll is plain tensor code in both.
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ from torch import nn
 
 from ws3d_tpu_torch.models.layers import SharedMLP
 from ws3d_tpu_torch.ops.fused_sa import fused_sa
-from ws3d_tpu_torch.ops.grouping import group_all
+from ws3d_tpu_torch.ops.grouping import (ball_query_multi, group_all,
+                                         group_with_idx)
 from ws3d_tpu_torch.ops.interpolate import interpolate_features
 from ws3d_tpu_torch.ops.sampling import furthest_point_sample_with_coords
 
@@ -45,7 +50,8 @@ class PointnetSAModuleMSG(nn.Module):
             self.add_module(f"mlp_{i}", SharedMLP(cin + 3, m, use_bn=use_bn))
         self.out_channels = sum(int(m[-1]) for m in mlps)
 
-    def forward(self, xyz: torch.Tensor, features: torch.Tensor):
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor,
+                train: bool = False, bn_momentum: float = 0.1):
         """xyz (B, N, 3), features (B, N, C) -> (new_xyz (B, npoint, 3) or
         None, new_features (B, npoint or 1, sum C_out))."""
         new_xyz = None
@@ -57,6 +63,9 @@ class PointnetSAModuleMSG(nn.Module):
                 new_xyz = torch.gather(new_xyz, 1,
                                        order[..., None].expand(-1, -1, 3))
             new_xyz = new_xyz.contiguous()
+        if train:
+            return new_xyz, self._train_forward(xyz, features, new_xyz,
+                                                bn_momentum)
         window = use_window(self.sorted_points, xyz.shape[1],
                             features.shape[-1])
         outs = []
@@ -73,11 +82,27 @@ class PointnetSAModuleMSG(nn.Module):
                 params=mlp.packed() if xyz.is_cuda else None))
         return new_xyz, torch.cat(outs, dim=-1)
 
+    def _train_forward(self, xyz, features, new_xyz, bn_momentum):
+        """ball query (all scales, one launch) -> gather -> MLP with batch
+        statistics -> max over S. torch.amax splits the gradient evenly
+        among tied samples (the padded duplicates), as JAX's max does."""
+        if self.npoint is None:
+            grouped = [group_all(xyz, features)] * len(self.radii)
+        else:
+            idx = ball_query_multi(self.radii, self.nsamples, xyz, new_xyz)
+            grouped = [group_with_idx(i.long(), xyz, new_xyz, features)
+                       for i in idx]
+        outs = [torch.amax(getattr(self, f"mlp_{i}")(
+                    g, train=True, bn_momentum=bn_momentum), dim=2)
+                for i, g in enumerate(grouped)]
+        return torch.cat(outs, dim=-1)
+
 
 class PointnetFPModule(nn.Module):
-    """Feature propagation with the eval layer-0 fold: interpolation is
+    """Feature propagation. Eval uses the layer-0 fold: interpolation is
     linear in the features, so interp(F) @ W0a == interp(F @ W0a); the skip
-    rows W0b apply to the unknown features outside."""
+    rows W0b apply to the unknown features outside. Train runs the MLP on
+    [interp(F), skip] with batch statistics."""
 
     def __init__(self, c_known: int, c_unknown: int, mlp: Sequence[int],
                  use_bn: bool = True):
@@ -87,7 +112,13 @@ class PointnetFPModule(nn.Module):
 
     def forward(self, unknown: torch.Tensor, known: torch.Tensor,
                 unknown_feats: Optional[torch.Tensor],
-                known_feats: torch.Tensor) -> torch.Tensor:
+                known_feats: torch.Tensor, train: bool = False,
+                bn_momentum: float = 0.1) -> torch.Tensor:
+        if train:
+            h = interpolate_features(unknown, known, known_feats)
+            if unknown_feats is not None:
+                h = torch.cat([h, unknown_feats], dim=-1)
+            return self.SharedMLP_0(h, train=True, bn_momentum=bn_momentum)
         kernels, biases = self.SharedMLP_0.folded()
         ci = self.c_known
         feats_f = torch.matmul(known_feats, kernels[0][:ci]).contiguous()

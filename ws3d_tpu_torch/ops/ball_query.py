@@ -1,0 +1,67 @@
+"""Multi-scale ball query (kernel 6: csrc/ball_query.cu).
+
+Port of ws3d_tpu/ops/ball_query_pallas.py (pad-with-first mode) as
+ws3d_tpu/ops/grouping.py:ball_query_multi reaches it. For each query and
+radius scale: the first ``nsample`` points with d2 < r2 (strict) in
+ascending index order, padded with the first hit, index 0 everywhere when the
+ball is empty. r2 is the f32 rounding of the double product radius*radius.
+The plain version is the chunked query sharing one distance block over the
+scales (grouping._ball_query_chunk_multi).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from ws3d_tpu_torch.ops import _kernels
+from ws3d_tpu_torch.ops.grouping import (pairwise_sqdist, radius_sq,
+                                         select_in_ball)
+
+MAX_SCALES = 4          # csrc/common.cuh:kMaxScales
+
+
+def ball_query_multi_plain(radii: Sequence[float], nsamples: Sequence[int],
+                           xyz: torch.Tensor, new_xyz: torch.Tensor,
+                           chunk: int = 512) -> Tuple[torch.Tensor, ...]:
+    """Plain version: xyz (B, N, 3), new_xyz (B, M, 3) -> per scale
+    (B, M, nsample) int32, one (B, chunk, N) distance block per query chunk
+    shared by every scale."""
+    r2s = [radius_sq(r, xyz.device) for r in radii]
+    outs = [[] for _ in radii]
+    for m0 in range(0, new_xyz.shape[1], chunk):
+        d2 = pairwise_sqdist(new_xyz[:, m0:m0 + chunk], xyz)
+        for out, r2, s in zip(outs, r2s, nsamples):
+            out.append(select_in_ball(d2, r2, int(s)).to(torch.int32))
+    return tuple(torch.cat(o, dim=1) for o in outs)
+
+
+def ball_query_multi_cuda(radii: Sequence[float], nsamples: Sequence[int],
+                          xyz: torch.Tensor,
+                          new_xyz: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Kernel 6: (B, N, 3), (B, M, 3) f32 CUDA -> per scale (B, M, S_i)
+    int32, all scales in one launch."""
+    if not 1 <= len(radii) == len(nsamples) <= MAX_SCALES:
+        raise ValueError(f"ball_query: {len(radii)} radii and "
+                         f"{len(nsamples)} sample counts (1..{MAX_SCALES})")
+    if any(int(s) <= 0 for s in nsamples):
+        raise ValueError(f"ball_query: sample counts {list(nsamples)}")
+    _kernels.check_cuda(xyz, "ball_query xyz", torch.float32, (None, None, 3))
+    B, N, _ = xyz.shape
+    _kernels.check_cuda(new_xyz, "ball_query new_xyz", torch.float32,
+                        (B, None, 3))
+    M = new_xyz.shape[1]
+    outs = tuple(torch.empty((B, M, int(s)), dtype=torch.int32,
+                             device=xyz.device) for s in nsamples)
+    n = len(radii)
+    # f32 rounding of the double product, as radius_sq
+    r2 = (ctypes.c_float * n)(*[float(r) * float(r) for r in radii])
+    ns = (ctypes.c_int * n)(*[int(s) for s in nsamples])
+    ptrs = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
+    rc = _kernels.library().ws3d_ball_query(
+        xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, n, r2, ns, ptrs,
+        _kernels.stream_ptr(xyz))
+    _kernels.raise_on_error(rc, "ball_query")
+    _kernels.LAUNCHES["ball_query"] += 1
+    return outs

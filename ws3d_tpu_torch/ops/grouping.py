@@ -47,13 +47,22 @@ def radius_sq(radius: float, device) -> torch.Tensor:
 
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
                new_xyz: torch.Tensor, chunk: int = 512) -> torch.Tensor:
-    """xyz (B, N, 3), new_xyz (B, M, 3) -> (B, M, nsample) int64, chunked
-    over the queries to bound the (B, chunk, N) distance block."""
-    r2 = radius_sq(radius, xyz.device)
-    outs = [select_in_ball(pairwise_sqdist(new_xyz[:, m0:m0 + chunk], xyz),
-                           r2, nsample)
-            for m0 in range(0, new_xyz.shape[1], chunk)]
-    return torch.cat(outs, dim=1)
+    """xyz (B, N, 3), new_xyz (B, M, 3) -> (B, M, nsample) int64: one scale
+    of the plain multi-scale query, chunked over the queries to bound the
+    (B, chunk, N) distance block."""
+    from ws3d_tpu_torch.ops.ball_query import ball_query_multi_plain
+    return ball_query_multi_plain([radius], [nsample], xyz, new_xyz,
+                                  chunk)[0].long()
+
+
+def ball_query_multi(radii, nsamples, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor):
+    """Per-scale first-k in-ball indices, (B, M, nsamples[i]) int32 each:
+    kernel 6 on CUDA tensors, its plain version on CPU tensors."""
+    from ws3d_tpu_torch.ops import ball_query as bq
+    if xyz.is_cuda:
+        return bq.ball_query_multi_cuda(radii, nsamples, xyz, new_xyz)
+    return bq.ball_query_multi_plain(radii, nsamples, xyz, new_xyz)
 
 
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -66,7 +75,9 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def group_with_idx(idx: torch.Tensor, xyz: torch.Tensor,
                    new_xyz: torch.Tensor,
                    features: torch.Tensor) -> torch.Tensor:
-    """-> (B, M, S, 3 + C): centre-relative xyz concat features."""
+    """idx (B, M, S) int64 -> (B, M, S, 3 + C): centre-relative xyz concat
+    features. Differentiable in `features` (gather's backward scatter-adds)
+    and through the centre subtraction."""
     grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
     return torch.cat([grouped_xyz, group_points(features, idx)], dim=-1)
 

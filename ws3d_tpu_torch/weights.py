@@ -1,4 +1,4 @@
-"""Carry the JAX package's flat npz weights into the port's modules.
+"""Carry flat npz weights between the JAX package and the port's modules.
 
 The npz keys are ``params/<path>/<leaf>`` and ``batch_stats/<path>/<leaf>``
 (``ws3d_tpu/data/bench_weights.npz``: 272 arrays). The port's module tree
@@ -6,13 +6,15 @@ keeps the same names, so the key for a state-dict entry ``a.b.kernel`` is
 ``params/a/b/kernel`` and for a BatchNorm buffer ``a.b.mean`` it is
 ``batch_stats/a/b/mean``. Dense kernels are (Cin, Cout) in both.
 
-All-or-nothing, like ws3d_tpu/utils/npz_overlay.py: every parameter and
-buffer of the model is set and every npz key is consumed, or it raises and
-the model is left unchanged.
+Loading is all-or-nothing, like ws3d_tpu/utils/npz_overlay.py: every
+parameter and buffer of the model is set and every npz key is consumed, or
+it raises and the model is left unchanged. to_flat / save_npz go the other
+way, so weights trained by the port load into the JAX package through
+ws3d_tpu/utils/npz_overlay.py.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -56,3 +58,18 @@ def load_npz(model: nn.Module, path: str) -> int:
     """Load the npz file at `path` into `model` (all-or-nothing)."""
     with np.load(path) as z:
         return load_flat(model, {k: z[k] for k in z.files})
+
+
+def to_flat(model: nn.Module) -> Dict[str, np.ndarray]:
+    """{npz key: float32 array} of every parameter and buffer of `model`
+    (the inverse of load_flat)."""
+    return {npz_key(k): v.detach().cpu().numpy().astype(np.float32)
+            for k, v in model.state_dict().items()}
+
+
+def save_npz(model: nn.Module, path: str) -> int:
+    """Write to_flat(model) to `path` (uncompressed npz); returns the number
+    of arrays."""
+    flat = to_flat(model)
+    np.savez(path, **flat)
+    return len(flat)
