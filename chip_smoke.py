@@ -31,7 +31,28 @@ Phases (any failure exits non-zero; nothing is caught):
   7. one train step on 2 scenes on the GPU and on the CPU (the plain
      versions) from the same weights and batch, no dropout: loss and
      every gradient must agree;
-  8. print the kernel table, the card's name and power limit, and the
+  8. the stage-2 RCNN train step at full width (800 crops of 512 points,
+     TRAIN batches of a synthetic proposal database, the fitted npz's
+     stage-2 trunk): record every kernel call of one step, forward and
+     backward, and hold FPS, both fused SA entries and the backward's ball
+     query against their plain versions on the recorded inputs; run kernel
+     9 (SA with given indices) on each backward's kernel-6 indices against
+     its plain version and against the fused kernel's output for the same
+     stage, then drive its entry point fused_sa_single_scale on them; hold
+     the FusedSA backward against autograd through the plain forward;
+  9. the RCNN training path: one warm-up step through Trainer.train_steps,
+     then timed steps closed by torch.cuda.synchronize() (steps/s, crops/s,
+     peak memory, finite losses); each step must launch FPS 3, the windowed
+     fused SA 2, the full one 1 and the ball query 3 times; then one step
+     under torch.profiler;
+ 10. the same for the IOUN cascade (CASCADE 1, trunk frozen; the cascade's
+     weights from the seeded init, as the fitted cascade is dead on these
+     crops): a step adds the trunk's forward launches, and the trunk must
+     be bit-unchanged after the steps;
+ 11. one RCNN and one IOUN step on 8 crops on the GPU and on the CPU (the
+     plain versions) from the same weights and batch: loss and every
+     gradient must agree;
+ 12. print the kernel table, the card's name and power limit, and the
      result line.
 
 Prints nothing of the result and exits 2 without a CUDA device or outside
@@ -71,10 +92,22 @@ KERNELS = {
                    "ws3d_tpu/ops/ball_query_pallas.py:34"),
     "three_nn": ("ws3d_tpu_torch/csrc/three_nn.cu",
                  "ws3d_tpu/ops/three_nn_pallas.py:21"),
+    "fused_sa_idx": ("ws3d_tpu_torch/csrc/fused_sa.cu",
+                     "ws3d_tpu/ops/fused_sa_pallas.py:28"),
 }
 INFERENCE_KERNELS = ("fps", "fused_sa_window", "fused_sa_full",
                      "three_interpolate", "crop_gather")
 TRAIN_KERNELS = ("fps", "three_interpolate", "ball_query", "three_nn")
+STAGE2_BATCH = 800          # crops of a step (tools/bench_train.py)
+STAGE2_POINTS = 512
+# kernel launches of one stage-2 step: the SA stack's forward (FPS per
+# sampled stage; SA0/SA1 windowed, SA2 full) and one ball query per fused
+# stage in the backward; an IOUN step also runs the frozen trunk's forward
+STAGE2_STEP_LAUNCHES = {
+    "rcnn": {"fps": 3, "fused_sa_window": 2, "fused_sa_full": 1,
+             "ball_query": 3},
+    "ioun": {"fps": 6, "fused_sa_window": 4, "fused_sa_full": 2,
+             "ball_query": 3}}
 
 
 def card_line() -> str:
@@ -99,18 +132,20 @@ def cuda_ms(fn, reps: int) -> float:
 
 # ---------------------------------------------------------------- recording
 class Recorder:
-    """Wraps each kernel wrapper to keep a copy of the inputs of every call
-    the pipeline makes (phases 2 and 5 replay them)."""
+    """Wraps each kernel wrapper to keep a copy of the inputs (`calls`) of
+    every call the pipeline makes (phases 2, 5 and 8 replay them) and, with
+    `outputs`, of its outputs (`outputs`)."""
 
-    def __init__(self):
+    def __init__(self, outputs: bool = False):
         from ws3d_tpu_torch.ops import (ball_query, crop_gather, fused_sa,
-                                        interpolate, sampling)
-        self.calls = []
+                                        fused_sa_idx, interpolate, sampling)
+        self.calls, self.outputs, self.keep_outputs = [], [], outputs
         self.targets = [(sampling, "fps_cuda"), (fused_sa, "fused_sa_cuda"),
                         (interpolate, "three_interpolate_cuda"),
                         (crop_gather, "crop_gather_cuda"),
                         (ball_query, "ball_query_multi_cuda"),
-                        (interpolate, "three_nn_cuda")]
+                        (interpolate, "three_nn_cuda"),
+                        (fused_sa_idx, "fused_sa_idx_cuda")]
         self.saved = {}
 
     def __enter__(self):
@@ -129,7 +164,10 @@ class Recorder:
             def wrapped(*args, _orig=orig, _name=name, **kw):
                 self.calls.append((_name, [keep(a) for a in args],
                                    dict(kw)))
-                return _orig(*args, **kw)
+                out = _orig(*args, **kw)
+                if self.keep_outputs:
+                    self.outputs.append(keep(out))
+                return out
             setattr(mod, name, wrapped)
         return self
 
@@ -144,7 +182,7 @@ def compare_call(name, args, kw):
     """-> (kernel key, max_abs_err, ms, plain_ms, bytes, ops, shape note)."""
     import torch
     from ws3d_tpu_torch.ops import (ball_query, crop_gather, fused_sa,
-                                    interpolate, sampling)
+                                    fused_sa_idx, interpolate, sampling)
 
     if name == "fps_cuda":
         xyz, npoint = args
@@ -269,6 +307,32 @@ def compare_call(name, args, kw):
         nbytes = 4 * (B * n * 3 + B * m * 3 + B * n * 6)
         ops = B * n * m * 10
         return ("three_nn", err, ms, plain, nbytes, ops, f"B{B} n{n} m{m}")
+
+    if name == "fused_sa_idx_cuda":
+        xyz, feat, new_xyz, idx, kernels, biases = args
+        out = fused_sa_idx.fused_sa_idx_cuda(*args, **kw)
+        ref = fused_sa_idx.fused_sa_idx_plain(idx, xyz, feat, new_xyz,
+                                              kernels, biases)
+        err = (out - ref).abs().max().item()
+        # f32 sums in another order than the plain matmul
+        tol = 1e-4 * ref.abs().max().item() + 1e-6
+        if not err <= tol:
+            raise AssertionError(f"fused_sa_idx {tuple(idx.shape)}: "
+                                 f"max|diff| {err} > {tol}")
+        ms = cuda_ms(lambda: fused_sa_idx.fused_sa_idx_cuda(*args, **kw), 5)
+        plain = cuda_ms(lambda: fused_sa_idx.fused_sa_idx_plain(
+            idx, xyz, feat, new_xyz, kernels, biases), 1)
+        B, P, C = feat.shape
+        M, S = idx.shape[1], idx.shape[2]
+        widths = [C + 3] + [int(k.shape[1]) for k in kernels]
+        nbytes = 4 * (B * P * 3 + B * P * C + B * M * 3 + B * M * S
+                      + B * M * widths[-1]
+                      + sum(k.numel() + b.numel()
+                            for k, b in zip(kernels, biases)))
+        ops = 2 * B * M * S * sum(a * b for a, b in zip(widths[:-1],
+                                                        widths[1:]))
+        return ("fused_sa_idx", err, ms, plain, nbytes, ops,
+                f"B{B} P{P} M{M} C{C} S{S} {widths}")
     raise KeyError(name)
 
 
@@ -382,8 +446,8 @@ def main() -> int:
         fn(bufs[0])
         torch.cuda.synchronize()
     per_kernel = {k: {"err": 0.0, "ms": 0.0, "plain": 0.0, "bound": 0.0,
-                      "by_bytes": 0.0} for k in KERNELS}
-    _compare_calls(rec.calls, per_kernel)
+                      "by_bytes": 0.0, "ms_by_path": {}} for k in KERNELS}
+    _compare_calls(rec.calls, per_kernel, "inference")
     for key in INFERENCE_KERNELS:
         if per_kernel[key]["ms"] == 0.0:
             raise AssertionError(f"kernel {key} was never called on the "
@@ -447,7 +511,10 @@ def main() -> int:
     # ---- 5.-7. the stage-1 training path
     launches["train"] = _train_phases(card, per_kernel)
 
-    # ---- 8. report
+    # ---- 8.-11. the stage-2 (RCNN, IOUN) training paths
+    launches.update(_stage2_phases(card, per_kernel))
+
+    # ---- 12. report
     table = []
     for key, (source, replaces) in KERNELS.items():
         agg = per_kernel[key]
@@ -460,7 +527,7 @@ def main() -> int:
             "plain_ms": agg["plain"], "bound_ms": agg["bound"],
             "bound_by": ("bytes" if agg["by_bytes"] >= agg["bound"] / 2
                          else "operations"),
-            "library_ms": None})
+            "library_ms": None, "ms_by_path": agg["ms_by_path"]})
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -469,9 +536,9 @@ def main() -> int:
     return 0
 
 
-def _compare_calls(calls, per_kernel) -> None:
-    """Replay recorded kernel calls against their plain versions and add
-    each call's error, times and bound to `per_kernel`."""
+def _compare_calls(calls, per_kernel, path: str) -> None:
+    """Replay recorded kernel calls of `path` against their plain versions
+    and add each call's error, times and bound to `per_kernel`."""
     import torch
     with torch.no_grad():
         for name, args, kw in calls:
@@ -481,6 +548,7 @@ def _compare_calls(calls, per_kernel) -> None:
             agg = per_kernel[key]
             agg["err"] = max(agg["err"], err)
             agg["ms"] += ms
+            agg["ms_by_path"][path] = agg["ms_by_path"].get(path, 0.0) + ms
             agg["plain"] += plain
             agg["bound"] += max(t_bytes, t_ops)
             agg["by_bytes"] += t_bytes if t_bytes >= t_ops else 0.0
@@ -534,7 +602,7 @@ def _train_phases(card, per_kernel) -> dict:
         torch.cuda.synchronize()
     calls = [c for c in rec.calls
              if c[0] in ("ball_query_multi_cuda", "three_nn_cuda")]
-    _compare_calls(calls, per_kernel)
+    _compare_calls(calls, per_kernel, "train")
     for key in ("ball_query", "three_nn"):
         if per_kernel[key]["ms"] == 0.0:
             raise AssertionError(f"kernel {key} was never called in a step")
@@ -630,6 +698,272 @@ def _train_phases(card, per_kernel) -> dict:
           f"{worst[1]:.3g} of its largest magnitude "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return launches
+
+
+def _stage2_cfg(stage: str):
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.tools.train_cascade import configure
+    cfg = load_config()
+    configure(cfg, stage, STAGE2_POINTS)
+    return cfg
+
+
+def _stage2_model(cfg, device):
+    """The stage-2 model with the fitted npz's RCNN trunk; an IOUN model's
+    cascade keeps its seeded init (the fitted cascade's ReLUs are all off
+    below SA1's last layer on these crops, so it would train nothing)."""
+    import numpy as np
+    from ws3d_tpu_torch.models import build_model
+    from ws3d_tpu_torch.training.trainer import CASCADE_PREFIXES
+    from ws3d_tpu_torch.weights import load_flat, to_flat
+    model = build_model(cfg, device=device, seed=0)
+    flat = to_flat(model)
+    with np.load(WEIGHTS) as z:
+        flat.update({k: z[k] for k in z.files if k in flat and not
+                     k.split("/")[2].startswith(CASCADE_PREFIXES)})
+    load_flat(model, flat)
+    return model
+
+
+def _stage2_batches(cfg, n: int):
+    """`n` TRAIN batches of STAGE2_BATCH crops from a synthetic proposal
+    database (host NumPy)."""
+    from ws3d_tpu_torch.datasets import (BoxPlaceDataset,
+                                         synthetic_proposal_database)
+    db = synthetic_proposal_database(num=STAGE2_BATCH // 2, seed=0,
+                                     crop_points=STAGE2_POINTS)
+    ds = BoxPlaceDataset(db, cfg, mode="TRAIN", npoints=STAGE2_POINTS,
+                         seed=0)
+    return list(ds.batches(STAGE2_BATCH, steps=n))
+
+
+def _stage2_phases(card, per_kernel) -> dict:
+    """Phases 8-11; returns the launch counts of the RCNN and IOUN training
+    paths and of kernel 9's entry point."""
+    import torch
+    t0 = time.perf_counter()
+    host = {stage: _stage2_batches(_stage2_cfg(stage), TIMED_STEPS + 2)
+            for stage in ("rcnn", "ioun")}
+    print(f"# phase 8: {TIMED_STEPS + 2} TRAIN batches of {STAGE2_BATCH} "
+          f"crops a stage made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches = {"sa_given_idx": _stage2_kernels(host["rcnn"][0], per_kernel)}
+    torch.cuda.empty_cache()
+    for phase, stage in ((9, "rcnn"), (10, "ioun")):
+        launches[f"{stage}_train"] = _stage2_train(phase, stage, card,
+                                                   host[stage])
+        torch.cuda.empty_cache()
+    _stage2_small({stage: b[0] for stage, b in host.items()})
+    return launches
+
+
+def _stage2_kernels(host_batch, per_kernel) -> dict:
+    """Phase 8 on one RCNN step; returns the launch counts of kernel 9's
+    entry point, driven on the step's own inputs and indices."""
+    import torch
+    from ws3d_tpu_torch.ops import _kernels, fused_sa_idx
+    from ws3d_tpu_torch.ops.fused_sa import fused_sa_plain, fused_sa_train
+    from ws3d_tpu_torch.training.trainer import (batch_to_device,
+                                                 rcnn_gradients, step_inputs,
+                                                 trainable_parameters)
+    t0 = time.perf_counter()
+    cfg = _stage2_cfg("rcnn")
+    model = _stage2_model(cfg, "cuda")
+    batch = batch_to_device(host_batch, "cuda",
+                            step_inputs("rcnn", host_batch))
+    with Recorder(outputs=True) as rec:
+        rcnn_gradients(model, cfg, "rcnn", batch, None, 0.1,
+                       trainable_parameters(model, "rcnn"))
+        torch.cuda.synchronize()
+    del model, batch
+    names = [c[0] for c in rec.calls]
+    counts = {k: names.count(k) for k in set(names)}
+    if counts != {"fps_cuda": 3, "fused_sa_cuda": 3,
+                  "ball_query_multi_cuda": 3}:
+        raise AssertionError(f"one RCNN step made the kernel calls {counts}")
+    _compare_calls(rec.calls, per_kernel, "rcnn_train")
+
+    # kernel 9 on the indices kernel 6 gave each backward
+    fused = [(a, o) for (n, a, _), o in zip(rec.calls, rec.outputs)
+             if n == "fused_sa_cuda"]
+    idx_calls = []
+    for (n, a, _), o in zip(rec.calls, rec.outputs):
+        if n != "ball_query_multi_cuda":
+            continue
+        (radius,), (nsample,), xyz, new_xyz = a
+        idx = o[0]
+        match = [(fa, fo) for fa, fo in fused
+                 if (fa[3], fa[4]) == (radius, nsample)
+                 and torch.equal(fa[0], xyz) and torch.equal(fa[2], new_xyz)]
+        if len(match) != 1:
+            raise AssertionError(f"{len(match)} fused SA calls match the "
+                                 f"ball query r{radius} S{nsample}")
+        (_, feat, _, _, _, kernels, biases, window), fo = match[0]
+        got = fused_sa_idx.fused_sa_idx_cuda(xyz, feat, new_xyz, idx,
+                                             kernels, biases)
+        err = (got - fo).abs().max().item()
+        tol = 1e-4 * fo.abs().max().item()
+        print(f"#   fused_sa_idx on kernel 6's indices vs the fused kernel "
+              f"(window={window}) S{nsample}: max|diff| {err:.3g} "
+              f"(tol {tol:.3g})", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"kernel 9 differs from the fused kernel "
+                                 f"by {err}")
+        idx_calls.append(("fused_sa_idx_cuda",
+                          [xyz, feat, new_xyz, idx, kernels, biases], {}))
+    _compare_calls(idx_calls, per_kernel, "rcnn_train")
+
+    # kernel 9's entry point, forward and backward, on the same inputs
+    _kernels.reset_launch_counts()
+    for _, (xyz, feat, new_xyz, idx, kernels, biases), _ in idx_calls:
+        leaves = [x.clone().requires_grad_(True)
+                  for x in (feat, *kernels, *biases)]
+        L = len(kernels)
+        out = fused_sa_idx.fused_sa_single_scale(
+            xyz, leaves[0], new_xyz, idx, leaves[1:1 + L], leaves[1 + L:])
+        grads = torch.autograd.grad(out.sum(), leaves)
+        if not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError("non-finite fused_sa_single_scale gradient")
+    torch.cuda.synchronize()
+    entry = dict(_kernels.LAUNCHES)
+    if entry["fused_sa_idx"] != len(idx_calls):
+        raise AssertionError(f"fused_sa_single_scale launched kernel 9 "
+                             f"{entry['fused_sa_idx']} times")
+
+    # the FusedSA backward against autograd through the plain forward
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for (xyz, feat, new_xyz, radius, nsample, kernels, biases, window), fo \
+            in fused:
+        g = torch.randn(fo.shape, device="cuda", generator=gen)
+        grads = []
+        for fn in (lambda *x: fused_sa_train(*x, window), fused_sa_plain):
+            leaves = [x.clone().requires_grad_(True)
+                      for x in (xyz, feat, new_xyz, *kernels, *biases)]
+            L = len(kernels)
+            out = fn(*leaves[:3], radius, nsample, leaves[3:3 + L],
+                     leaves[3 + L:])
+            grads.append(torch.autograd.grad((out * g).sum(), leaves))
+            del out
+        worst = 0.0
+        for a, b in zip(*grads):
+            scale = b.abs().max().item()
+            e = (a - b).abs().max().item()
+            # the same plain ops on the same indices; the gather's backward
+            # adds with atomics in another order
+            if not e <= 1e-5 * scale:
+                raise AssertionError(f"FusedSA backward (window={window}) "
+                                     f"differs by {e} of {scale}")
+            worst = max(worst, e / scale if scale else 0.0)
+        print(f"#   FusedSA backward window={window} S{nsample} vs autograd "
+              f"through the plain forward: worst {worst:.3g} of a "
+              f"gradient's largest magnitude", flush=True)
+        del grads
+    print(f"# phase 8: {len(rec.calls)} kernel calls of one RCNN step and "
+          f"{len(idx_calls)} kernel-9 calls compared; fused_sa_single_scale "
+          f"launches {entry['fused_sa_idx']} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return entry
+
+
+def _stage2_train(phase: int, stage: str, card, host) -> dict:
+    """Phase 9 (rcnn) or 10 (ioun): warm-up, timed and profiled steps at
+    STAGE2_BATCH crops; returns the path's launch counts."""
+    import torch
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.training import Trainer
+    from ws3d_tpu_torch.training.trainer import batch_to_device, step_inputs
+    cfg = _stage2_cfg(stage)
+    model = _stage2_model(cfg, "cuda")
+    batches = [batch_to_device(b, "cuda", step_inputs(stage, b))
+               for b in host]
+    trainer = Trainer(model, cfg, total_steps=1000, stage=stage, seed=0,
+                      log_fn=lambda msg: print("#   " + msg, flush=True))
+    frozen = {k: v.clone() for k, v in model.state_dict().items()
+              if k not in trainer.optimizer.params}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train_steps([host[0]], total_steps=1, log_every=1,
+                        prefetch_size=0)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    times, step_losses = [], []
+    for i in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        aux = trainer.step_fn(batches[1 + i], trainer.generator,
+                              trainer.bn_sched(0))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        step_losses.append(aux["loss"])
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_losses = [float(v) for v in step_losses]
+    want = {k: v * (1 + TIMED_STEPS)
+            for k, v in STAGE2_STEP_LAUNCHES[stage].items()}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{stage} steps launched {got}, not {want}")
+    if not all(math.isfinite(v) for v in step_losses):
+        raise AssertionError(f"non-finite loss {step_losses}")
+    if trainer.step != 1 + TIMED_STEPS:
+        raise AssertionError(f"optimizer count {trainer.step}")
+    step_ms = 1e3 * sum(times) / len(times)
+    print(f"# phase {phase}: {card}: {stage} {1e3 / step_ms:.3f} steps/s, "
+          f"{STAGE2_BATCH * 1e3 / step_ms:.2f} crops/s (batch "
+          f"{STAGE2_BATCH}x{STAGE2_POINTS}, {TIMED_STEPS} timed steps "
+          f"{[round(t * 1e3, 1) for t in times]} ms, warm-up "
+          f"{warm * 1e3:.1f} ms); peak memory {peak / 2**30:.2f} GiB; "
+          f"losses {[round(v, 5) for v in step_losses]}; launches {got}",
+          flush=True)
+    _profile(lambda: trainer.step_fn(batches[-1], trainer.generator,
+                                     trainer.bn_sched(0)),
+             step_ms, f"phase {phase} profile", "step")
+    moved = [k for k, v in model.state_dict().items()
+             if k in frozen and not torch.equal(v, frozen[k])]
+    if moved:
+        raise AssertionError(f"{stage} steps changed frozen {moved[:5]}")
+    if stage == "ioun":
+        print(f"#   the {len(frozen)} trunk tensors are bit-unchanged after "
+              f"{trainer.step} IOUN steps", flush=True)
+    return launches
+
+
+def _stage2_small(host) -> None:
+    """Phase 11: one RCNN and one IOUN step on 8 crops, GPU vs CPU."""
+    from ws3d_tpu_torch.training.trainer import (batch_to_device,
+                                                 rcnn_gradients, step_inputs,
+                                                 trainable_parameters)
+    t0 = time.perf_counter()
+    for stage in ("rcnn", "ioun"):
+        cfg = _stage2_cfg(stage)
+        small = {k: v[:8] for k, v in host[stage].items()}
+        res = []
+        for device in ("cuda", "cpu"):
+            m = _stage2_model(cfg, device)
+            loss, _, grads = rcnn_gradients(
+                m, cfg, stage,
+                batch_to_device(small, device, step_inputs(stage, small)),
+                None, 0.1, trainable_parameters(m, stage))
+            res.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+        (gl, gg), (cl, cg) = res
+        rel = abs(gl - cl) / abs(cl)
+        if not rel <= 1e-3:
+            raise AssertionError(f"{stage} step loss GPU {gl} vs CPU {cl}")
+        worst = ("", 0.0)
+        for k, g in gg.items():
+            scale = cg[k].abs().max().item()
+            e = (g - cg[k]).abs().max().item()
+            if not e <= 1e-3 * scale:
+                raise AssertionError(f"{stage} gradient {k}: GPU vs CPU "
+                                     f"{e:.3g} of {scale:.3g}")
+            if scale:
+                worst = max(worst, (k, e / scale), key=lambda x: x[1])
+        print(f"# phase 11: {stage} step on 8 crops GPU vs CPU plain: loss "
+              f"{gl:.6f} vs {cl:.6f} (rel {rel:.3g}); worst gradient "
+              f"{worst[0]} {worst[1]:.3g} of its largest magnitude",
+              flush=True)
+    print(f"# phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _profile(run, ms: float, label: str, unit: str) -> None:

@@ -125,3 +125,44 @@ def test_interpolate_backward(dev, rng):
     (three_interpolate_plain(u, k, f2) * g).sum().backward()
     # atomics and another order of the three weighted rows
     torch.testing.assert_close(f1.grad, f2.grad, atol=1e-5, rtol=1e-5)
+
+
+def test_fused_sa_idx_kernel(dev, rng):
+    from ws3d_tpu_torch.ops.fused_sa_idx import (fused_sa_idx_cuda,
+                                                 fused_sa_idx_plain)
+    from ws3d_tpu_torch.ops.grouping import ball_query
+    xyz, feat = sorted_cloud(rng, 2, 512, 5)
+    new_xyz = xyz[:, np.sort(rng.choice(512, 128, replace=False))]
+    ks, bs = random_mlp(rng, 8, [32, 32, 64])
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (xyz, feat, new_xyz)]
+    ks = [torch.from_numpy(k).to(dev) for k in ks]
+    bs = [torch.from_numpy(b).to(dev) for b in bs]
+    for idx in (ball_query(0.8, 16, args[0], args[2]),
+                torch.randint(0, 512, (2, 128, 24), dtype=torch.int32,
+                              device=dev)):
+        got = fused_sa_idx_cuda(*args, idx, ks, bs)
+        ref = fused_sa_idx_plain(idx, *args, ks, bs)
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("window", [True, False])
+def test_fused_sa_backward(dev, rng, window):
+    from ws3d_tpu_torch.ops.fused_sa import fused_sa_plain, fused_sa_train
+    xyz, feat = sorted_cloud(rng, 2, 512, 5)
+    new_xyz = xyz[:, np.sort(rng.choice(512, 128, replace=False))]
+    ks, bs = random_mlp(rng, 8, [32, 32, 64])
+    g = torch.from_numpy(rng.randn(2, 128, 64).astype(np.float32)).to(dev)
+    grads = []
+    for fn in (lambda *a: fused_sa_train(*a, window),
+               lambda *a: fused_sa_plain(*a)):
+        leaves = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  .requires_grad_(True) for a in (xyz, feat, new_xyz)]
+        kt = [torch.from_numpy(k).to(dev).requires_grad_(True) for k in ks]
+        bt = [torch.from_numpy(b).to(dev).requires_grad_(True) for b in bs]
+        (fn(*leaves, 0.8, 16, kt, bt) * g).sum().backward()
+        grads.append([a.grad for a in leaves + kt + bt])
+    for a, b in zip(*grads):
+        # scatter-add atomics sum in another order
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()),
+                                   rtol=0)

@@ -166,3 +166,96 @@ def random_mlp(rng, cin, widths):
         biases.append(rng.randn(w).astype(np.float32) * 0.1)
         cin = w
     return kernels, biases
+
+
+def stage2_cfg(load_config, stage: str, npoints: int = 128):
+    """The stage-2 config of `stage` at `npoints`-point crops, NPOINTS
+    scaled as tools/train_cascade.py scales them (either package's
+    load_config)."""
+    from ws3d_tpu_torch.tools.train_cascade import configure
+    cfg = load_config()
+    configure(cfg, stage, npoints)
+    return cfg
+
+
+@functools.lru_cache(maxsize=None)
+def stage2_flat_weights(with_cascade: bool):
+    """Stage-2 weights as flat npz entries ({npz key: array}): the fitted
+    npz's trunk and, if `with_cascade`, a cascade drawn by the port's
+    init_random (seed 0). The fitted cascade is dead below SA1's last layer
+    on the training crops (every ReLU there is off), so its gradients would
+    test nothing."""
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.models import build_model
+    from ws3d_tpu_torch.training.trainer import CASCADE_PREFIXES
+    from ws3d_tpu_torch.weights import to_flat
+    with np.load(WEIGHTS) as z:
+        flat = {k: z[k] for k in z.files if k.split("/")[1] == "rcnn"
+                and not k.split("/")[2].startswith(CASCADE_PREFIXES)}
+    if with_cascade:
+        model = build_model(stage2_cfg(load_config, "ioun"), device="cpu")
+        flat.update({k: v for k, v in to_flat(model).items()
+                     if k.split("/")[2].startswith(CASCADE_PREFIXES)})
+    return flat
+
+
+def stage2_batch(stage: str, n_crops: int = 4, npoints: int = 128,
+                 seed: int = 4):
+    """A TRAIN crop batch of the JAX package's BoxPlaceDataset (with the
+    cascade jitter for stage ioun), train_mask the predicted mask."""
+    from ws3d_tpu.config import load_config
+    from ws3d_tpu.datasets.boxplace_dataset import (
+        BoxPlaceDataset, synthetic_proposal_database)
+    cfg = stage2_cfg(load_config, stage, npoints)
+    db = synthetic_proposal_database(num=16, seed=seed, crop_points=npoints)
+    ds = BoxPlaceDataset(db, cfg, mode="TRAIN", npoints=npoints, seed=seed)
+    return next(ds.batches(n_crops, steps=1))
+
+
+def jax_stage2_gradients(stage: str, batch, npoints: int = 128):
+    """(loss, aux, {npz key: gradient}) of the JAX package's stage-2 step
+    (make_rcnn_loss_fn + jax.value_and_grad) from the fitted weights."""
+    import jax
+    import jax.numpy as jnp
+    from flax.traverse_util import flatten_dict, unflatten_dict
+    from ws3d_tpu.config import load_config
+    from ws3d_tpu.models import build_model, init_model
+    from ws3d_tpu.training.trainer import make_rcnn_loss_fn
+    cfg = stage2_cfg(load_config, stage, npoints)
+    model = build_model(cfg)
+    variables = init_model(model, cfg, jax.random.PRNGKey(0))
+    flat = stage2_flat_weights(stage == "ioun")
+    f = flatten_dict(jax.tree.map(np.asarray, variables["params"]))
+    assert len(f) == len(flat)
+    params = unflatten_dict({k: flat["params/" + "/".join(k)] for k in f})
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()
+              if k not in ("sample_id", "box_id")}
+    (loss, (aux, _)), grads = jax.jit(jax.value_and_grad(
+        make_rcnn_loss_fn(model, cfg, stage), has_aux=True))(
+        params, {}, jbatch, jax.random.PRNGKey(1), jnp.float32(0.1))
+    grads = {"params/" + "/".join(k): np.asarray(v)
+             for k, v in flatten_dict(grads).items()}
+    return float(loss), {k: np.asarray(v) for k, v in aux.items()}, grads
+
+
+def torch_stage2_model(stage: str, npoints: int = 128):
+    """(model on the CPU with the fitted stage-2 weights, cfg) of the
+    port."""
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.models import build_model
+    from ws3d_tpu_torch.weights import load_flat
+    cfg = stage2_cfg(load_config, stage, npoints)
+    model = build_model(cfg, device="cpu")
+    load_flat(model, stage2_flat_weights(stage == "ioun"))
+    return model, cfg
+
+
+def assert_gradients_match(got, ref, keys=None):
+    """Every gradient of `got` ({npz key: array}) within 1e-3 of the
+    largest magnitude of its JAX counterpart in `ref` (exactly zero where
+    that is: a head the loss does not read)."""
+    for k in (keys if keys is not None else got):
+        g, r = got[k], ref[k]
+        scale = np.abs(r).max()
+        err = np.abs(g - r).max()
+        assert err <= 1e-3 * scale, (k, err, scale)

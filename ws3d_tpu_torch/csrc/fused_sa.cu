@@ -1,15 +1,20 @@
 // Fused set abstraction: ball query + gather + BN-folded ReLU MLP + max-pool.
 //
-// Replaces two TPU kernels that compute the same function:
+// Replaces three TPU kernels:
 //   ws3d_tpu/ops/fused_sa_bq_pallas.py:_kernel      (full: rank search over
 //                                                     all P points)
 //   ws3d_tpu/ops/fused_sa_window_pallas.py:_kernel  (windowed: z-sorted
 //                                                     points, scan only the
 //                                                     z-window of the query)
-// Here they are one kernel template with two entry points. Semantics: for
+//   ws3d_tpu/ops/fused_sa_pallas.py:_kernel         (given: the indices come
+//                                                     from the caller)
+// Here they are one kernel template with three entry modes. Semantics: for
 // each query the first S points with d2 < r2 in ascending index order, padded
-// with the first hit, point 0 when the ball is empty; rows [xyz - q, feat]
-// go through the MLP (ReLU after every layer) and are max-pooled over S.
+// with the first hit, point 0 when the ball is empty (or, given, the S
+// indices of its idx row); rows [xyz - q, feat] go through the MLP (ReLU
+// after every layer) and are max-pooled over S. The TPU kernel of the given
+// mode folds the centre into the first layer's bias; subtracting it from the
+// row, as the other two modes do, is the same function.
 //
 // What bounds it on the H100: the MLP's f32 FLOPs (2 * B*M*S * sum ci*co; up
 // to ~1.6 TFLOP per batch of stage-2 crops), far above the bytes it moves
@@ -18,8 +23,9 @@
 //
 // Design: one block per (scene, Q queries). One warp per query scans points
 // in ascending index with ballot + popc ranks and stops after S hits (the
-// windowed entry binary-searches [lo, hi) in the sorted z first). The Q*S
-// gathered rows sit in shared memory (row widths padded to a multiple of 4);
+// windowed entry binary-searches [lo, hi) in the sorted z first; the given
+// mode copies the caller's indices instead). The Q*S gathered rows sit in
+// shared memory (row widths padded to a multiple of 4);
 // each layer is a product with 8x4 register tiles and float4 loads into the
 // other ping-pong buffer, weights read through L1/L2; the last layer
 // max-pools straight into a per-query row with shared atomics (ReLU outputs
@@ -31,6 +37,8 @@ namespace {
 
 constexpr int kMaxLayers = 4;
 constexpr int kThreads = 256;
+
+enum Mode { kFull = 0, kWindow = 1, kGiven = 2 };
 
 struct MLPDesc {
   int n_layers;
@@ -62,10 +70,11 @@ __device__ __forceinline__ int upper_bound_z(const float* pts, int P,
   return lo;
 }
 
-template <bool WINDOW>
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 fused_sa_kernel(const float* __restrict__ xyz, const float* __restrict__ feat,
-                const float* __restrict__ new_xyz, int P, int C, int M,
+                const float* __restrict__ new_xyz,
+                const int* __restrict__ given, int P, int C, int M,
                 float r2, float win, int S, int Q, MLPDesc desc,
                 const float* __restrict__ params, int bufA, int bufB,
                 float* __restrict__ out) {
@@ -95,20 +104,27 @@ fused_sa_kernel(const float* __restrict__ xyz, const float* __restrict__ feat,
   for (int t = tid; t < Q * cout; t += nt) pooled[t] = 0.f;
   __syncthreads();
 
-  // ---- ball query: one warp per query, ascending index, stop after S hits
-  BallScales sc;
-  sc.n = 1;
-  sc.r2[0] = r2;
-  sc.S[0] = S;
-  for (int qi = warp; qi < nq; qi += nwarps) {
-    const float qx = qs[3 * qi], qy = qs[3 * qi + 1], qz = qs[3 * qi + 2];
-    int lo = 0, hi = P;
-    if (WINDOW) {
-      lo = lower_bound_z(pb, P, (double)qz - (double)win);
-      hi = upper_bound_z(pb, P, (double)qz + (double)win);
+  if constexpr (MODE == kGiven) {
+    // ---- the caller's indices, clamped into [0, P) (the wrapper's contract
+    // is that they already are; the clamp only keeps a bad one in bounds)
+    const int* gb = given + ((size_t)b * M + q0) * S;
+    for (int t = tid; t < nq * S; t += nt) idx[t] = min(max(gb[t], 0), P - 1);
+  } else {
+    // ---- ball query: one warp per query, ascending index, stop after S hits
+    BallScales sc;
+    sc.n = 1;
+    sc.r2[0] = r2;
+    sc.S[0] = S;
+    for (int qi = warp; qi < nq; qi += nwarps) {
+      const float qx = qs[3 * qi], qy = qs[3 * qi + 1], qz = qs[3 * qi + 2];
+      int lo = 0, hi = P;
+      if (MODE == kWindow) {
+        lo = lower_bound_z(pb, P, (double)qz - (double)win);
+        hi = upper_bound_z(pb, P, (double)qz + (double)win);
+      }
+      int* rows[kMaxScales] = {idx + qi * S};
+      warp_ball_query(pb, lo, hi, qx, qy, qz, sc, rows);
     }
-    int* rows[kMaxScales] = {idx + qi * S};
-    warp_ball_query(pb, lo, hi, qx, qy, qz, sc, rows);
   }
   __syncthreads();
 
@@ -213,17 +229,13 @@ fused_sa_kernel(const float* __restrict__ xyz, const float* __restrict__ feat,
     out[((size_t)b * M + q0) * cout + t] = pooled[t];
 }
 
-}  // namespace
-
-// xyz (B, P, 3), feat (B, P, C), new_xyz (B, M, 3) f32; params packs
-// [W0 (pad4(ci), co) row-major with zero rows past ci, b0 (co), W1, b1, ...]
-// (BN folded; every co a multiple of 4) -> out (B, M, width[n_layers]).
-// windowed != 0 requires xyz and new_xyz sorted ascending by z.
-WS3D_EXPORT int ws3d_fused_sa(const float* xyz, const float* feat,
-                              const float* new_xyz, int B, int P, int C, int M,
-                              float r2, float win, int S, int windowed,
-                              int n_layers, const int* widths,
-                              const float* params, float* out, void* stream) {
+// Checks the widths, sizes the query block Q to the shared memory and
+// launches mode MODE; returns a cudaError_t.
+template <int MODE>
+int launch_fused_sa(const float* xyz, const float* feat, const float* new_xyz,
+                    const int* given, int B, int P, int C, int M, float r2,
+                    float win, int S, int n_layers, const int* widths,
+                    const float* params, float* out, void* stream) {
   if (B <= 0 || P <= 0 || M <= 0 || S <= 0 || n_layers < 1 ||
       n_layers > kMaxLayers || widths[0] != C + 3)
     return (int)cudaErrorInvalidValue;
@@ -244,18 +256,39 @@ WS3D_EXPORT int ws3d_fused_sa(const float* xyz, const float* feat,
   const size_t smem = Q * per_q;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   const int grid = B * ((M + Q - 1) / Q);
-  cudaStream_t s = (cudaStream_t)stream;
-  int err;
-  if (windowed) {
-    err = ws3d_set_smem((const void*)fused_sa_kernel<true>, smem);
-    if (err) return err;
-    fused_sa_kernel<true><<<grid, kThreads, smem, s>>>(
-        xyz, feat, new_xyz, P, C, M, r2, win, S, Q, d, params, bufA, bufB, out);
-  } else {
-    err = ws3d_set_smem((const void*)fused_sa_kernel<false>, smem);
-    if (err) return err;
-    fused_sa_kernel<false><<<grid, kThreads, smem, s>>>(
-        xyz, feat, new_xyz, P, C, M, r2, win, S, Q, d, params, bufA, bufB, out);
-  }
+  const int err = ws3d_set_smem((const void*)fused_sa_kernel<MODE>, smem);
+  if (err) return err;
+  fused_sa_kernel<MODE><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      xyz, feat, new_xyz, given, P, C, M, r2, win, S, Q, d, params, bufA,
+      bufB, out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// xyz (B, P, 3), feat (B, P, C), new_xyz (B, M, 3) f32; params packs
+// [W0 (pad4(ci), co) row-major with zero rows past ci, b0 (co), W1, b1, ...]
+// (BN folded; every co a multiple of 4) -> out (B, M, width[n_layers]).
+// windowed != 0 requires xyz and new_xyz sorted ascending by z.
+WS3D_EXPORT int ws3d_fused_sa(const float* xyz, const float* feat,
+                              const float* new_xyz, int B, int P, int C, int M,
+                              float r2, float win, int S, int windowed,
+                              int n_layers, const int* widths,
+                              const float* params, float* out, void* stream) {
+  if (windowed)
+    return launch_fused_sa<kWindow>(xyz, feat, new_xyz, nullptr, B, P, C, M,
+                                    r2, win, S, n_layers, widths, params, out,
+                                    stream);
+  return launch_fused_sa<kFull>(xyz, feat, new_xyz, nullptr, B, P, C, M, r2,
+                                win, S, n_layers, widths, params, out, stream);
+}
+
+// The same with the indices given: idx (B, M, S) int32, each in [0, P).
+WS3D_EXPORT int ws3d_fused_sa_idx(const float* xyz, const float* feat,
+                                  const float* new_xyz, const int* idx, int B,
+                                  int P, int C, int M, int S, int n_layers,
+                                  const int* widths, const float* params,
+                                  float* out, void* stream) {
+  return launch_fused_sa<kGiven>(xyz, feat, new_xyz, idx, B, P, C, M, 0.f,
+                                 0.f, S, n_layers, widths, params, out, stream);
 }

@@ -26,6 +26,20 @@ class PointRCNN(nn.Module):
                     generator: Optional[torch.Generator] = None):
         return self.rpn(batch["pts_input"], train, bn_momentum, generator)
 
+    def rcnn_forward(self, batch, train: bool = False,
+                     bn_momentum: float = 0.1,
+                     generator: Optional[torch.Generator] = None):
+        """The stage-2 net on a crop batch; the batch's iou_trans/iou_scale/
+        iou_ry, where present, jitter the cascade's box."""
+        iou_noise = None
+        if "iou_trans" in batch:
+            iou_noise = {"trans": batch["iou_trans"],
+                         "scale": batch["iou_scale"], "ry": batch["iou_ry"]}
+        return self.rcnn(batch["cur_box_point"], batch["cur_box_reflect"],
+                         batch["train_mask"], iou_noise=iou_noise,
+                         train=train, bn_momentum=bn_momentum,
+                         generator=generator)
+
     def rcnn_trunk_forward(self, batch):
         return self.rcnn.trunk(batch["cur_box_point"],
                                batch["cur_box_reflect"], batch["train_mask"])

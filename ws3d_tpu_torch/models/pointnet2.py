@@ -5,11 +5,14 @@ Eval: every SA scale with a sampled centre set goes through the fused SA
 kernel (the windowed entry for z-sorted inputs where the JAX package
 dispatches its windowed kernel, the full entry elsewhere) with BatchNorm
 folded into the weights; FP stages use the layer-0 fold around the 3-NN
-interpolation kernel. Train (train=True): BatchNorm needs the batch
-statistics, so, as the JAX package declines its fused kernels there, an SA
-stage runs the multi-scale ball query kernel, a differentiable gather, the
-MLP and a max over the samples, and FP interpolates, concatenates the skip
-features and runs the MLP unfolded. GroupAll is plain tensor code in both.
+interpolation kernel. Train (train=True): a BatchNorm stage needs the
+batch statistics, so, as the JAX package declines its fused kernels there,
+it runs the multi-scale ball query kernel, a differentiable gather, the MLP
+and a max over the samples, and FP interpolates, concatenates the skip
+features and runs the MLP unfolded. A BN-free SA stage (the stage-2 stacks)
+keeps the fused kernel of eval on its live weights and differentiates it
+with ops.fused_sa.FusedSA, as the JAX package does on the chip. GroupAll is
+plain tensor code in both.
 """
 from __future__ import annotations
 
@@ -18,8 +21,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ws3d_tpu_torch.models.layers import SharedMLP
-from ws3d_tpu_torch.ops.fused_sa import fused_sa
+from ws3d_tpu_torch.models.layers import SharedMLP, folded_mlp_params
+from ws3d_tpu_torch.ops.fused_sa import fused_sa, fused_sa_train
 from ws3d_tpu_torch.ops.grouping import (ball_query_multi, group_all,
                                          group_with_idx)
 from ws3d_tpu_torch.ops.interpolate import interpolate_features
@@ -46,6 +49,7 @@ class PointnetSAModuleMSG(nn.Module):
         self.radii = [float(r) for r in radii]
         self.nsamples = [int(s) for s in nsamples]
         self.sorted_points = sorted_points
+        self.use_bn = use_bn
         for i, m in enumerate(mlps):
             self.add_module(f"mlp_{i}", SharedMLP(cin + 3, m, use_bn=use_bn))
         self.out_channels = sum(int(m[-1]) for m in mlps)
@@ -63,7 +67,7 @@ class PointnetSAModuleMSG(nn.Module):
                 new_xyz = torch.gather(new_xyz, 1,
                                        order[..., None].expand(-1, -1, 3))
             new_xyz = new_xyz.contiguous()
-        if train:
+        if train and (self.use_bn or self.npoint is None):
             return new_xyz, self._train_forward(xyz, features, new_xyz,
                                                 bn_momentum)
         window = use_window(self.sorted_points, xyz.shape[1],
@@ -74,6 +78,12 @@ class PointnetSAModuleMSG(nn.Module):
             if self.npoint is None:
                 h = mlp(group_all(xyz, features))
                 outs.append(torch.amax(h, dim=2))
+                continue
+            if train:        # BN-free: the live Dense weights, never a cache
+                kernels, biases = folded_mlp_params(mlp)
+                outs.append(fused_sa_train(
+                    xyz, features, new_xyz, self.radii[i], self.nsamples[i],
+                    kernels, biases, window))
                 continue
             kernels, biases = mlp.folded()
             outs.append(fused_sa(

@@ -25,3 +25,24 @@ def boxes3d_to_bev(boxes3d: torch.Tensor) -> torch.Tensor:
     half_l, half_w = boxes3d[..., 5] / 2, boxes3d[..., 4] / 2
     return torch.stack([cu - half_l, cv - half_w, cu + half_l, cv + half_w,
                         boxes3d[..., 6]], dim=-1)
+
+
+_X_SIGNS = (0.5, 0.5, -0.5, -0.5, 0.5, 0.5, -0.5, -0.5)
+_Z_SIGNS = (0.5, -0.5, -0.5, 0.5, 0.5, -0.5, -0.5, 0.5)
+_Y_SIGNS = (0.0, 0.0, 0.0, 0.0, -1.0, -1.0, -1.0, -1.0)
+
+
+def boxes3d_to_corners3d(boxes3d: torch.Tensor) -> torch.Tensor:
+    """(..., 7) -> (..., 8, 3) corners: the bottom four (y = box y) first,
+    then the top four (y - h); x' = c x + s z, z' = -s x + c z."""
+    def signs(v):
+        return torch.tensor(v, dtype=boxes3d.dtype, device=boxes3d.device)
+    h, w, l = boxes3d[..., 3], boxes3d[..., 4], boxes3d[..., 5]
+    ry = boxes3d[..., 6]
+    x_c = l[..., None] * signs(_X_SIGNS)
+    z_c = w[..., None] * signs(_Z_SIGNS)
+    y_c = h[..., None] * signs(_Y_SIGNS)
+    c, s = torch.cos(ry)[..., None], torch.sin(ry)[..., None]
+    corners = torch.stack([c * x_c + s * z_c, y_c, -s * x_c + c * z_c],
+                          dim=-1)
+    return corners + boxes3d[..., None, 0:3]

@@ -1,11 +1,22 @@
-"""Fused set abstraction (kernels 2 and 3: csrc/fused_sa.cu).
+"""Fused set abstraction (kernels 2 and 3: csrc/fused_sa.cu) and its
+backward.
 
 One function: ball query, gather of [xyz - q, feat] rows, the BN-folded
-ReLU MLP and a max over the S samples. The CUDA source has two entry points:
-the windowed one (ws3d_tpu/ops/fused_sa_window_pallas.py) scans only the
-z-window of each query and requires points and queries sorted ascending by
-z; the full one (ws3d_tpu/ops/fused_sa_bq_pallas.py) scans all points. The
-plain version is the f32 composition of fused_sa_bq_pallas._xla_reference.
+ReLU MLP and a max over the S samples. The CUDA source has two entry points
+for it: the windowed one (ws3d_tpu/ops/fused_sa_window_pallas.py) scans only
+the z-window of each query and requires points and queries sorted ascending
+by z; the full one (ws3d_tpu/ops/fused_sa_bq_pallas.py) scans all points.
+The plain version is the f32 composition of fused_sa_bq_pallas._xla_reference.
+
+FusedSA gives both a backward, for the BN-free stage-2 SA stacks in train
+mode. Like the JAX custom VJPs (fused_sa_bq_pallas.py:213-239,
+fused_sa_window_pallas.py:326-351) it saves only xyz, features, new_xyz and
+the weights, never the grouped tensor. Its backward takes the ball-query
+indices from kernel 6 (grouping.ball_query) and differentiates the MLP with
+them held constant (fused_sa_idx.sa_from_idx_backward). For the windowed
+entry the JAX backward re-runs an XLA ball query over all points instead;
+the indices are the same, because the window drops no in-ball point, so
+kernel 6 serves both entries here.
 """
 from __future__ import annotations
 
@@ -14,7 +25,10 @@ from typing import Sequence
 import torch
 
 from ws3d_tpu_torch.ops import _kernels
-from ws3d_tpu_torch.ops.grouping import ball_query, group_with_idx
+from ws3d_tpu_torch.ops.ball_query import ball_query_multi_plain
+from ws3d_tpu_torch.ops.fused_sa_idx import (  # noqa: F401 (pack_params)
+    check_mlp, fused_sa_idx_plain, pack_params, sa_from_idx_backward)
+from ws3d_tpu_torch.ops.grouping import ball_query
 
 # slack added to the window half-width: every point outside [qz - win,
 # qz + win] has dz^2 > r^2 even after f32 rounding, so the window drops none
@@ -26,21 +40,8 @@ def fused_sa_plain(xyz, features, new_xyz, radius: float, nsample: int,
                    kernels: Sequence[torch.Tensor],
                    biases: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain version: ball query + group + dense stack + max over S."""
-    idx = ball_query(radius, nsample, xyz, new_xyz)
-    h = group_with_idx(idx, xyz, new_xyz, features)
-    for k, b in zip(kernels, biases):
-        h = torch.relu(torch.matmul(h, k) + b)
-    return torch.amax(h, dim=2)
-
-
-def pack_params(kernels, biases) -> torch.Tensor:
-    """[W0, b0, W1, b1, ...] as one f32 buffer; each W (ci, co) row-major
-    with zero rows appended up to a multiple of 4 (the kernel's row pad)."""
-    parts = []
-    for k, b in zip(kernels, biases):
-        k = torch.nn.functional.pad(k, (0, 0, 0, (-k.shape[0]) % 4))
-        parts += [k.reshape(-1), b.reshape(-1)]
-    return torch.cat(parts).float().contiguous()
+    idx = ball_query_multi_plain([radius], [nsample], xyz, new_xyz)[0]
+    return fused_sa_idx_plain(idx, xyz, features, new_xyz, kernels, biases)
 
 
 def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
@@ -57,29 +58,14 @@ def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
                         (B, P, None))
     _kernels.check_cuda(new_xyz, "fused_sa new_xyz", torch.float32,
                         (B, None, 3))
-    widths = [C + 3] + [int(k.shape[1]) for k in kernels]
-    if any(w % 4 for w in widths[1:]):
-        raise ValueError(f"fused_sa: layer widths {widths[1:]} must be "
-                         f"multiples of 4")
-    for i, (k, b) in enumerate(zip(kernels, biases)):
-        if tuple(k.shape) != (widths[i], widths[i + 1]) or \
-                tuple(b.shape) != (widths[i + 1],):
-            raise ValueError(f"fused_sa layer {i}: kernel {tuple(k.shape)} "
-                             f"bias {tuple(b.shape)} do not chain from "
-                             f"{widths[i]}")
-    if params is None:
-        params = pack_params(kernels, biases)
-    n_params = sum(-(-w // 4) * 4 * wo + wo
-                   for w, wo in zip(widths[:-1], widths[1:]))
-    _kernels.check_cuda(params, "fused_sa params", torch.float32, (n_params,))
-    out = torch.empty((B, M, widths[-1]), dtype=torch.float32,
+    widths, params = check_mlp("fused_sa", C, kernels, biases, params)
+    out = torch.empty((B, M, widths[len(kernels)]), dtype=torch.float32,
                       device=xyz.device)
     r = float(radius)
-    widths_c = (_kernels.ctypes.c_int * len(widths))(*widths)
     rc = _kernels.library().ws3d_fused_sa(
         xyz.data_ptr(), features.data_ptr(), new_xyz.data_ptr(), B, P, C, M,
         r * r, r * (1.0 + _WINDOW_REL) + _WINDOW_ABS, int(nsample),
-        int(bool(window)), len(kernels), widths_c, params.data_ptr(),
+        int(bool(window)), len(kernels), widths, params.data_ptr(),
         out.data_ptr(), _kernels.stream_ptr(xyz))
     name = "fused_sa_window" if window else "fused_sa_full"
     _kernels.raise_on_error(rc, name)
@@ -98,3 +84,37 @@ def fused_sa(xyz, features, new_xyz, radius: float, nsample: int, kernels,
                              kernels, biases, window, params=params)
     return fused_sa_plain(xyz, features, new_xyz, radius, nsample, kernels,
                           biases)
+
+
+class FusedSA(torch.autograd.Function):
+    """fused_sa with a backward (see the module docstring). apply(xyz,
+    features, new_xyz, radius, nsample, window, n_layers, *kernels,
+    *biases); gradients reach every tensor input that requires one, xyz and
+    new_xyz through the centre subtraction."""
+
+    @staticmethod
+    def forward(ctx, xyz, features, new_xyz, radius, nsample, window,
+                n_layers, *weights):
+        ctx.radius, ctx.nsample, ctx.n_layers = radius, nsample, n_layers
+        ctx.save_for_backward(xyz, features, new_xyz, *weights)
+        return fused_sa(xyz, features, new_xyz, radius, nsample,
+                        weights[:n_layers], weights[n_layers:], window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        xyz, features, new_xyz, *weights = ctx.saved_tensors
+        L = ctx.n_layers
+        idx = ball_query(ctx.radius, ctx.nsample, xyz, new_xyz)
+        needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[7:]
+        g = sa_from_idx_backward(idx, xyz, features, new_xyz, weights[:L],
+                                 weights[L:], grad_out.contiguous(), needs)
+        return (*g[:3], None, None, None, None, *g[3:])
+
+
+def fused_sa_train(xyz, features, new_xyz, radius: float, nsample: int,
+                   kernels: Sequence[torch.Tensor],
+                   biases: Sequence[torch.Tensor],
+                   window: bool) -> torch.Tensor:
+    """Differentiable fused SA on the live (unfolded, BN-free) weights."""
+    return FusedSA.apply(xyz, features, new_xyz, float(radius), int(nsample),
+                         bool(window), len(kernels), *kernels, *biases)

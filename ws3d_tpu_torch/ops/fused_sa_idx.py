@@ -1,0 +1,144 @@
+"""Set abstraction with given indices (kernel 9: the given mode of
+csrc/fused_sa.cu), and the given-index backward every fused SA shares.
+
+Port of ws3d_tpu/ops/fused_sa_pallas.py: for each query its S given point
+indices, rows [xyz - q, feat], the ReLU MLP and a max over S. The TPU kernel
+gathers with a one-hot bf16 matmul and folds the centre into the first
+layer's bias; the CUDA kernel gathers the f32 rows and subtracts the centre,
+which is the same function. No model path of the JAX package launches
+kernel 9 (only its tests call fused_sa_single_scale), and none of the port
+does: it runs from its own entry point, fused_sa_single_scale.
+
+Its backward, sa_from_idx_backward, is the JAX VJP of _xla_reference with
+the indices held constant: recompute group -> MLP -> amax under autograd and
+differentiate. It is also the backward of kernels 2 and 3
+(ops/fused_sa.FusedSA), as fused_sa_bq_pallas._mlp_from_idx is in the JAX
+package. torch.amax splits the gradient evenly among tied samples (the
+padded duplicates), as JAX's max does.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ws3d_tpu_torch.ops import _kernels
+from ws3d_tpu_torch.ops.grouping import group_with_idx
+
+
+def pack_params(kernels, biases) -> torch.Tensor:
+    """[W0, b0, W1, b1, ...] as one f32 buffer; each W (ci, co) row-major
+    with zero rows appended up to a multiple of 4 (the kernel's row pad)."""
+    parts = []
+    for k, b in zip(kernels, biases):
+        k = torch.nn.functional.pad(k, (0, 0, 0, (-k.shape[0]) % 4))
+        parts += [k.reshape(-1), b.reshape(-1)]
+    return torch.cat(parts).float().contiguous()
+
+
+def check_mlp(name: str, C: int, kernels, biases, params):
+    """Raise unless the layers chain from 3 + C with widths that are
+    multiples of 4; returns (ctypes widths array, the packed params)."""
+    widths = [C + 3] + [int(k.shape[1]) for k in kernels]
+    if any(w % 4 for w in widths[1:]):
+        raise ValueError(f"{name}: layer widths {widths[1:]} must be "
+                         f"multiples of 4")
+    for i, (k, b) in enumerate(zip(kernels, biases)):
+        if tuple(k.shape) != (widths[i], widths[i + 1]) or \
+                tuple(b.shape) != (widths[i + 1],):
+            raise ValueError(f"{name} layer {i}: kernel {tuple(k.shape)} "
+                             f"bias {tuple(b.shape)} do not chain from "
+                             f"{widths[i]}")
+    if params is None:
+        params = pack_params(kernels, biases)
+    n_params = sum(-(-w // 4) * 4 * wo + wo
+                   for w, wo in zip(widths[:-1], widths[1:]))
+    _kernels.check_cuda(params, f"{name} params", torch.float32, (n_params,))
+    return (_kernels.ctypes.c_int * len(widths))(*widths), params
+
+
+def fused_sa_idx_plain(idx, xyz, features, new_xyz,
+                       kernels: Sequence[torch.Tensor],
+                       biases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Plain version, the f32 composition of
+    fused_sa_pallas._xla_reference: idx (B, M, S) -> group -> dense stack
+    with ReLU -> max over S -> (B, M, C_last)."""
+    h = group_with_idx(idx.long(), xyz, new_xyz, features)
+    for k, b in zip(kernels, biases):
+        h = torch.relu(torch.matmul(h, k) + b)
+    return torch.amax(h, dim=2)
+
+
+def fused_sa_idx_cuda(xyz, features, new_xyz, idx, kernels,
+                      biases) -> torch.Tensor:
+    """Kernel 9: (B, P, 3), (B, P, C), (B, M, 3) f32 and idx (B, M, S)
+    int32 in [0, P), all CUDA -> (B, M, C_last)."""
+    _kernels.check_cuda(xyz, "fused_sa_idx xyz", torch.float32,
+                        (None, None, 3))
+    B, P, _ = xyz.shape
+    _kernels.check_cuda(features, "fused_sa_idx features", torch.float32,
+                        (B, P, None))
+    _kernels.check_cuda(new_xyz, "fused_sa_idx new_xyz", torch.float32,
+                        (B, None, 3))
+    M = new_xyz.shape[1]
+    _kernels.check_cuda(idx, "fused_sa_idx idx", torch.int32, (B, M, None))
+    C, S = features.shape[-1], idx.shape[-1]
+    widths, params = check_mlp("fused_sa_idx", C, kernels, biases, None)
+    out = torch.empty((B, M, widths[len(kernels)]), dtype=torch.float32,
+                      device=xyz.device)
+    rc = _kernels.library().ws3d_fused_sa_idx(
+        xyz.data_ptr(), features.data_ptr(), new_xyz.data_ptr(),
+        idx.data_ptr(), B, P, C, M, S, len(kernels), widths,
+        params.data_ptr(), out.data_ptr(), _kernels.stream_ptr(xyz))
+    _kernels.raise_on_error(rc, "fused_sa_idx")
+    _kernels.LAUNCHES["fused_sa_idx"] += 1
+    return out
+
+
+def sa_from_idx_backward(idx, xyz, features, new_xyz, kernels, biases,
+                         grad_out, needs):
+    """The given-index VJP: gradients of fused_sa_idx_plain at these inputs
+    with idx held constant, for the inputs (xyz, features, new_xyz,
+    *kernels, *biases) whose entry of `needs` is true (None for the rest).
+    The grouped rows are recomputed here and freed on return."""
+    inputs = [xyz, features, new_xyz, *kernels, *biases]
+    L = len(kernels)
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(bool(w))
+                  for x, w in zip(inputs, needs)]
+        out = fused_sa_idx_plain(idx, leaves[0], leaves[1], leaves[2],
+                                 leaves[3:3 + L], leaves[3 + L:])
+        wanted = [x for x, w in zip(leaves, needs) if w]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out)
+                     if wanted else ())
+    return [next(grads) if w else None for w in needs]
+
+
+class _FusedSAIdx(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xyz, features, new_xyz, idx, n_layers, *weights):
+        kernels, biases = weights[:n_layers], weights[n_layers:]
+        ctx.n_layers = n_layers
+        ctx.save_for_backward(xyz, features, new_xyz, idx, *weights)
+        if xyz.is_cuda:
+            return fused_sa_idx_cuda(xyz, features, new_xyz, idx, kernels,
+                                     biases)
+        return fused_sa_idx_plain(idx, xyz, features, new_xyz, kernels,
+                                  biases)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        xyz, features, new_xyz, idx, *weights = ctx.saved_tensors
+        L = ctx.n_layers
+        needs = ctx.needs_input_grad[:3] + ctx.needs_input_grad[5:]
+        g = sa_from_idx_backward(idx, xyz, features, new_xyz, weights[:L],
+                                 weights[L:], grad_out.contiguous(), needs)
+        return (*g[:3], None, None, *g[3:])
+
+
+def fused_sa_single_scale(xyz, features, new_xyz, idx, kernels, biases):
+    """Differentiable SA with given indices: kernel 9 forward on CUDA
+    tensors (idx int32), the plain version on CPU tensors; the backward is
+    sa_from_idx_backward on either."""
+    return _FusedSAIdx.apply(xyz, features, new_xyz, idx, len(kernels),
+                             *kernels, *biases)

@@ -47,12 +47,15 @@ def radius_sq(radius: float, device) -> torch.Tensor:
 
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
                new_xyz: torch.Tensor, chunk: int = 512) -> torch.Tensor:
-    """xyz (B, N, 3), new_xyz (B, M, 3) -> (B, M, nsample) int64: one scale
-    of the plain multi-scale query, chunked over the queries to bound the
-    (B, chunk, N) distance block."""
-    from ws3d_tpu_torch.ops.ball_query import ball_query_multi_plain
-    return ball_query_multi_plain([radius], [nsample], xyz, new_xyz,
-                                  chunk)[0].long()
+    """xyz (B, N, 3), new_xyz (B, M, 3) -> (B, M, nsample) int32: one scale
+    of the multi-scale query, kernel 6 on CUDA tensors, on CPU tensors its
+    plain version chunked over the queries to bound the (B, chunk, N)
+    distance block."""
+    from ws3d_tpu_torch.ops import ball_query as bq
+    if xyz.is_cuda:
+        return bq.ball_query_multi_cuda([radius], [nsample], xyz, new_xyz)[0]
+    return bq.ball_query_multi_plain([radius], [nsample], xyz, new_xyz,
+                                     chunk)[0]
 
 
 def ball_query_multi(radii, nsamples, xyz: torch.Tensor,

@@ -41,11 +41,11 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     return p
 
 
-def setup(args):
+def setup(args, name: str = "train_rpn"):
     from ws3d_tpu_torch.config import load_config
     cfg = load_config(args.cfg_file, args.set_cfgs)
     os.makedirs(args.output_dir, exist_ok=True)
-    log = logging.getLogger("ws3d_tpu_torch.train_rpn")
+    log = logging.getLogger(f"ws3d_tpu_torch.{name}")
     log.setLevel(logging.INFO)
     fmt = logging.Formatter("%(asctime)s %(levelname)5s %(message)s")
     for h in (logging.StreamHandler(),

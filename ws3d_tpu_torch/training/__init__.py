@@ -1,8 +1,9 @@
-"""Stage-1 training: optimizer and schedules, the train step and Trainer,
-train-state checkpoints."""
+"""Training: optimizer and schedules, the stage-1 and stage-2 train steps
+and Trainer, train-state checkpoints."""
 from ws3d_tpu_torch.training.checkpoint import (  # noqa: F401
-    restore_train_state, save_train_state)
+    load_part_checkpoint, restore_train_state, save_train_state)
 from ws3d_tpu_torch.training.optim import (  # noqa: F401
     AdamOneCycle, bn_momentum_schedule, onecycle_momentum, onecycle_schedule)
 from ws3d_tpu_torch.training.trainer import (  # noqa: F401
-    Trainer, make_rpn_loss_fn, make_rpn_train_step)
+    Trainer, make_rcnn_loss_fn, make_rcnn_train_step, make_rpn_loss_fn,
+    make_rpn_train_step)

@@ -1,5 +1,5 @@
 """Train-state checkpoints with torch.save (port of the resume checkpoints
-of ws3d_tpu/training/checkpoint.py).
+and load_part_checkpoint of ws3d_tpu/training/checkpoint.py).
 
 One file holds the step, the model's state dict (weights and BatchNorm
 running statistics) and the optimizer's moments. Loading uses
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -43,3 +44,31 @@ def restore_train_state(path: str, model: nn.Module,
         raise RuntimeError(f"{path}: step {ckpt['step']} but optimizer "
                            f"count {optimizer.count}")
     return optimizer.count
+
+
+def load_part_checkpoint(model: nn.Module, path: str,
+                         subtrees=("rpn", "rcnn")) -> int:
+    """Graft the entries of the top-level `subtrees` (e.g. "rcnn") from a
+    checkpoint into `model`: a train state written by save_train_state, or
+    an npz of flat weights (weights.save_npz or the JAX package's keys).
+    Entries the checkpoint lacks stay as they are, so an IOUN model warms
+    from an RCNN-only checkpoint with a fresh cascade; entries `model` lacks
+    are ignored. Returns the number of tensors set."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            loaded = {k.split("/", 1)[1].replace("/", "."): torch.from_numpy(
+                np.asarray(z[k], np.float32)) for k in z.files}
+    else:
+        loaded = torch.load(path, map_location="cpu",
+                            weights_only=True)["model"]
+    state = model.state_dict()
+    new = {}
+    for k, v in loaded.items():
+        if k.split(".", 1)[0] not in subtrees or k not in state:
+            continue
+        if tuple(v.shape) != tuple(state[k].shape):
+            raise RuntimeError(f"{path}: {k} has shape {tuple(v.shape)}, "
+                               f"the model {tuple(state[k].shape)}")
+        new[k] = v
+    model.load_state_dict(new, strict=False)
+    return len(new)

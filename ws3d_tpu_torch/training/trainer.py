@@ -1,12 +1,20 @@
-"""The stage-1 (RPN) train step and the step-loop Trainer (port of the RPN
-parts of ws3d_tpu/training/trainer.py).
+"""The train steps and the step-loop Trainer (port of
+ws3d_tpu/training/trainer.py).
 
-A step: rpn_forward(train=True) with the epoch's BN momentum and dropout
-from the Trainer's torch.Generator, rpn_loss, gradients of every RPN
+Stage 1 (rpn): rpn_forward(train=True) with the epoch's BN momentum and
+dropout from the Trainer's torch.Generator, rpn_loss, gradients of every RPN
 parameter, then AdamOneCycle. The BatchNorm running statistics are updated
 by the forward itself, as the JAX step replaces batch_stats with the ones
-its forward returns. TensorBoard output and in-training validation are not
-ported.
+its forward returns.
+
+Stage 2: rcnn_forward(train=True) on a crop batch, then rcnn_loss (stage
+"rcnn") or ioun_loss (stage "ioun"). The IOUN stage freezes the RCNN trunk:
+its optimizer holds only the cascade's parameters (CASCADE_PREFIXES, the
+JAX package's _ioun_trainable_mask). optax clips the global norm over every
+gradient before it zeroes the frozen ones; that equals clipping over the
+cascade alone because the trunk's IOUN gradients are exactly zero (the
+trunk's box is detached). TensorBoard output and in-training validation
+are not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +30,12 @@ from ws3d_tpu_torch.training.optim import AdamOneCycle, bn_momentum_schedule
 from ws3d_tpu_torch.utils.prefetch import prefetch
 
 RPN_INPUTS = ("pts_input", "rpn_cls_label", "rpn_reg_label")
+RCNN_INPUTS = ("cur_box_point", "cur_box_reflect", "train_mask", "gt_boxes",
+               "cls")
+IOU_NOISE = ("iou_trans", "iou_scale", "iou_ry")
+CASCADE_PREFIXES = ("can_xyz_up_", "can_feature_up_", "can_merge_down_",
+                    "sa_score_", "iou_head_", "icl_head_", "ref_head_")
+STAGES = ("rpn", "rcnn", "ioun")
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device,
@@ -29,6 +43,41 @@ def batch_to_device(batch: Dict[str, np.ndarray], device,
     """The step's inputs of a NumPy batch as tensors on `device`."""
     return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
             for k in keys}
+
+
+def step_inputs(stage: str, batch) -> tuple:
+    """The keys of `batch` a step of `stage` reads."""
+    if stage == "rpn":
+        return RPN_INPUTS
+    return RCNN_INPUTS + tuple(k for k in IOU_NOISE if k in batch)
+
+
+def trainable_parameters(model, stage: str) -> Dict[str, torch.nn.Parameter]:
+    """{name: parameter} a stage trains: the RPN's (rpn), the stage-2 net's
+    (rcnn), or only the IOUN cascade's (ioun; the trunk is frozen)."""
+    if stage not in STAGES:
+        raise ValueError(f"stage {stage!r} is not one of {STAGES}")
+    if stage == "rpn":
+        return dict(model.rpn.named_parameters(prefix="rpn"))
+    named = model.rcnn.named_parameters(prefix="rcnn")
+    if stage == "rcnn":
+        return dict(named)
+    return {k: p for k, p in named
+            if k.split(".")[1].startswith(CASCADE_PREFIXES)}
+
+
+def _gradients(loss_fn, batch, generator, bn_momentum,
+               params: Dict[str, torch.Tensor]):
+    """(loss, aux, {name: gradient}); a parameter the loss does not reach
+    gets a zero gradient, as jax.grad gives it."""
+    total, aux = loss_fn(batch, generator, bn_momentum)
+    grads = torch.autograd.grad(total, list(params.values()),
+                                allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params.values(), grads)]
+    aux = {k: v.detach() for k, v in aux.items()}
+    aux["loss"] = total.detach()
+    return total.detach(), aux, dict(zip(params, grads))
 
 
 def make_rpn_loss_fn(model, cfg) -> Callable:
@@ -55,11 +104,8 @@ def make_rpn_loss_fn(model, cfg) -> Callable:
 def rpn_gradients(model, cfg, batch, generator, bn_momentum: float,
                   params: Dict[str, torch.Tensor]):
     """(loss, aux, {name: gradient}) of one stage-1 forward/backward."""
-    total, aux = make_rpn_loss_fn(model, cfg)(batch, generator, bn_momentum)
-    grads = torch.autograd.grad(total, list(params.values()))
-    aux = {k: v.detach() for k, v in aux.items()}
-    aux["loss"] = total.detach()
-    return total.detach(), aux, dict(zip(params, grads))
+    return _gradients(make_rpn_loss_fn(model, cfg), batch, generator,
+                      bn_momentum, params)
 
 
 def make_rpn_train_step(model, cfg, optimizer: AdamOneCycle) -> Callable:
@@ -74,27 +120,73 @@ def make_rpn_train_step(model, cfg, optimizer: AdamOneCycle) -> Callable:
     return step
 
 
+def make_rcnn_loss_fn(model, cfg, stage: str = "rcnn") -> Callable:
+    """loss_fn(batch, generator, bn_momentum) -> (total, aux) of a stage-2
+    step: rcnn_loss, or ioun_loss for stage "ioun"."""
+    anchor = [float(v) for v in cfg.CLS_MEAN_SIZE[0]]
+    r = cfg.RCNN
+
+    def loss_fn(batch, generator, bn_momentum):
+        out = model.rcnn_forward(batch, train=True, bn_momentum=bn_momentum,
+                                 generator=generator)
+        gt = batch["gt_boxes"].reshape(-1, 7)
+        cls_label = batch["cls"].reshape(-1)
+        if stage == "ioun":
+            return losses.ioun_loss(
+                out["rcnn_iou"], out["rcnn_ref"],
+                out["pred_boxes3d"].reshape(-1, 7),
+                out["refined_box"].reshape(-1, 7), gt, cls_label)
+        return losses.rcnn_loss(
+            out["rcnn_cls"], out["rcnn_reg"],
+            out["pred_boxes3d"].reshape(-1, 7), gt, cls_label,
+            torch.tensor(anchor, dtype=gt.dtype, device=gt.device),
+            loc_scope=r.LOC_SCOPE, loc_bin_size=r.LOC_BIN_SIZE,
+            num_head_bin=r.NUM_HEAD_BIN, get_xz_fine=r.LOC_XZ_FINE)
+
+    return loss_fn
+
+
+def rcnn_gradients(model, cfg, stage: str, batch, generator,
+                   bn_momentum: float, params: Dict[str, torch.Tensor]):
+    """(loss, aux, {name: gradient}) of one stage-2 forward/backward."""
+    return _gradients(make_rcnn_loss_fn(model, cfg, stage), batch,
+                      generator, bn_momentum, params)
+
+
+def make_rcnn_train_step(model, cfg, optimizer: AdamOneCycle,
+                         stage: str = "rcnn") -> Callable:
+    """step(batch, generator, bn_momentum) -> aux: one stage-2 step on the
+    optimizer's parameters. Reads nothing back to the host."""
+    def step(batch, generator, bn_momentum: float = 0.1):
+        _, aux, grads = rcnn_gradients(model, cfg, stage, batch, generator,
+                                       bn_momentum, optimizer.params)
+        optimizer.step(grads)
+        return aux
+
+    return step
+
+
 class Trainer:
-    """Step loop for stage 1: AdamOneCycle over the RPN's parameters, the
-    BN-momentum schedule per epoch, dropout from one seeded generator on
-    the model's device."""
+    """Step loop for one stage (rpn, rcnn or ioun): AdamOneCycle over the
+    stage's trainable parameters, the BN-momentum schedule per epoch,
+    dropout from one seeded generator on the model's device."""
 
     def __init__(self, model, cfg, total_steps: int, stage: str = "rpn",
                  seed: int = 0, log_fn=print):
-        if stage != "rpn":
-            raise NotImplementedError("only stage-1 (rpn) training is "
-                                      "ported")
         self.model = model
         self.cfg = cfg
         self.stage = stage
         self.log_fn = log_fn
         self.device = next(model.parameters()).device
         self.optimizer = AdamOneCycle(
-            cfg, total_steps, model.rpn.named_parameters(prefix="rpn"))
+            cfg, total_steps, trainable_parameters(model, stage).items())
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
         self.bn_sched = bn_momentum_schedule(cfg)
-        self.step_fn = make_rpn_train_step(model, cfg, self.optimizer)
+        self.step_fn = (make_rpn_train_step(model, cfg, self.optimizer)
+                        if stage == "rpn" else
+                        make_rcnn_train_step(model, cfg, self.optimizer,
+                                             stage))
 
     @property
     def step(self) -> int:
@@ -104,19 +196,34 @@ class Trainer:
                        momentum: float = 0.2) -> int:
         """Re-estimate the BN running statistics at the current weights:
         up to `n_batches` train-mode forwards with `momentum`, no update of
-        the weights. Returns the number of batches used."""
+        the weights. Returns the number of batches used: 0, and nothing
+        runs, when the stage's network has no BatchNorm."""
+        net = self.model.rpn if self.stage == "rpn" else self.model.rcnn
+        if not any(k.endswith(".mean") for k, _ in net.named_buffers()):
+            self.log_fn(f"stage {self.stage} has no BatchNorm: nothing to "
+                        f"recalibrate")
+            return 0
+        forward = (self.model.rpn_forward if self.stage == "rpn"
+                   else self.model.rcnn_forward)
         used = 0
         with torch.no_grad():
             for batch in batch_iter:
                 if used >= n_batches:
                     break
-                self.model.rpn_forward(
-                    batch_to_device(batch, self.device, ("pts_input",)),
-                    train=True, bn_momentum=momentum,
-                    generator=self.generator)
+                forward(batch_to_device(batch, self.device,
+                                        step_inputs(self.stage, batch)),
+                        train=True, bn_momentum=momentum,
+                        generator=self.generator)
                 used += 1
         self.log_fn(f"recalibrated BN stats over {used} batches")
         return used
+
+    @staticmethod
+    def prob_mask_ratio(epoch: int, total_epochs: int) -> float:
+        """The share of stage-2 batches whose train_mask is the predicted
+        one: from 2/3 at epoch 0 up to 1."""
+        return min(0.5 + 0.5 * (epoch + total_epochs / 3.0) / total_epochs,
+                   1.0)
 
     def train_steps(self, batch_iter: Iterable, total_steps: int,
                     log_every: int = 10, epoch_size: Optional[int] = None,
@@ -133,8 +240,10 @@ class Trainer:
             if i >= total_steps:
                 break
             epoch = i // epoch_size if epoch_size else 0
-            aux = self.step_fn(batch_to_device(batch, self.device),
-                               self.generator, self.bn_sched(epoch))
+            aux = self.step_fn(
+                batch_to_device(batch, self.device,
+                                step_inputs(self.stage, batch)),
+                self.generator, self.bn_sched(epoch))
             if i % log_every == 0:
                 vals = {k: float(v) for k, v in aux.items() if v.dim() == 0}
                 self.log_fn(f"step {i}: " + " ".join(
