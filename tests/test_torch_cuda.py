@@ -166,3 +166,65 @@ def test_fused_sa_backward(dev, rng, window):
         # scatter-add atomics sum in another order
         torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()),
                                    rtol=0)
+
+
+def test_ball_query_wrap_kernel(dev, rng):
+    from ws3d_tpu_torch.ops.ball_query import (ball_query_wrap_cuda,
+                                               ball_query_wrap_plain)
+    xyz = rng.randn(2, 16384, 3).astype(np.float32) * 20
+    xyz[..., 1] = 0.0
+    centers = xyz[:, rng.choice(16384, 64, replace=False)].copy()
+    centers[:, 0] = 500.0                       # an empty ball
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (xyz, centers)]
+    for radii, ks in (([4.0], [2048]), ([0.5, 4.0], [16, 100])):
+        idx, cnt = ball_query_wrap_cuda(radii, ks, *args)
+        ridx, rcnt = ball_query_wrap_plain(radii, ks, *args)
+        for a, b in zip(idx + cnt, ridx + rcnt):
+            assert a.dtype == torch.int32
+            assert torch.equal(a, b)
+        assert int(cnt[-1][:, 0].max()) == 0
+        assert bool((cnt[-1] < ks[-1]).any() & (cnt[-1] > 0).any())
+
+
+def test_interpolate_window_kernel(dev, rng):
+    from ws3d_tpu_torch.ops.interpolate import (
+        three_interpolate_cuda, three_interpolate_window_cuda,
+        three_interpolate_window_plain, three_nn_cuda, three_nn_window_plain)
+    for n, m in ((4096, 1024), (700, 64), (50, 2), (40, 1)):
+        u, _ = sorted_cloud(rng, 2, n, 1, spread=4.0)
+        k, f = sorted_cloud(rng, 2, m, 24, spread=4.0)
+        if m > 3:
+            k[:, 1] = k[:, 0]                    # a tie
+        u, k, f = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in (u, k, f))
+        out, d2, idx = three_interpolate_window_cuda(u, k, f, with_nn=True)
+        rd2, ridx = three_nn_window_plain(u, k)
+        assert torch.equal(idx, ridx) and torch.equal(d2, rd2)
+        assert torch.equal(idx, three_nn_cuda(u, k)[1])
+        # kernel 4's arithmetic on kernel 7's neighbours: bit-equal
+        assert torch.equal(out, three_interpolate_cuda(u, k, f))
+        torch.testing.assert_close(out,
+                                   three_interpolate_window_plain(u, k, f),
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("z_window", [1, 4, 16])
+def test_crop_gather_window_kernel(dev, rng, z_window):
+    from ws3d_tpu_torch.ops.crop_gather import (crop_gather_cuda,
+                                                crop_gather_window_plain)
+    pts = rng.randn(2, 4096, 3).astype(np.float32) * 6
+    pts[..., 2] = np.abs(pts[..., 2]) * 4
+    pts = pts[np.arange(2)[:, None], np.argsort(pts[..., 2], axis=1)]
+    ch = rng.rand(2, 5, 4096).astype(np.float32)
+    centers = np.stack([rng.randn(2, 16).astype(np.float32) * 6,
+                        np.sort(rng.rand(2, 16).astype(np.float32) * 30,
+                                axis=1)], axis=-1)
+    centers[:, 0] = 80.0
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (pts, ch, centers)]
+    full_v, full_c = crop_gather_cuda(*args, 4.0, 512, True)
+    vals, cnt = crop_gather_cuda(*args, 4.0, 512, True, z_window)
+    rv, rc = crop_gather_window_plain(*args, 4.0, 512, True, z_window)
+    assert torch.equal(cnt, rc) and torch.equal(cnt, full_c)
+    assert torch.equal(vals, rv) and torch.equal(vals, full_v)

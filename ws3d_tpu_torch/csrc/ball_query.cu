@@ -24,6 +24,19 @@
 // (warp_ball_query in common.cuh, shared with the fused SA kernel). The rows
 // are built in shared memory and written out coalesced. The JAX kernel scans
 // all points too; a z-window over the sorted cloud is later work.
+//
+// Kernel 6w, the same TPU kernel's wrap_pad mode (wrap_pad=True in
+// ball_query_pallas; _bev_first_k_wrap_batched in the JAX pipeline, and here
+// crop_membership of the proposal-database path): slot s takes the
+// (s % cnt)-th in-ball point, cnt is the true in-ball count over all N, an
+// empty ball gives 0 everywhere and count 0. The count needs every point, so
+// nothing stops early; at the database path's shape (64 centres over a
+// 16,384-point scene, S = 2048) the N-point scan of each centre bounds it,
+// about 9 operations a point, with S * 4 bytes out a centre.
+// Design: one block per query (block_rank_scan in common.cuh, shared with
+// the crop kernels); the first min(cnt, S) member indices stay in shared
+// memory (8 KB at S = 2048) and the block writes the S slots coalesced.
+// All scales go in one launch, one scan per scale.
 #include "common.cuh"
 
 namespace {
@@ -62,7 +75,74 @@ ball_query_kernel(const float* __restrict__ xyz,
   }
 }
 
+constexpr int kWrapThreads = 256;
+
+struct WrapOut {
+  int* idx[kMaxScales];  // per scale (B, M, S_i) int32
+  int* cnt[kMaxScales];  // per scale (B, M) int32
+};
+
+__global__ void __launch_bounds__(kWrapThreads)
+ball_query_wrap_kernel(const float* __restrict__ xyz,
+                       const float* __restrict__ new_xyz, int N, int M,
+                       BallScales sc, WrapOut o) {
+  extern __shared__ int members[];  // max S_i ints
+  __shared__ int warp_cnt[kWrapThreads / 32];
+  const int q = blockIdx.x;  // (b, m) flattened
+  const float* pb = xyz + (size_t)(q / M) * N * 3;
+  const float qx = new_xyz[3 * (size_t)q], qy = new_xyz[3 * (size_t)q + 1],
+              qz = new_xyz[3 * (size_t)q + 2];
+  for (int s = 0; s < sc.n; ++s) {
+    const float r2 = sc.r2[s];
+    const int S = sc.S[s];
+    const int cnt = block_rank_scan<kWrapThreads>(
+        0, N,
+        [&](int i) {
+          return sqdist3(qx - pb[3 * i], qy - pb[3 * i + 1],
+                         qz - pb[3 * i + 2]) < r2;
+        },
+        S, members, warp_cnt);
+    int* dst = o.idx[s] + (size_t)q * S;
+    for (int k = threadIdx.x; k < S; k += kWrapThreads)
+      dst[k] = cnt > 0 ? members[k % cnt] : 0;
+    if (threadIdx.x == 0) o.cnt[s][q] = cnt;
+    __syncthreads();  // the next scale reuses `members`
+  }
+}
+
 }  // namespace
+
+// Kernel 6w: xyz (B, N, 3), new_xyz (B, M, 3) f32; r2[s] and nsample[s] for
+// n_scales scales; idx[s] a (B, M, nsample[s]) and cnt[s] a (B, M) int32
+// device buffer.
+WS3D_EXPORT int ws3d_ball_query_wrap(const float* xyz, const float* new_xyz,
+                                     int B, int N, int M, int n_scales,
+                                     const float* r2, const int* nsample,
+                                     void* const* idx, void* const* cnt,
+                                     void* stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || n_scales < 1 || n_scales > kMaxScales)
+    return (int)cudaErrorInvalidValue;
+  BallScales sc;
+  WrapOut o;
+  sc.n = n_scales;
+  int max_s = 0;
+  for (int s = 0; s < kMaxScales; ++s) {
+    sc.r2[s] = s < n_scales ? r2[s] : 0.f;
+    sc.S[s] = s < n_scales ? nsample[s] : 0;
+    o.idx[s] = s < n_scales ? (int*)idx[s] : nullptr;
+    o.cnt[s] = s < n_scales ? (int*)cnt[s] : nullptr;
+    if (s < n_scales) {
+      if (nsample[s] <= 0) return (int)cudaErrorInvalidValue;
+      max_s = max(max_s, nsample[s]);
+    }
+  }
+  const size_t smem = (size_t)max_s * sizeof(int);
+  int err = ws3d_set_smem((const void*)ball_query_wrap_kernel, smem);
+  if (err) return err;
+  ball_query_wrap_kernel<<<B * M, kWrapThreads, smem, (cudaStream_t)stream>>>(
+      xyz, new_xyz, N, M, sc, o);
+  return (int)cudaGetLastError();
+}
 
 // xyz (B, N, 3), new_xyz (B, M, 3) f32; r2[s] and nsample[s] for n_scales
 // scales; outs[s] a (B, M, nsample[s]) int32 device buffer.

@@ -29,6 +29,42 @@ static inline int ws3d_set_smem(const void* kernel, size_t bytes) {
                                    (int)bytes);
 }
 
+// ---- block rank scan: shared by crop_gather.cu (kernels 5, 10) and
+// ball_query.cu (kernel 6w) -------------------------------------------------
+
+// All kThreads threads of a block scan the points [lo, hi) in ascending
+// index, kThreads at a time; member(i) says whether point i belongs. A warp
+// ballot plus per-warp counts in shared memory (`warp_cnt`, kThreads / 32
+// ints) rank each member, and the first k members' indices land in
+// members[0, k). Returns, in every thread, the number of members in
+// [lo, hi): the scan never stops early, since callers need the count.
+template <int kThreads, class Member>
+__device__ __forceinline__ int block_rank_scan(int lo, int hi, Member member,
+                                               int k, int* members,
+                                               int* warp_cnt) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int running = 0;
+  for (int base = lo; base < hi; base += kThreads) {
+    const int i = base + tid;
+    const bool in = i < hi && member(i);
+    const unsigned m = __ballot_sync(0xffffffffu, in);
+    if (lane == 0) warp_cnt[warp] = __popc(m);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      const int wc = warp_cnt[w];
+      before += w < warp ? wc : 0;
+      total += wc;
+    }
+    const int rank = running + before + __popc(m & ((1u << lane) - 1u));
+    if (in && rank < k) members[rank] = i;
+    running += total;
+    __syncthreads();
+  }
+  return running;
+}
+
 // ---- ball query: shared by ball_query.cu and fused_sa.cu -------------------
 
 constexpr int kMaxScales = 4;
@@ -88,6 +124,45 @@ __device__ __forceinline__ void warp_ball_query(
 constexpr int kNNThreads = 128;  // unknown points per block, one per thread
 constexpr int kNNTile = 1024;    // known points per shared-memory tile
 
+// Insert candidate (v, j) into a running top-3 ordered by (d2, index): the
+// order of kernel 7's ascending-index scan with strict <, whatever order the
+// candidates come in. Empty slots hold (inf, -1).
+__device__ __forceinline__ void top3_insert(float v, int j, float (&d)[3],
+                                            int (&i)[3]) {
+  auto before = [](float a, int ia, float b, int ib) {
+    return a < b || (a == b && ia < ib);
+  };
+  if (!before(v, j, d[2], i[2])) return;
+  if (before(v, j, d[1], i[1])) {
+    d[2] = d[1];
+    i[2] = i[1];
+    if (before(v, j, d[0], i[0])) {
+      d[1] = d[0];
+      i[1] = i[0];
+      d[0] = v;
+      i[0] = j;
+    } else {
+      d[1] = v;
+      i[1] = j;
+    }
+  } else {
+    d[2] = v;
+    i[2] = j;
+  }
+}
+
+// m < 3 known points: repeat the nearest in the empty slots.
+__device__ __forceinline__ void top3_fill(float (&d)[3], int (&i)[3]) {
+  if (i[1] < 0) {
+    d[1] = d[0];
+    i[1] = i[0];
+  }
+  if (i[2] < 0) {
+    d[2] = d[0];
+    i[2] = i[0];
+  }
+}
+
 // The three known points of `kb` ((x, y, z) rows, m of them) nearest to
 // (qx, qy, qz): d2 ascending, the lowest index first on ties, the nearest
 // repeated when m < 3. A running top-3 with strict < over ascending indices
@@ -137,12 +212,5 @@ __device__ __forceinline__ void block_three_nn(const float* __restrict__ kb,
       }
     }
   }
-  if (i[1] < 0) {  // m < 3: repeat the nearest
-    d[1] = d[0];
-    i[1] = i[0];
-  }
-  if (i[2] < 0) {
-    d[2] = d[0];
-    i[2] = i[0];
-  }
+  top3_fill(d, i);
 }

@@ -121,6 +121,20 @@ def gaussian_weak_labels(pts_rect: np.ndarray, gt_centers: np.ndarray,
     return cls_label, reg_label
 
 
+def points_in_rotated_boxes_np(pts: np.ndarray,
+                               boxes: np.ndarray) -> np.ndarray:
+    """pts (N, 3), boxes (G, 7) bottom-centre (x, y, z, h, w, l, ry) ->
+    (N, G) bool: inside each box, faces included."""
+    shift = pts[:, None, :] - boxes[None, :, 0:3]
+    h, w, l, ry = boxes[:, 3], boxes[:, 4], boxes[:, 5], boxes[:, 6]
+    cy = -h / 2.0
+    c, s = np.cos(ry), np.sin(ry)
+    x_loc = shift[..., 0] * c - shift[..., 2] * s
+    z_loc = shift[..., 0] * s + shift[..., 2] * c
+    return ((np.abs(x_loc) <= l / 2.0) & (np.abs(z_loc) <= w / 2.0)
+            & (np.abs(shift[..., 1] - cy) <= h / 2.0))
+
+
 class RPNDataset:
     """Fixed-shape batches from a scene source (an object with .sample_ids
     and .get_scene(i, with_noise), e.g. SyntheticKitti).
@@ -163,6 +177,64 @@ class RPNDataset:
         return np.random.RandomState(
             (self.seed * 100003 + 7919 * int(self.sample_ids[index]) + 1)
             % (2**31 - 1))
+
+    def get_whole_scene(self, index: int, max_points: Optional[int] = None
+                        ) -> Dict[str, np.ndarray]:
+        """Every valid point of a scene (the proposal database's input):
+        the image-FOV and range crop, intensity - 0.5, sorted by rect z,
+        with no 16,384-point sample. With `max_points` the cloud has that
+        fixed size: a larger scene is subsampled (sorted indices drawn from
+        the scene's own RNG), a smaller one padded by repeating its last
+        point under SORT_POINTS_Z (which keeps it sorted) or cyclically
+        otherwise, the padding marked invalid.
+
+        Returns dict(pts_input (P, 3+C), valid (P,) bool, n_valid int32,
+        gt_boxes (G, 7) real Car/Van labels, noise_boxes (Gn, 7) weak
+        labels, sample_id)."""
+        cfg = self.cfg
+        scene = self.source.get_scene(self.sample_ids[index], with_noise=True)
+        order = np.argsort(-scene.pts_lidar[:, 2])
+        pts_lidar = scene.pts_lidar[order]
+        pts_rect = scene.calib.lidar_to_rect(pts_lidar[:, 0:3])
+        intensity = pts_lidar[:, 3]
+        pts_img, depth = scene.calib.rect_to_img(pts_rect)
+        ok = valid_point_mask(pts_rect, pts_img, depth, scene.image_shape,
+                              cfg.PC_AREA_SCOPE if cfg.PC_REDUCE_BY_RANGE
+                              else None)
+        pts_rect, intensity = pts_rect[ok], intensity[ok] - 0.5
+        if cfg.RPN.USE_INTENSITY:
+            pts_input = np.hstack([pts_rect,
+                                   intensity[:, None]]).astype(np.float32)
+        else:
+            pts_input = pts_rect.astype(np.float32)
+        if self.sort_z:
+            pts_input = pts_input[np.argsort(pts_input[:, 2], kind="stable")]
+
+        n = pts_input.shape[0]
+        if max_points is None:
+            valid = np.ones(n, bool)
+        elif n > max_points:
+            choice = np.sort(self._eval_rng(index).choice(
+                n, max_points, replace=False))
+            pts_input = pts_input[choice]
+            n = max_points
+            valid = np.ones(max_points, bool)
+        else:
+            if self.sort_z and n > 0:
+                pad_idx = np.minimum(np.arange(max_points), n - 1)
+            else:
+                pad_idx = np.arange(max_points) % max(n, 1)
+            pts_input = pts_input[pad_idx]
+            valid = np.zeros(max_points, bool)
+            valid[:n] = True
+
+        def boxes(objs):
+            return objs_to_boxes3d([o for o in objs if o.cls_type in
+                                    ("Car", "Van")]).reshape(-1, 7)
+        return {"pts_input": pts_input, "valid": valid,
+                "n_valid": np.int32(n), "gt_boxes": boxes(scene.labels),
+                "noise_boxes": boxes(scene.noise_labels),
+                "sample_id": np.int32(scene.sample_id)}
 
     def get_sample(self, index: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg

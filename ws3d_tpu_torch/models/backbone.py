@@ -31,6 +31,9 @@ class Pointnet2MSG(nn.Module):
             self.add_module(f"sa_{k}", sa)
             c = sa.out_channels
             skip.append(c)
+        # sorted_points is not forwarded to the FP stages, as the JAX
+        # package does not forward it (its windowed 3-NN measured slower on
+        # the TPU); PointnetFPModule(sorted_points=True) stays an entry point
         for i in range(self.n_fp - 1, -1, -1):
             c_known = skip[i + 1] if i == self.n_fp - 1 else int(
                 fp_mlps[i + 1][-1])

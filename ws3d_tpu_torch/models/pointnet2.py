@@ -112,12 +112,15 @@ class PointnetFPModule(nn.Module):
     """Feature propagation. Eval uses the layer-0 fold: interpolation is
     linear in the features, so interp(F) @ W0a == interp(F @ W0a); the skip
     rows W0b apply to the unknown features outside. Train runs the MLP on
-    [interp(F), skip] with batch statistics."""
+    [interp(F), skip] with batch statistics. `sorted_points` (both levels
+    sorted ascending by z) selects the windowed 3-NN search, kernel 8, in
+    both branches; the backbone leaves it off, as the JAX package does."""
 
     def __init__(self, c_known: int, c_unknown: int, mlp: Sequence[int],
-                 use_bn: bool = True):
+                 use_bn: bool = True, sorted_points: bool = False):
         super().__init__()
         self.c_known = c_known
+        self.sorted_points = sorted_points
         self.SharedMLP_0 = SharedMLP(c_known + c_unknown, mlp, use_bn=use_bn)
 
     def forward(self, unknown: torch.Tensor, known: torch.Tensor,
@@ -125,14 +128,16 @@ class PointnetFPModule(nn.Module):
                 known_feats: torch.Tensor, train: bool = False,
                 bn_momentum: float = 0.1) -> torch.Tensor:
         if train:
-            h = interpolate_features(unknown, known, known_feats)
+            h = interpolate_features(unknown, known, known_feats,
+                                     sorted_z=self.sorted_points)
             if unknown_feats is not None:
                 h = torch.cat([h, unknown_feats], dim=-1)
             return self.SharedMLP_0(h, train=True, bn_momentum=bn_momentum)
         kernels, biases = self.SharedMLP_0.folded()
         ci = self.c_known
         feats_f = torch.matmul(known_feats, kernels[0][:ci]).contiguous()
-        h = interpolate_features(unknown, known, feats_f)
+        h = interpolate_features(unknown, known, feats_f,
+                                 sorted_z=self.sorted_points)
         if unknown_feats is not None:
             h = h + torch.matmul(unknown_feats, kernels[0][ci:])
         h = torch.relu(h + biases[0])

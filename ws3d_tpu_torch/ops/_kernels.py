@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # launches per kernel; the wrappers add one where they launch, nowhere else
 LAUNCHES = {"fps": 0, "fused_sa_window": 0, "fused_sa_full": 0,
             "three_interpolate": 0, "crop_gather": 0, "ball_query": 0,
-            "three_nn": 0, "fused_sa_idx": 0}
+            "three_nn": 0, "fused_sa_idx": 0, "ball_query_wrap": 0,
+            "three_interpolate_window": 0, "crop_gather_window": 0}
 
 _lib = None
 
@@ -47,8 +48,12 @@ _SIGNATURES = {
     "ws3d_fused_sa_idx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                           _P],
     "ws3d_three_interpolate": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "ws3d_crop_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P],
+    "ws3d_three_interpolate_window": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                                      _P],
+    "ws3d_crop_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P,
+                         _P],
     "ws3d_ball_query": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ws3d_ball_query_wrap": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "ws3d_three_nn": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 

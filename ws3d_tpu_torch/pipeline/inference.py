@@ -5,6 +5,9 @@ preselect -> radius-0.3 greedy NMS -> top-K centres -> z-ordered slots ->
 4 m cylinder crops (kernel 5) -> RCNN trunk -> IOUN cascade on the gate
 survivors -> un-centre, score and car-size gate, self-NMS -> packed record.
 
+crop_membership (kernel 6w) is the proposal database's crop: every point
+within 4 m of a proposal, for tools/generate_box_dataset.
+
 Ties follow the JAX package: ``lax.top_k`` and stable sorts put the lower
 index first, so every top-k here is a stable descending sort.
 """
@@ -15,6 +18,7 @@ import math
 import torch
 
 from ws3d_tpu_torch.box_codec import decode_center
+from ws3d_tpu_torch.ops.ball_query import ball_query_wrap
 from ws3d_tpu_torch.ops.crop_gather import crop_gather
 from ws3d_tpu_torch.ops.iou3d import boxes_iou3d
 from ws3d_tpu_torch.ops.nms import greedy_suppress
@@ -25,6 +29,10 @@ RADIUS_NMS = 0.3
 CROP_RADIUS = 4.0
 SELF_NMS_IOU = 0.01
 SIZE_GATE = ((1.1, 2.3), (1.2, 2.1), (2.1, 5.1))
+# where crop_membership moves invalid points: 1e6 m off on x and z, so no
+# centre decoded from a scene's valid points (a point plus a vote bounded
+# by LOC_SCOPE, or 0 for an empty slot) has one within the 4 m radius
+FAR = 1.0e6
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -44,15 +52,18 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def rpn_propose(rpn_cls, rpn_reg, backbone_xyz, loc_scope: float,
                 loc_bin_size: float, score_thresh: float = 0.3,
                 pre_nms_top: int = 512, max_proposals: int = 64,
-                nms_radius: float = RADIUS_NMS):
+                nms_radius: float = RADIUS_NMS, point_valid=None):
     """Batched: (B, N, 1), (B, N, C), (B, N, 3) -> centers_xz (B, K, 2),
-    scores_raw (B, K), valid (B, K), score-sorted."""
+    scores_raw (B, K), valid (B, K), score-sorted. `point_valid` (B, N)
+    bool keeps duplicate-padded points out of the proposals."""
     scores_raw = rpn_cls.reshape(rpn_cls.shape[0], -1)
     scores_norm = torch.sigmoid(scores_raw)
     rois = decode_center(backbone_xyz, rpn_reg, loc_scope, loc_bin_size)
     vote_dist = torch.sqrt(torch.square(rois[..., 0] - backbone_xyz[..., 0])
                            + torch.square(rois[..., 2] - backbone_xyz[..., 2]))
     mask = (scores_norm > score_thresh) & (vote_dist > MIN_VOTE_DIST)
+    if point_valid is not None:
+        mask &= point_valid
     masked = torch.where(mask, scores_raw, -torch.inf)
     top_scores, top_idx = top_k(masked, pre_nms_top)
     top_valid = torch.isfinite(top_scores)
@@ -82,6 +93,52 @@ def z_order_slots(centers, prop_scores, valid):
     centers = torch.stack([torch.where(valid, cx, fx),
                            torch.where(valid, cz, fz)], dim=-1)
     return centers, prop_scores, valid
+
+
+def bev_first_k_wrap_batched(xyz: torch.Tensor, centers_xz: torch.Tensor,
+                             radius: float, num_sampled: int):
+    """The first `num_sampled` points within `radius` (BEV) of each centre,
+    in point order, `s % cnt` wraparound: xyz (B, N, 3), centers_xz
+    (B, K, 2) -> (idx (B, K, S) int32, counts (B, K) int32). One launch of
+    kernel 6w on CUDA tensors for the whole batch; as the TPU caller does,
+    y is zeroed on both sides, so its 3-D distance is the BEV one."""
+    xz = torch.stack([xyz[..., 0], torch.zeros_like(xyz[..., 0]),
+                      xyz[..., 2]], dim=-1)
+    q = torch.stack([centers_xz[..., 0], torch.zeros_like(centers_xz[..., 0]),
+                     centers_xz[..., 1]], dim=-1)
+    (idx,), (cnt,) = ball_query_wrap([radius], [num_sampled], xz, q)
+    return idx, cnt
+
+
+def bev_first_k_wrap(xyz: torch.Tensor, centers_xz: torch.Tensor,
+                     radius: float, num_sampled: int):
+    """Single-scene wrapper of bev_first_k_wrap_batched."""
+    idx, cnt = bev_first_k_wrap_batched(xyz[None], centers_xz[None], radius,
+                                        num_sampled)
+    return idx[0], cnt[0]
+
+
+def crop_membership(xyz: torch.Tensor, centers_xz: torch.Tensor,
+                    max_crop: int, point_valid=None,
+                    radius: float = CROP_RADIUS):
+    """Whole-crop membership for the proposal database (one scene): the
+    first `max_crop` indices of the points within `radius` (BEV) of each
+    centre, in point order with `s % cnt` wraparound, and the true in-radius
+    count. xyz (N, 3), centers_xz (K, 2) -> idx (K, max_crop) int32,
+    count (K,) int32.
+
+    `point_valid` (N,) bool is applied exactly: invalid points move FAR
+    off on x and z before the search, so none is within the radius of any
+    centre (centres come from valid points), the valid members and their
+    indices stay as they were, and the count is that of the valid members,
+    as with the JAX package's mask."""
+    if point_valid is not None:
+        far = torch.full_like(xyz[:, 0], FAR)
+        xyz = torch.stack([torch.where(point_valid, xyz[:, 0], far),
+                           xyz[:, 1],
+                           torch.where(point_valid, xyz[:, 2], far)], dim=-1)
+    return bev_first_k_wrap(xyz.contiguous(), centers_xz.contiguous(),
+                            radius, max_crop)
 
 
 def crop_for_rcnn_batched(pts_input: torch.Tensor, scores_norm: torch.Tensor,

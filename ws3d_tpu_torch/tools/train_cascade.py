@@ -80,6 +80,9 @@ def train(args, cfg, log) -> int:
     if args.db:
         with open(args.db, "rb") as f:
             database = pickle.load(f)
+        if not database:
+            raise SystemExit(f"{args.db}: the proposal database holds no "
+                             f"records")
     else:
         database = synthetic_proposal_database(num=args.db_size,
                                                seed=args.seed,

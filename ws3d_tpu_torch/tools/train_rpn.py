@@ -32,7 +32,8 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="run on the synthetic scene generator (no KITTI)")
     p.add_argument("--output_dir", type=str, default="output")
     p.add_argument("--ckpt", type=str, default=None,
-                   help="resume from this train-state checkpoint")
+                   help="checkpoint to start from (see the tool's "
+                        "docstring)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the current CUDA device; "
