@@ -4,12 +4,18 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. build the CUDA kernels from ws3d_tpu_torch/csrc (nvcc, sm_90a);
+  1. build the CUDA kernels from ws3d_tpu_torch/csrc (nvcc, sm_90a); print
+     each kernel's registers and spills, and require TF32 tensor-core
+     instructions (HMMA) in kernel 2 and cluster barriers (UCGABAR) in the
+     FPS cluster kernel (cuobjdump -sass);
   2. run the two-stage pipeline once on a batch of the main path (16
      scenes), record every kernel call it makes, and hold each kernel
      against its plain PyTorch version on the recorded inputs (indices
      exact, floats within the stated tolerance), with CUDA-event times, the
-     plain version's time and a roofline bound;
+     plain version's time and a roofline bound (kernel 2's: 3x its MLP
+     FLOPs at the TF32 tensor-core peak); print kernel 2's time per launch,
+     and FPS on each recorded row class and on one scene's 16,384 points
+     through every route of csrc/fps.cu;
   3. the inference path: 16 synthetic scenes at full width with the fitted
      weights (ws3d_tpu/data/bench_weights.npz) through make_two_stage_fn,
      one warm-up and timed batches closed by torch.cuda.synchronize();
@@ -91,9 +97,11 @@ BATCH = 16
 TIMED_ITERS = 3
 TIMED_STEPS = 5
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 SIMT FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 SIMT FLOP/s, dense
+# TF32 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 
 KERNELS = {
     "fps": ("ws3d_tpu_torch/csrc/fps.cu",
@@ -264,7 +272,13 @@ def compare_call(name, args, kw):
         nbytes = 4 * (B * P * 3 + B * P * C + B * M * 3 + B * M * widths[-1]
                       + sum(k.numel() + b.numel()
                             for k, b in zip(kernels, biases)))
-        ops = mlp_ops + 9 * scanned
+        if window:
+            # kernel 2: the MLP in three TF32 passes on the tensor cores,
+            # the search on the SIMT cores; the larger of the two bounds
+            ops = [(3 * mlp_ops, PEAK_TF32, "3xTF32 ops"),
+                   (9 * scanned, PEAK_F32, "search ops")]
+        else:
+            ops = mlp_ops + 9 * scanned
         return (key, err, ms, plain, nbytes, ops,
                 f"B{B} P{P} M{M} C{C} S{nsample} {widths}")
 
@@ -514,6 +528,51 @@ def _scanned_points(xyz, new_xyz, radius, nsample, window) -> int:
     return total
 
 
+def _print_build(lib_path) -> None:
+    """Each kernel's registers, shared memory and spills (ptxas -v), and
+    from its SASS the tensor-core (HMMA) and cluster-barrier (UCGABAR)
+    instructions; kernel 2 must have HMMA, the FPS cluster kernel UCGABAR."""
+    import re
+    import shutil
+
+    def kernel_name(mangled):
+        # <length><name> in the mangled symbol, then ILi<N>E for a template
+        # (a hash before it may end in digits: try each tail of the run)
+        for m in re.finditer(r"\d+", mangled):
+            i = m.end()
+            for k in range(m.start(), i):
+                n = int(mangled[k:i])
+                if mangled[i:i + n].endswith("_kernel"):
+                    t = re.match(r"ILi(\d+)E", mangled[i + n:])
+                    return mangled[i:i + n] + (f"<{t.group(1)}>" if t else "")
+        return None
+    name = None
+    for line in (lib_path.parent / "build.log").read_text().splitlines():
+        if "entry function" in line:
+            name = kernel_name(line.split("'")[1])
+        elif name and ("registers" in line or "spill" in line):
+            print(f"#   {name}: {line.strip().removeprefix('ptxas info    : ')}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        key = kernel_name(part.split("\n", 1)[0])
+        ops = re.findall(r"\b(HMMA\.[\w.]+|UCGABAR_\w+)", part)
+        counts[key] = {op: ops.count(op) for op in sorted(set(ops))}
+        if ops:
+            print(f"#   SASS {key}: {counts[key]}")
+    if not any(k.startswith("fps_cluster_kernel") for k in counts):
+        raise AssertionError("no FPS cluster kernel in the library")
+    if not any(op.startswith("HMMA") and "TF32" in op
+               for op in counts.get("fused_sa_tc_kernel<1>", {})):
+        raise AssertionError("kernel 2 has no TF32 HMMA instruction")
+    if not all(any(op.startswith("UCGABAR") for op in ops)
+               for k, ops in counts.items()
+               if k.startswith("fps_cluster_kernel")):
+        raise AssertionError("the FPS cluster kernel has no cluster barrier")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -546,11 +605,7 @@ def main() -> int:
     _kernels.library()
     print(f"# phase 1: built {lib_path} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    log = lib_path.parent / "build.log"
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("#   " + line.strip())
+    _print_build(lib_path)
 
     cfg = load_config()
     cfg.RCNN.ENABLED = True
@@ -572,7 +627,12 @@ def main() -> int:
         fn(bufs[0])
         torch.cuda.synchronize()
     per_kernel = {k: _fresh() for k in KERNELS}
-    _compare_calls(rec.calls, per_kernel, "inference")
+    rows = _compare_calls(rec.calls, per_kernel, "inference")
+    k2 = [r for r in rows if r[0] == "fused_sa_window"]
+    print(f"# phase 2: kernel 2 by launch ({len(k2)} a batch): "
+          + "; ".join(f"{note} {ms:.4f} ms (bound {b:.4f})"
+                      for _, note, ms, b in k2), flush=True)
+    _fps_row_classes(rec.calls)
     # the crop and FP inputs kernels 10 and 8 run on in phase 12
     crop_call = [a for n, a, _ in rec.calls if n == "crop_gather_cuda"][0]
     fp_calls = [a for n, a, _ in rec.calls if n == "three_interpolate_cuda"]
@@ -675,13 +735,19 @@ def main() -> int:
 
 def _compare_calls(calls, per_kernel, path: str) -> None:
     """Replay recorded kernel calls of `path` against their plain versions
-    and add each call's error, times and bound to `per_kernel`."""
+    and add each call's error, times and bound to `per_kernel`; returns
+    (kernel, shape note, ms, bound ms) of each call."""
     import torch
+    rows = []
     with torch.no_grad():
         for name, args, kw in calls:
             key, err, ms, plain, nbytes, ops, note = compare_call(name, args,
                                                                   kw)
-            t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+            if not isinstance(ops, list):
+                ops = [(ops, PEAK_F32, "operations")]
+            t_ops, label = max((n_ops / peak * 1e3, what)
+                               for n_ops, peak, what in ops)
+            t_bytes = nbytes / PEAK_BYTES * 1e3
             agg = per_kernel[key]
             agg["err"] = max(agg["err"], err)
             agg["ms"] += ms
@@ -689,10 +755,40 @@ def _compare_calls(calls, per_kernel, path: str) -> None:
             agg["plain"] += plain
             agg["bound"] += max(t_bytes, t_ops)
             agg["by_bytes"] += t_bytes if t_bytes >= t_ops else 0.0
+            rows.append((key, note, ms, max(t_bytes, t_ops)))
             print(f"#   {key:17s} {note:44s} err {err:.3g} kernel {ms:.4f} ms"
                   f" plain {plain:.3f} ms bound {max(t_bytes, t_ops):.4f} ms "
-                  f"({'bytes' if t_bytes >= t_ops else 'operations'})",
-                  flush=True)
+                  f"({'bytes' if t_bytes >= t_ops else label})", flush=True)
+    return rows
+
+
+def _fps_row_classes(calls) -> None:
+    """Kernel 1 on the batch's own FPS inputs and on one scene's 16,384
+    points (the database path's row), through every route that takes the
+    row: the measurement behind csrc/fps.cu's cut-over. Indices must equal
+    the automatic route's (held against the plain version in phase 2)."""
+    import torch
+    from ws3d_tpu_torch.ops import sampling
+    inputs = [a for n, a, _ in calls if n == "fps_cuda"]
+    big = max(inputs, key=lambda a: a[0].shape[1])
+    inputs.append((big[0][:1].contiguous(), big[1]))
+    for xyz, npoint in inputs:
+        R, N, _ = xyz.shape
+        ref, _ = sampling.fps_cuda(xyz, npoint)
+        parts = []
+        # the warp route takes rows of up to 1,024 points (kWarpMaxN)
+        for route in ("warp", "cluster") if N <= 1024 else ("cluster",):
+            plan = sampling.fps_plan(R, N, route)
+            idx, _ = sampling.fps_cuda(xyz, npoint, route=route)
+            if not torch.equal(idx, ref):
+                raise AssertionError(f"fps route {route} R{R} N{N} differs")
+            ms = cuda_ms(lambda: sampling.fps_cuda(xyz, npoint, route=route),
+                         3)
+            parts.append(f"{route} (C {plan['C']}, {plan['threads']} "
+                         f"threads x {plan['ppt']} points) {ms:.4f} ms")
+        print(f"#   fps row class R{R} N{N}->{npoint}: auto route "
+              f"{sampling.fps_plan(R, N)['route']}; " + "; ".join(parts),
+              flush=True)
 
 
 def _rpn_model(cfg, device):
@@ -1349,7 +1445,8 @@ def _profile(run, ms: float, label: str, unit: str) -> None:
     print(f"# {label}: {busy:.1f} ms of kernels in one {unit}, "
           f"{100 * busy / ms:.1f} % of the {ms:.1f} ms {unit} "
           f"({len(rows)} kernel names)")
-    ours = ("fps_kernel", "fused_sa_kernel", "three_interp_kernel",
+    ours = ("fps_warp_kernel", "fps_cluster_kernel", "fused_sa_tc_kernel",
+            "fused_sa_kernel", "three_interp_kernel",
             "crop_gather_kernel", "ball_query_kernel", "three_nn_kernel",
             "ball_query_wrap_kernel", "three_interp_window_kernel")
     rows.sort(key=lambda r: -r[1])

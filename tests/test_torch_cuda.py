@@ -228,3 +228,57 @@ def test_crop_gather_window_kernel(dev, rng, z_window):
     rv, rc = crop_gather_window_plain(*args, 4.0, 512, True, z_window)
     assert torch.equal(cnt, rc) and torch.equal(cnt, full_c)
     assert torch.equal(vals, rv) and torch.equal(vals, full_v)
+
+
+def _tie_cloud(rng, R, N, spread=10.0):
+    """R rows of N points with exact duplicates: the second half of each
+    row repeats points of the first (as the EVAL loader's padding does), so
+    equal min-d2 values meet across every slice border of the cluster
+    kernel."""
+    xyz = (rng.randn(R, N, 3) * spread).astype(np.float32)
+    src = rng.randint(0, N // 2, (R, N - N // 2))
+    xyz[:, N // 2:] = np.take_along_axis(xyz[:, :N // 2], src[..., None], 1)
+    return xyz
+
+
+@pytest.mark.parametrize("R,N,npoint", [(1, 16384, 4096), (16, 16384, 4096),
+                                        (1024, 512, 256), (16, 1024, 256)])
+def test_fps_row_classes(dev, rng, R, N, npoint):
+    """Kernel 1 at the main path's row classes, every route that takes the
+    row, indices exact against the plain version."""
+    from ws3d_tpu_torch.ops.sampling import (fps_cuda, fps_plain, fps_plan,
+                                             gather_points)
+    xyz = torch.from_numpy(_tie_cloud(rng, R, N)).to(dev)
+    ref = fps_plain(xyz, npoint)
+    routes = ["auto", "cluster"] + (["warp"] if N <= 1024 else [])
+    for route in routes:
+        idx, coords = fps_cuda(xyz, npoint, route=route)
+        assert torch.equal(idx, ref), route
+        assert torch.equal(coords, gather_points(xyz, ref.long())), route
+    if N == 16384:
+        assert fps_plan(R, N)["route"] == "cluster"
+        assert fps_plan(R, N)["C"] >= 8
+
+
+@pytest.mark.parametrize("S", [8, 16, 24, 32])
+def test_fused_sa_window_tensor_cores(dev, rng, S):
+    """Kernel 2's 3xTF32 MLP against the f32 plain version at the
+    backbone's widest stages (Cin 259 with a 196-wide layer; Cin 515 with a
+    384-wide one), with empty balls and a ragged last block, within the
+    chip_smoke gate 1e-3 + 1e-4 max|ref|."""
+    from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda, fused_sa_plain
+    for C, widths, P, M, r in ((256, [128, 196, 256], 1024, 200, 1.0),
+                               (512, [256, 384, 512], 256, 64, 2.0)):
+        xyz, feat = sorted_cloud(rng, 2, P, C, spread=2.0)
+        new_xyz = xyz[:, np.sort(rng.choice(P, M, replace=False))].copy()
+        new_xyz[:, :3, 0] = 50.0                # empty balls, z order kept
+        ks, bs = random_mlp(rng, C + 3, widths)
+        ks = [k * 0.3 for k in ks]
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (xyz, feat, new_xyz)]
+        ks = [torch.from_numpy(k).to(dev) for k in ks]
+        bs = [torch.from_numpy(b).to(dev) for b in bs]
+        got = fused_sa_cuda(*args, r, S, ks, bs, True)
+        ref = fused_sa_plain(*args, r, S, ks, bs)
+        err = float((got - ref).abs().max())
+        assert err <= 1e-3 + 1e-4 * float(ref.abs().max()), (C, S, err)

@@ -1,36 +1,68 @@
 // Fused set abstraction: ball query + gather + BN-folded ReLU MLP + max-pool.
 //
 // Replaces three TPU kernels:
-//   ws3d_tpu/ops/fused_sa_bq_pallas.py:_kernel      (full: rank search over
-//                                                     all P points)
-//   ws3d_tpu/ops/fused_sa_window_pallas.py:_kernel  (windowed: z-sorted
-//                                                     points, scan only the
-//                                                     z-window of the query)
-//   ws3d_tpu/ops/fused_sa_pallas.py:_kernel         (given: the indices come
-//                                                     from the caller)
-// Here they are one kernel template with three entry modes. Semantics: for
-// each query the first S points with d2 < r2 in ascending index order, padded
-// with the first hit, point 0 when the ball is empty (or, given, the S
-// indices of its idx row); rows [xyz - q, feat] go through the MLP (ReLU
-// after every layer) and are max-pooled over S. The TPU kernel of the given
-// mode folds the centre into the first layer's bias; subtracting it from the
-// row, as the other two modes do, is the same function.
+//   ws3d_tpu/ops/fused_sa_window_pallas.py:_kernel  (windowed, kernel 2:
+//                                                     z-sorted points, scan
+//                                                     only the z-window of
+//                                                     the query)
+//   ws3d_tpu/ops/fused_sa_bq_pallas.py:_kernel      (full, kernel 3: rank
+//                                                     search over all P
+//                                                     points)
+//   ws3d_tpu/ops/fused_sa_pallas.py:_kernel         (given, kernel 9: the
+//                                                     indices come from the
+//                                                     caller)
+// Semantics, all three: for each query the first S points with d2 < r2 in
+// ascending index order, padded with the first hit, point 0 when the ball is
+// empty (or, given, the S indices of its idx row); rows [xyz - q, feat] go
+// through the MLP (ReLU after every layer) and are max-pooled over S. The
+// TPU kernel of the given mode folds the centre into the first layer's bias;
+// subtracting it from the row, as the other two modes do, is the same
+// function.
 //
-// What bounds it on the H100: the MLP's f32 FLOPs (2 * B*M*S * sum ci*co; up
-// to ~1.6 TFLOP per batch of stage-2 crops), far above the bytes it moves
-// (the grouped tensor never reaches device memory). This first version runs
-// them on the SIMT cores, 67 TFLOP/s at best; tensor cores are later work.
+// The search and the gather are shared and run on the SIMT cores in exact
+// f32: one warp per query scans points in ascending index with ballot + popc
+// ranks and stops after S hits (the windowed entry binary-searches [lo, hi)
+// in the sorted z first; the given mode copies the caller's indices). The
+// Q*S gathered rows sit in shared memory. Geometry never enters a product.
 //
-// Design: one block per (scene, Q queries). One warp per query scans points
-// in ascending index with ballot + popc ranks and stops after S hits (the
-// windowed entry binary-searches [lo, hi) in the sorted z first; the given
-// mode copies the caller's indices instead). The Q*S gathered rows sit in
-// shared memory (row widths padded to a multiple of 4);
-// each layer is a product with 8x4 register tiles and float4 loads into the
-// other ping-pong buffer, weights read through L1/L2; the last layer
-// max-pools straight into a per-query row with shared atomics (ReLU outputs
-// are >= 0, so the float bits order like ints). Q is sized so the buffers
-// fit about half of the 227 KB a block may use.
+// What bounds it on the H100: the MLP's FLOPs (2 * B*M*S * sum ci*co; ~1.3
+// TFLOP per inference batch in the windowed mode), far above the bytes it
+// moves (the grouped tensor never reaches device memory).
+//
+// Windowed mode (fused_sa_tc_kernel): the MLP runs on the tensor cores,
+// mma.sync m16n8k8 TF32 in three passes ("3xTF32"): each f32 operand x
+// splits into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and each product
+// accumulates lo*hi + hi*lo + hi*hi in f32 (lo*lo dropped), about 22
+// mantissa bits, so the f32 tolerances of the port hold. Its bound is 3x
+// the MLP's FLOPs at 495 TFLOP/s. Design: a block takes Q queries x Sp rows
+// (Sp = S rounded up to 16 with duplicates of the first slot, which leave
+// the max unchanged), so every m16 tile is one query's rows; at most 128
+// rows and 110 KB, so two blocks share an SM and one's search and gather
+// overlap the other's MLP. Feature rows arrive by 16-byte cp.async into a
+// [feat, xyz - q] layout (layer 0's weight rows are permuted to match).
+// Activations ping-pong in shared memory with K padded to 8 (row strides
+// = 4 mod 8, so A-fragment loads hit 32 distinct banks). Each layer's
+// weights stream through shared memory in double-buffered k-chunks with
+// cp.async, columns padded with zeros to whole 64-wide warp tiles. A warp
+// owns a 32 x 64 output tile (2 x 8 mma tiles, 64 accumulators); its k
+// loop is straight-line code (no guards: the rows and columns past the
+// live ones are in the buffers and their results are dropped), loads the
+// next step's fragments while it multiplies, and issues the three passes
+// pass by pass so consecutive mma are independent. A k8 step of a warp is
+// 48 mma, 24 fragment loads and 24 splits of five integer/f32 operations:
+// three issued instructions for each mma, which keeps it well below the
+// tensor pipe's rate; wgmma (one instruction a 64 x N x 8 tile, B read from
+// shared memory by the hardware) is the next step. Bias + ReLU in
+// the epilogue; the last layer max-pools each m16 tile in registers (rows
+// g and g + 8, then __shfl_xor across the quad's row groups), and the
+// Sp / 16 tile maxima of a query are combined with plain loads: no atomics.
+//
+// Full and given modes (fused_sa_kernel) keep the SIMT MLP: 8x4 register
+// tiles of fmaf with float4 loads, weights read through L1/L2, the last
+// layer max-pooling with shared atomics (ReLU outputs are >= 0, so the
+// float bits order like ints). Their bound is the f32 SIMT rate, 67 TFLOP/s.
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace {
@@ -45,8 +77,8 @@ struct MLPDesc {
   int width[kMaxLayers + 1];  // width[0] = 3 + C, width[l + 1] = layer l out
 };
 
-// layer inputs are stored with their width padded to a multiple of 4
 __host__ __device__ __forceinline__ int pad4(int c) { return (c + 3) & ~3; }
+__host__ __device__ __forceinline__ int pad8(int c) { return (c + 7) & ~7; }
 
 __device__ __forceinline__ int lower_bound_z(const float* pts, int P,
                                              double key) {
@@ -70,12 +102,58 @@ __device__ __forceinline__ int upper_bound_z(const float* pts, int P,
   return lo;
 }
 
+// The block's nq queries (qs, (x, y, z) rows): `row` slots each in idx, the
+// first S from the ball query (one warp per query), slots S..row-1 repeating
+// slot 0.
+template <int MODE>
+__device__ __forceinline__ void block_ball_query(const float* __restrict__ pb,
+                                                 int P, const float* qs,
+                                                 int nq, float r2, float win,
+                                                 int S, int row, int* idx) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  BallScales sc;
+  sc.n = 1;
+  sc.r2[0] = r2;
+  sc.S[0] = S;
+  for (int qi = warp; qi < nq; qi += blockDim.x >> 5) {
+    const float qx = qs[3 * qi], qy = qs[3 * qi + 1], qz = qs[3 * qi + 2];
+    int lo = 0, hi = P;
+    if (MODE == kWindow) {
+      lo = lower_bound_z(pb, P, (double)qz - (double)win);
+      hi = upper_bound_z(pb, P, (double)qz + (double)win);
+    }
+    int* rows[kMaxScales] = {idx + qi * row};
+    warp_ball_query(pb, lo, hi, qx, qy, qz, sc, rows);
+    for (int k = S + lane; k < row; k += 32) rows[0][k] = rows[0][0];
+    __syncwarp();
+  }
+}
+
+// X[r] = [xyz[j] - q, feat[j], zeros] for the n_rows gathered points
+// j = idx[r] (query r / row_per_q), `stride` columns a row.
+__device__ __forceinline__ void gather_rows(const float* __restrict__ pb,
+                                            const float* __restrict__ fb,
+                                            int C, const float* qs,
+                                            const int* idx, int n_rows,
+                                            int row_per_q, int cin,
+                                            int stride, float* X) {
+  for (int t = threadIdx.x; t < n_rows * stride; t += blockDim.x) {
+    const int r = t / stride, c = t - r * stride;
+    const int j = idx[r];
+    X[t] = c < 3     ? pb[3 * j + c] - qs[3 * (r / row_per_q) + c]
+           : c < cin ? fb[(size_t)j * C + (c - 3)]
+                     : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------- SIMT MLP
+// full and given modes
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 fused_sa_kernel(const float* __restrict__ xyz, const float* __restrict__ feat,
                 const float* __restrict__ new_xyz,
                 const int* __restrict__ given, int P, int C, int M,
-                float r2, float win, int S, int Q, MLPDesc desc,
+                float r2, int S, int Q, MLPDesc desc,
                 const float* __restrict__ params, int bufA, int bufB,
                 float* __restrict__ out) {
   extern __shared__ float4 smem4[];
@@ -88,7 +166,6 @@ fused_sa_kernel(const float* __restrict__ xyz, const float* __restrict__ feat,
   const int nq = min(Q, M - q0);
   const int R = Q * S;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
 
   float* bufs[2];
   bufs[0] = smem;
@@ -105,44 +182,22 @@ fused_sa_kernel(const float* __restrict__ xyz, const float* __restrict__ feat,
   __syncthreads();
 
   if constexpr (MODE == kGiven) {
-    // ---- the caller's indices, clamped into [0, P) (the wrapper's contract
-    // is that they already are; the clamp only keeps a bad one in bounds)
+    // the caller's indices, clamped into [0, P) (the wrapper's contract is
+    // that they already are; the clamp only keeps a bad one in bounds)
     const int* gb = given + ((size_t)b * M + q0) * S;
     for (int t = tid; t < nq * S; t += nt) idx[t] = min(max(gb[t], 0), P - 1);
   } else {
-    // ---- ball query: one warp per query, ascending index, stop after S hits
-    BallScales sc;
-    sc.n = 1;
-    sc.r2[0] = r2;
-    sc.S[0] = S;
-    for (int qi = warp; qi < nq; qi += nwarps) {
-      const float qx = qs[3 * qi], qy = qs[3 * qi + 1], qz = qs[3 * qi + 2];
-      int lo = 0, hi = P;
-      if (MODE == kWindow) {
-        lo = lower_bound_z(pb, P, (double)qz - (double)win);
-        hi = upper_bound_z(pb, P, (double)qz + (double)win);
-      }
-      int* rows[kMaxScales] = {idx + qi * S};
-      warp_ball_query(pb, lo, hi, qx, qy, qz, sc, rows);
-    }
+    block_ball_query<MODE>(pb, P, qs, nq, r2, 0.f, S, S, idx);
   }
   __syncthreads();
 
-  // ---- gather [xyz - q, feat] rows, zero-padded to a multiple of 4 columns
-  const int cin = desc.width[0];
-  const int kin = pad4(cin);
+  // gather [xyz - q, feat] rows, zero-padded to a multiple of 4 columns
   const int Reff = nq * S;
-  float* X = bufs[0];
-  for (int t = tid; t < Reff * kin; t += nt) {
-    const int r = t / kin, c = t - r * kin;
-    const int j = idx[r];
-    X[t] = c < 3     ? pb[3 * j + c] - qs[3 * (r / S) + c]
-           : c < cin ? fb[(size_t)j * C + (c - 3)]
-                     : 0.f;
-  }
+  gather_rows(pb, fb, C, qs, idx, Reff, S, desc.width[0],
+              pad4(desc.width[0]), bufs[0]);
   __syncthreads();
 
-  // ---- MLP, ping-pong through shared memory; last layer max-pools.
+  // MLP, ping-pong through shared memory; last layer max-pools.
   // Each thread owns an 8-row x 4-column tile: per 4 k-steps it reads 8
   // float4 of X (shared) and 4 float4 of W (L1/L2) for 128 FMAs.
   const float* wp = params;
@@ -230,27 +285,21 @@ fused_sa_kernel(const float* __restrict__ xyz, const float* __restrict__ feat,
 }
 
 // Checks the widths, sizes the query block Q to the shared memory and
-// launches mode MODE; returns a cudaError_t.
+// launches mode MODE (kFull or kGiven); returns a cudaError_t.
 template <int MODE>
 int launch_fused_sa(const float* xyz, const float* feat, const float* new_xyz,
                     const int* given, int B, int P, int C, int M, float r2,
-                    float win, int S, int n_layers, const int* widths,
-                    const float* params, float* out, void* stream) {
-  if (B <= 0 || P <= 0 || M <= 0 || S <= 0 || n_layers < 1 ||
-      n_layers > kMaxLayers || widths[0] != C + 3)
-    return (int)cudaErrorInvalidValue;
-  MLPDesc d;
-  d.n_layers = n_layers;
-  for (int l = 0; l <= kMaxLayers; ++l) d.width[l] = l <= n_layers ? widths[l] : 0;
+                    int S, const MLPDesc& d, const float* params, float* out,
+                    void* stream) {
+  const int* widths = d.width;
   int bufA = 4, bufB = 4;  // layer l reads buffer l % 2
-  for (int l = 0; l < n_layers; ++l) {
-    if (widths[l + 1] <= 0 || widths[l + 1] % 4) return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < d.n_layers; ++l) {
     const int w = pad4(widths[l]);
     if (l & 1) bufB = w > bufB ? w : bufB;
     else bufA = w > bufA ? w : bufA;
   }
   const size_t per_q = sizeof(float) *
-      ((size_t)S * (bufA + bufB) + widths[n_layers] + 3 + S);
+      ((size_t)S * (bufA + bufB) + widths[d.n_layers] + 3 + S);
   int Q = 64;
   while (Q > 1 && (Q * per_q > 110 * 1024 || Q / 2 >= M)) Q >>= 1;
   const size_t smem = Q * per_q;
@@ -259,28 +308,436 @@ int launch_fused_sa(const float* xyz, const float* feat, const float* new_xyz,
   const int err = ws3d_set_smem((const void*)fused_sa_kernel<MODE>, smem);
   if (err) return err;
   fused_sa_kernel<MODE><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      xyz, feat, new_xyz, given, P, C, M, r2, win, S, Q, d, params, bufA,
-      bufB, out);
+      xyz, feat, new_xyz, given, P, C, M, r2, S, Q, d, params, bufA, bufB,
+      out);
   return (int)cudaGetLastError();
+}
+
+// -------------------------------------------------------- tensor-core MLP
+// windowed mode
+constexpr int kMT = 2;            // m16 tiles of a warp's output tile
+constexpr int kNT = 8;            // n8 tiles of a warp's output tile
+constexpr int kWarpRows = 16 * kMT;
+constexpr int kTCWarps = 4;       // most warps a block
+constexpr int kMaxRows = 128;     // most rows a block
+constexpr size_t kTCSmem = 110 * 1024;        // two blocks an SM
+constexpr size_t kWChunkBudget = 36 * 1024;   // both weight chunks
+
+// Row stride of a layer input of width c: K padded to 8, plus 4, so that
+// stride = 4 (mod 8) and the 32 lanes of an A-fragment load (rows g, columns
+// t) hit 32 distinct banks.
+__host__ __device__ __forceinline__ int act_stride(int c) { return pad8(c) + 4; }
+// Columns of a staged weight chunk: n padded to whole warp tiles (64), so
+// the unguarded B loads of the last tile stay in zeros; its row stride adds
+// 8, so that a B-fragment load (rows t, columns g) hits 32 distinct banks.
+__host__ __device__ __forceinline__ int w_cols(int n) {
+  return (n + 8 * kNT - 1) / (8 * kNT) * (8 * kNT);
+}
+__host__ __device__ __forceinline__ int w_stride(int n) { return w_cols(n) + 8; }
+
+struct TCLayout {
+  int Sp;           // rows a query: S rounded up to 16
+  int Q;            // queries a block
+  int KC;           // weight rows a staged chunk (a multiple of 8)
+  int bufA, bufB;   // floats a row of the two activation buffers
+  int wchunk;       // floats of one staged weight chunk
+  int feat_first;   // rows laid out [feat, xyz - q] (C % 4 == 0, aligned)
+};
+
+// rna_tf32(x): x rounded to the nearest TF32, ties away from zero, low 13
+// bits 0: cvt.rna.tf32.f32's rounding, bit for bit on finite x, done with
+// two integer ops (half a magnitude ulp added, then truncated), which run
+// faster than cvt on its narrower conversion pipe
+// (csrc/bench/tf32_split_rate.cu measures both)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32; x - hi is exact in f32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Stage weight rows [k0, k0 + KC) of a layer (kp4 rows of n columns,
+// row-major in global memory) into Ws (row stride ns, w_cols(n) columns):
+// rows past kp4 and columns past n are zeros. perm_c >= 0 reorders the first
+// layer's rows to match [feat (perm_c), xyz] inputs: row k < perm_c takes
+// global row k + 3, rows perm_c..perm_c + 2 take rows 0..2.
+__device__ __forceinline__ void stage_weights(const float* __restrict__ wl,
+                                              int kp4, int n, int ns, int k0,
+                                              int KC, int perm_c, float* Ws) {
+  // element p = r * c4n + c4 of the chunk, stepped by blockDim.x without
+  // a division in the loop
+  const int c4n = w_cols(n) >> 2;
+  const int dr = blockDim.x / c4n, dc = blockDim.x - dr * c4n;
+  int r = threadIdx.x / c4n, c4 = threadIdx.x - r * c4n;
+  while (r < KC) {
+    int k = k0 + r;
+    if (perm_c >= 0) k = k < perm_c ? k + 3 : k < perm_c + 3 ? k - perm_c : k;
+    float* dst = Ws + r * ns + 4 * c4;
+    if (k < kp4 && 4 * c4 < n)
+      cp_async16(dst, wl + (size_t)k * n + 4 * c4);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    r += dr;
+    c4 += dc;
+    if (c4 >= c4n) {
+      c4 -= c4n;
+      ++r;
+    }
+  }
+}
+
+// The raw f32 A fragments (kMT m16 tiles; xa points at row g, column t of
+// the first) and B fragments (kNT n8 tiles; wb points at row t, column g of
+// the first) of one k8 step. No guards: rows past the live ones and columns
+// past the layer's width are in the buffers, and their results are dropped,
+// so the loop is straight-line code.
+__device__ __forceinline__ void load_frags(const float* xa, int xs,
+                                           const float* wb, int ns,
+                                           float (&ra)[kMT][4],
+                                           float (&rb)[kNT][2]) {
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    const float* xr = xa + 16 * mt * xs;
+    ra[mt][0] = xr[0];                // row g,     column t
+    ra[mt][1] = xr[8 * xs];           // row g + 8, column t
+    ra[mt][2] = xr[4];                // row g,     column t + 4
+    ra[mt][3] = xr[8 * xs + 4];       // row g + 8, column t + 4
+  }
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    rb[j][0] = wb[8 * j];             // row t,     column g
+    rb[j][1] = wb[8 * j + 4 * ns];    // row t + 4, column g
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(32 * kTCWarps, 2)
+fused_sa_tc_kernel(const float* __restrict__ xyz,
+                   const float* __restrict__ feat,
+                   const float* __restrict__ new_xyz, int P, int C, int M,
+                   float r2, float win, int S, TCLayout lay, MLPDesc desc,
+                   const float* __restrict__ params,
+                   float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int L = desc.n_layers;
+  const int cout = desc.width[L];
+  const int Q = lay.Q, Sp = lay.Sp;
+  const int R = (Q * Sp + kWarpRows - 1) / kWarpRows * kWarpRows;
+  const int groups = (M + Q - 1) / Q;
+  const int b = blockIdx.x / groups;
+  const int q0 = (blockIdx.x % groups) * Q;
+  const int nq = min(Q, M - q0);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+
+  // activation buffer l % 2 at smem + boff[l % 2] (offsets, not a pointer
+  // array, so the compiler keeps shared-memory loads)
+  const int boff[2] = {0, R * lay.bufA};
+  float* wbuf = smem + R * (lay.bufA + lay.bufB);   // two weight chunks
+  float* qs = wbuf + 2 * (size_t)lay.wchunk;
+  int* idx = reinterpret_cast<int*>(qs + 3 * Q);
+
+  const float* pb = xyz + (size_t)b * P * 3;
+  const float* fb = feat + (size_t)b * P * C;
+  for (int t = tid; t < nq * 3; t += nt)
+    qs[t] = new_xyz[((size_t)b * M + q0) * 3 + t];
+  __syncthreads();
+  block_ball_query<MODE>(pb, P, qs, nq, r2, win, S, Sp, idx);
+  __syncthreads();
+  const int Reff = nq * Sp;                     // a multiple of 16
+  const int xs0 = act_stride(desc.width[0]);
+  if (lay.feat_first) {
+    // the feature rows by 16-byte cp.async, many in flight; then xyz - q
+    // and the zero pad behind them
+    const int c4 = C >> 2, tail = xs0 - C;
+    for (int t = tid; t < Reff * c4; t += nt) {
+      const int r = t / c4, q4 = t - r * c4;
+      cp_async16(smem + (size_t)r * xs0 + 4 * q4,
+                 fb + (size_t)idx[r] * C + 4 * q4);
+    }
+    cp_async_commit();
+    for (int t = tid; t < Reff * tail; t += nt) {
+      const int r = t / tail, c = t - r * tail;
+      smem[(size_t)r * xs0 + C + c] =
+          c < 3 ? pb[3 * idx[r] + c] - qs[3 * (r / Sp) + c] : 0.f;
+    }
+    cp_async_wait<0>();
+  } else {
+    gather_rows(pb, fb, C, qs, idx, Reff, Sp, desc.width[0], xs0, smem);
+  }
+  __syncthreads();
+
+  const float* wp = params;
+  for (int l = 0; l < L; ++l) {
+    const int ci = desc.width[l], co = desc.width[l + 1];
+    const int kp4 = pad4(ci), K8 = pad8(ci), n8 = pad8(co);
+    const int xs = act_stride(ci), ys = act_stride(co), ns = w_stride(co);
+    const float* wl = wp;
+    const float* bias = wp + (size_t)kp4 * co;
+    wp += (size_t)kp4 * co + co;
+    const float* X = smem + ((l & 1) ? boff[1] : boff[0]);
+    float* Y = smem + ((l & 1) ? boff[0] : boff[1]);
+    const bool last = (l == L - 1);
+    const int RG = (Reff + kWarpRows - 1) / kWarpRows;   // row groups
+    const int NTT = n8 >> 3;                    // n8 tiles
+    const int items = RG * ((NTT + kNT - 1) / kNT);
+    const int nchunks = (K8 + lay.KC - 1) / lay.KC;
+    for (int base = 0; base < items; base += nwarps) {
+      const int item = base + warp;
+      const bool active = item < items;         // warp-uniform
+      const int r0 = (item % RG) * kWarpRows;
+      const int ct0 = (item / RG) * kNT;
+      float acc[kMT][kNT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+      const int perm_c = (l == 0 && lay.feat_first) ? C : -1;
+      stage_weights(wl, kp4, co, ns, 0, lay.KC, perm_c, wbuf);
+      cp_async_commit();
+      for (int c = 0; c < nchunks; ++c) {
+        if (c + 1 < nchunks) {
+          stage_weights(wl, kp4, co, ns, (c + 1) * lay.KC, lay.KC, perm_c,
+                        wbuf + ((c + 1) & 1) * (size_t)lay.wchunk);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (active) {
+          const float* Ws = wbuf + (c & 1) * (size_t)lay.wchunk;
+          const int k0 = c * lay.KC;
+          const int ksteps = min(lay.KC, K8 - k0) >> 3;
+          // the next step's fragments load while this step's multiply
+          const float* xa = X + (size_t)(r0 + g) * xs + k0 + tg;
+          const float* wb = Ws + tg * ns + ct0 * 8 + g;
+          float ra[kMT][4], rb[kNT][2];
+          load_frags(xa, xs, wb, ns, ra, rb);
+          for (int ks = 0; ks < ksteps; ++ks) {
+            uint32_t ahi[kMT][4], alo[kMT][4], bh[kNT][2], bl[kNT][2];
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                split_tf32(ra[mt][e], ahi[mt][e], alo[mt][e]);
+#pragma unroll
+            for (int j = 0; j < kNT; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) split_tf32(rb[j][e], bh[j][e], bl[j][e]);
+            if (ks + 1 < ksteps)
+              load_frags(xa + 8 * (ks + 1), xs, wb + 8 * (ks + 1) * ns, ns,
+                         ra, rb);
+            // pass by pass, so that consecutive mma are independent; each
+            // accumulator still takes lo*hi, hi*lo, hi*hi (small terms first)
+#pragma unroll
+            for (int pass = 0; pass < 3; ++pass) {
+#pragma unroll
+              for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+                for (int j = 0; j < kNT; ++j) {
+                  const uint32_t(&a)[4] = pass == 0 ? alo[mt] : ahi[mt];
+                  const uint32_t(&b)[2] = pass == 1 ? bl[j] : bh[j];
+                  mma_tf32(acc[mt][j], a, b[0], b[1]);
+                }
+              }
+            }
+          }
+        }
+        __syncthreads();
+      }
+
+      if (active) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          if (ct0 + j >= NTT) continue;
+          const int col = (ct0 + j) * 8 + 2 * tg;
+          // co % 4 == 0 and col is even: col < co implies col + 1 < co;
+          // padded columns have zero weights and bias, so they stay 0
+          const float b0 = col < co ? __ldg(bias + col) : 0.f;
+          const float b1 = col < co ? __ldg(bias + col + 1) : 0.f;
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            const int r = r0 + 16 * mt;
+            if (r >= Reff) continue;
+            const float v0 = fmaxf(acc[mt][j][0] + b0, 0.f);
+            const float v1 = fmaxf(acc[mt][j][1] + b1, 0.f);
+            const float v2 = fmaxf(acc[mt][j][2] + b0, 0.f);
+            const float v3 = fmaxf(acc[mt][j][3] + b1, 0.f);
+            if (!last) {
+              *reinterpret_cast<float2*>(Y + (size_t)(r + g) * ys + col) =
+                  make_float2(v0, v1);
+              *reinterpret_cast<float2*>(Y + (size_t)(r + g + 8) * ys + col) =
+                  make_float2(v2, v3);
+            } else {
+              // max over the tile's 16 rows: g and g + 8 here, then the
+              // eight row groups of the quad
+              float m0 = fmaxf(v0, v2), m1 = fmaxf(v1, v3);
+#pragma unroll
+              for (int off = 4; off < 32; off <<= 1) {
+                m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+                m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+              }
+              if (g == 0 && col < co) {
+                Y[(size_t)(r >> 4) * co + col] = m0;
+                Y[(size_t)(r >> 4) * co + col + 1] = m1;
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // a query's Sp / 16 tile maxima (the last layer wrote them to its output
+  // buffer, one row of cout a tile)
+  const float* tmax = smem + ((L & 1) ? boff[1] : boff[0]);
+  const int T = Sp >> 4;
+  for (int t = tid; t < nq * cout; t += nt) {
+    const int q = t / cout, c = t - q * cout;
+    float m = tmax[(size_t)(q * T) * cout + c];
+    for (int i = 1; i < T; ++i)
+      m = fmaxf(m, tmax[(size_t)(q * T + i) * cout + c]);
+    out[((size_t)b * M + q0) * cout + t] = m;
+  }
+}
+
+// Sizes the block (Q queries of Sp rows, at most kMaxRows rows, within
+// kTCSmem of shared memory) and the weight chunks, and launches the
+// tensor-core kernel; returns a cudaError_t.
+template <int MODE>
+int launch_fused_sa_tc(const float* xyz, const float* feat,
+                       const float* new_xyz, int B, int P, int C, int M,
+                       float r2, float win, int S, const MLPDesc& d,
+                       const float* params, float* out, void* stream) {
+  if (reinterpret_cast<uintptr_t>(params) & 15)   // cp.async moves 16 bytes
+    return (int)cudaErrorMisalignedAddress;
+  const int* widths = d.width;
+  const int L = d.n_layers;
+  TCLayout lay;
+  lay.Sp = (S + 15) & ~15;
+  lay.feat_first =
+      C % 4 == 0 && (reinterpret_cast<uintptr_t>(feat) & 15) == 0 ? 1 : 0;
+  int buf[2] = {4, 4};    // layer l reads buffer l % 2
+  int nsmax = 8;
+  for (int l = 0; l < L; ++l) {
+    buf[l & 1] = act_stride(widths[l]) > buf[l & 1] ? act_stride(widths[l])
+                                                    : buf[l & 1];
+    nsmax = w_stride(widths[l + 1]) > nsmax ? w_stride(widths[l + 1]) : nsmax;
+  }
+  // the last layer writes one row of cout per 16 rows
+  const int tile_rows = (widths[L] + 15) / 16;
+  buf[L & 1] = tile_rows > buf[L & 1] ? tile_rows : buf[L & 1];
+  lay.bufA = buf[0];
+  lay.bufB = buf[1];
+  lay.KC = 32;
+  while (lay.KC > 8 && 2 * sizeof(float) * lay.KC * nsmax > kWChunkBudget)
+    lay.KC >>= 1;
+  lay.wchunk = lay.KC * nsmax;
+  // activation rows rounded up to whole warp tiles
+  auto smem_for = [&](int Q) {
+    const size_t rows = (Q * lay.Sp + kWarpRows - 1) / kWarpRows * kWarpRows;
+    return sizeof(float) * (rows * (lay.bufA + lay.bufB) +
+                            2 * (size_t)lay.wchunk + 3 * Q +
+                            (size_t)Q * lay.Sp);
+  };
+  int Q = 64;
+  while (Q > 1 && (Q * lay.Sp > kMaxRows || Q / 2 >= M || smem_for(Q) > kTCSmem))
+    Q >>= 1;
+  lay.Q = Q;
+  const size_t smem = smem_for(Q);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  // one warp a 32 x 64 output tile of the widest layer, at most kTCWarps
+  const int RG = (Q * lay.Sp + kWarpRows - 1) / kWarpRows;
+  int warps = 1;
+  for (int l = 1; l <= L; ++l) {
+    const int items = RG * ((pad8(widths[l]) / 8 + kNT - 1) / kNT);
+    warps = items > warps ? items : warps;
+  }
+  warps = warps < kTCWarps ? warps : kTCWarps;
+  const int grid = B * ((M + Q - 1) / Q);
+  int err = ws3d_set_smem((const void*)fused_sa_tc_kernel<MODE>, smem);
+  // all of the SM's 228 KB to shared memory, so that two blocks fit
+  if (!err)
+    err = (int)cudaFuncSetAttribute(
+        (const void*)fused_sa_tc_kernel<MODE>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+  if (err) return err;
+  fused_sa_tc_kernel<MODE><<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
+      xyz, feat, new_xyz, P, C, M, r2, win, S, lay, d, params, out);
+  return (int)cudaGetLastError();
+}
+
+// Checks the sizes and the widths (widths[0] = C + 3, every layer's width a
+// positive multiple of 4) into d; returns a cudaError_t.
+int make_desc(int B, int P, int C, int M, int S, int n_layers,
+              const int* widths, MLPDesc& d) {
+  if (B <= 0 || P <= 0 || M <= 0 || S <= 0 || n_layers < 1 ||
+      n_layers > kMaxLayers || widths[0] != C + 3)
+    return (int)cudaErrorInvalidValue;
+  d.n_layers = n_layers;
+  for (int l = 0; l <= kMaxLayers; ++l)
+    d.width[l] = l <= n_layers ? widths[l] : 0;
+  for (int l = 1; l <= n_layers; ++l)
+    if (widths[l] <= 0 || widths[l] % 4) return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
 // xyz (B, P, 3), feat (B, P, C), new_xyz (B, M, 3) f32; params packs
 // [W0 (pad4(ci), co) row-major with zero rows past ci, b0 (co), W1, b1, ...]
-// (BN folded; every co a multiple of 4) -> out (B, M, width[n_layers]).
-// windowed != 0 requires xyz and new_xyz sorted ascending by z.
+// (BN folded; every co a multiple of 4; 16-byte aligned) -> out (B, M,
+// width[n_layers]). windowed != 0 requires xyz and new_xyz sorted ascending
+// by z.
 WS3D_EXPORT int ws3d_fused_sa(const float* xyz, const float* feat,
                               const float* new_xyz, int B, int P, int C, int M,
                               float r2, float win, int S, int windowed,
                               int n_layers, const int* widths,
                               const float* params, float* out, void* stream) {
+  MLPDesc d;
+  const int err = make_desc(B, P, C, M, S, n_layers, widths, d);
+  if (err) return err;
   if (windowed)
-    return launch_fused_sa<kWindow>(xyz, feat, new_xyz, nullptr, B, P, C, M,
-                                    r2, win, S, n_layers, widths, params, out,
-                                    stream);
+    return launch_fused_sa_tc<kWindow>(xyz, feat, new_xyz, B, P, C, M, r2,
+                                       win, S, d, params, out, stream);
   return launch_fused_sa<kFull>(xyz, feat, new_xyz, nullptr, B, P, C, M, r2,
-                                win, S, n_layers, widths, params, out, stream);
+                                S, d, params, out, stream);
 }
 
 // The same with the indices given: idx (B, M, S) int32, each in [0, P).
@@ -289,6 +746,9 @@ WS3D_EXPORT int ws3d_fused_sa_idx(const float* xyz, const float* feat,
                                   int P, int C, int M, int S, int n_layers,
                                   const int* widths, const float* params,
                                   float* out, void* stream) {
-  return launch_fused_sa<kGiven>(xyz, feat, new_xyz, idx, B, P, C, M, 0.f,
-                                 0.f, S, n_layers, widths, params, out, stream);
+  MLPDesc d;
+  const int err = make_desc(B, P, C, M, S, n_layers, widths, d);
+  if (err) return err;
+  return launch_fused_sa<kGiven>(xyz, feat, new_xyz, idx, B, P, C, M, 0.f, S,
+                                 d, params, out, stream);
 }
