@@ -13,9 +13,8 @@ Phases (any failure exits non-zero; nothing is caught):
      against its plain PyTorch version on the recorded inputs (indices
      exact, floats within the stated tolerance), with CUDA-event times, the
      plain version's time and a roofline bound (kernel 2's: 3x its MLP
-     FLOPs at the TF32 tensor-core peak); print kernel 2's time per launch,
-     and FPS on each recorded row class and on one scene's 16,384 points
-     through every route of csrc/fps.cu;
+     FLOPs at the TF32 tensor-core peak); print kernel 2's time per launch
+     and FPS's per row class;
   3. the inference path: 16 synthetic scenes at full width with the fitted
      weights (ws3d_tpu/data/bench_weights.npz) through make_two_stage_fn,
      one warm-up and timed batches closed by torch.cuda.synchronize();
@@ -632,7 +631,11 @@ def main() -> int:
     print(f"# phase 2: kernel 2 by launch ({len(k2)} a batch): "
           + "; ".join(f"{note} {ms:.4f} ms (bound {b:.4f})"
                       for _, note, ms, b in k2), flush=True)
-    _fps_row_classes(rec.calls)
+    k1 = [r for r in rows if r[0] == "fps"]
+    print(f"# phase 2: FPS by row class ({len(k1)} a batch): "
+          + "; ".join(f"{note} {ms:.4f} ms" for _, note, ms, _ in k1)
+          + f"; the database's row (one scene) {_fps_one_row(rec.calls)}",
+          flush=True)
     # the crop and FP inputs kernels 10 and 8 run on in phase 12
     crop_call = [a for n, a, _ in rec.calls if n == "crop_gather_cuda"][0]
     fp_calls = [a for n, a, _ in rec.calls if n == "three_interpolate_cuda"]
@@ -733,7 +736,7 @@ def main() -> int:
     return 0
 
 
-def _compare_calls(calls, per_kernel, path: str) -> None:
+def _compare_calls(calls, per_kernel, path: str) -> list:
     """Replay recorded kernel calls of `path` against their plain versions
     and add each call's error, times and bound to `per_kernel`; returns
     (kernel, shape note, ms, bound ms) of each call."""
@@ -762,33 +765,22 @@ def _compare_calls(calls, per_kernel, path: str) -> None:
     return rows
 
 
-def _fps_row_classes(calls) -> None:
-    """Kernel 1 on the batch's own FPS inputs and on one scene's 16,384
-    points (the database path's row), through every route that takes the
-    row: the measurement behind csrc/fps.cu's cut-over. Indices must equal
-    the automatic route's (held against the plain version in phase 2)."""
+def _fps_one_row(calls) -> str:
+    """Kernel 1 on the first row of the batch's largest FPS input: the
+    proposal-database path's row class (one scene of 16,384 points, C = 16
+    CTAs a cluster where the batch gets 8). Indices must equal the plain
+    version's; returns its shape and CUDA-event time."""
     import torch
     from ws3d_tpu_torch.ops import sampling
-    inputs = [a for n, a, _ in calls if n == "fps_cuda"]
-    big = max(inputs, key=lambda a: a[0].shape[1])
-    inputs.append((big[0][:1].contiguous(), big[1]))
-    for xyz, npoint in inputs:
-        R, N, _ = xyz.shape
-        ref, _ = sampling.fps_cuda(xyz, npoint)
-        parts = []
-        # the warp route takes rows of up to 1,024 points (kWarpMaxN)
-        for route in ("warp", "cluster") if N <= 1024 else ("cluster",):
-            plan = sampling.fps_plan(R, N, route)
-            idx, _ = sampling.fps_cuda(xyz, npoint, route=route)
-            if not torch.equal(idx, ref):
-                raise AssertionError(f"fps route {route} R{R} N{N} differs")
-            ms = cuda_ms(lambda: sampling.fps_cuda(xyz, npoint, route=route),
-                         3)
-            parts.append(f"{route} (C {plan['C']}, {plan['threads']} "
-                         f"threads x {plan['ppt']} points) {ms:.4f} ms")
-        print(f"#   fps row class R{R} N{N}->{npoint}: auto route "
-              f"{sampling.fps_plan(R, N)['route']}; " + "; ".join(parts),
-              flush=True)
+    xyz, npoint = max((a for n, a, _ in calls if n == "fps_cuda"),
+                      key=lambda a: a[0].shape[1])
+    one = xyz[:1].contiguous()
+    idx, _ = sampling.fps_cuda(one, npoint)
+    if not torch.equal(idx, sampling.fps_plain(one, npoint)):
+        raise AssertionError("fps on one 16,384-point row differs from the "
+                             "plain version")
+    ms = cuda_ms(lambda: sampling.fps_cuda(one, npoint), 5)
+    return f"R1 N{one.shape[1]}->{npoint} {ms:.4f} ms"
 
 
 def _rpn_model(cfg, device):

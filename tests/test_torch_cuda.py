@@ -244,20 +244,31 @@ def _tie_cloud(rng, R, N, spread=10.0):
 @pytest.mark.parametrize("R,N,npoint", [(1, 16384, 4096), (16, 16384, 4096),
                                         (1024, 512, 256), (16, 1024, 256)])
 def test_fps_row_classes(dev, rng, R, N, npoint):
-    """Kernel 1 at the main path's row classes, every route that takes the
-    row, indices exact against the plain version."""
-    from ws3d_tpu_torch.ops.sampling import (fps_cuda, fps_plain, fps_plan,
-                                             gather_points)
+    """Kernel 1 at the main path's row classes, indices and coordinates
+    exact against the plain version (the cluster route above 1,024 points,
+    the warp route below)."""
+    from ws3d_tpu_torch.ops.sampling import fps_cuda, fps_plain, gather_points
     xyz = torch.from_numpy(_tie_cloud(rng, R, N)).to(dev)
     ref = fps_plain(xyz, npoint)
-    routes = ["auto", "cluster"] + (["warp"] if N <= 1024 else [])
-    for route in routes:
-        idx, coords = fps_cuda(xyz, npoint, route=route)
-        assert torch.equal(idx, ref), route
-        assert torch.equal(coords, gather_points(xyz, ref.long())), route
-    if N == 16384:
-        assert fps_plan(R, N)["route"] == "cluster"
-        assert fps_plan(R, N)["C"] >= 8
+    idx, coords = fps_cuda(xyz, npoint)
+    assert torch.equal(idx, ref)
+    assert torch.equal(coords, gather_points(xyz, ref.long()))
+
+
+def test_fps_routes_bench(dev, tmp_path):
+    """csrc/bench/fps_routes.cu builds and passes its own checks: both of
+    kernel 1's routes agree at every row class, row 0 matches its host
+    reference, and 16,384-point rows run as clusters of 8 CTAs or more."""
+    import subprocess
+    from ws3d_tpu_torch.ops import _kernels
+    src = _kernels.CSRC / "bench" / "fps_routes.cu"
+    exe = tmp_path / "fps_routes"
+    subprocess.run([_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-Xcompiler", "-ffp-contract=off",
+                    "-o", str(exe), str(src)], check=True)
+    out = subprocess.run([str(exe)], capture_output=True, text=True)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.splitlines()[-1] == "ok"
 
 
 @pytest.mark.parametrize("S", [8, 16, 24, 32])

@@ -11,26 +11,30 @@
 // the floor is the step count times the latency of that reduction.
 //
 // Two designs, by row size (cut-over kWarpMaxN points, measured on the
-// card: chip_smoke.py prints both routes at every row class). In both, a
-// thread keeps its points and their min-d2 cache in registers and takes its
-// best (d2, index) by a tree; a warp reduces with two redux.sync (max of the
-// d2 bits, then min of the index among equals); the pick's coordinates come
-// from a copy of the points in shared memory.
+// card by csrc/bench/fps_routes.cu, which times both at every row class of
+// the main path). In both, a thread keeps its points and their min-d2 cache
+// in registers and takes its best (d2, index) by a tree; a warp reduces with
+// two redux.sync (max of the d2 bits, then min of the index among equals);
+// the pick's coordinates come from a copy of the points in shared memory.
 //  - small rows (the stage-2 crops, hundreds of rows a call): one warp per
 //    row. No barrier of any kind.
 //  - large rows: a thread-block cluster of C CTAs per row, launched with
 //    cudaLaunchKernelEx. Each CTA holds a contiguous slice of the row
-//    (8 or 16 points a thread, 128 threads or fewer; at most 256). A step is a block argmax
-//    (one __syncthreads), the CTA's candidate (d2, index, x, y, z) written
-//    through distributed shared memory into slot [step & 1][rank] of every
-//    CTA of the cluster, ONE cluster barrier (arrive.release/wait.acquire),
-//    and a merge of the C local slots in (d2 descending, index ascending)
-//    order, so all CTAs agree on the pick without a second barrier. The
-//    double-buffered slots are safe: slot parity p is rewritten two steps
-//    later, after a barrier that every reader of p has passed. C is the
-//    largest of 16, 8, 4, 2, 1 with C * rows <= SMs and every row's cluster
-//    resident at once (cudaOccupancyMaxActiveClusters): 8 at batch 16, 16 at
-//    batch 1. A refused cluster launch returns its error; nothing falls back.
+//    (8 or 16 points a thread, 128 threads or fewer; at most 256). One
+//    cluster barrier before the first step is required: a CTA may write
+//    into another's shared memory only once every CTA of the cluster has
+//    started, and the programming model does not promise that a cluster's
+//    CTAs start together. A step is a block argmax (one __syncthreads), the
+//    CTA's candidate (d2, index, x, y, z) written through distributed shared
+//    memory into slot [step & 1][rank] of every CTA of the cluster, ONE
+//    cluster barrier (arrive.release/wait.acquire), and a merge of the C
+//    local slots in (d2 descending, index ascending) order, so all CTAs
+//    agree on the pick without a second barrier. The double-buffered slots
+//    are safe: slot parity p is rewritten two steps later, after a barrier
+//    that every reader of p has passed. C is the largest of 16, 8, 4, 2, 1
+//    with C * rows <= SMs and every row's cluster resident at once
+//    (cudaOccupancyMaxActiveClusters): 8 at batch 16, 16 at batch 1. A
+//    refused cluster launch returns its error; nothing falls back.
 #include <climits>
 #include <cooperative_groups.h>
 
@@ -46,8 +50,6 @@ constexpr int kClusterThreads = 128;   // threads a CTA aimed at (cluster)
 constexpr int kClusterMaxThreads = 256;
 constexpr int kMaxCluster = 16;
 constexpr size_t kMaxSliceBytes = 200 * 1024;   // a CTA's coordinates
-
-enum Route { kAuto = 0, kWarp = 1, kCluster = 2 };
 
 struct Cand {
   float d;
@@ -207,7 +209,9 @@ fps_cluster_kernel(const float* __restrict__ xyz, int N, int npoint,
     oc[1] = ly;
     oc[2] = lz;
   }
-  __syncthreads();
+  // every CTA of the cluster has started (and its slice is in shared
+  // memory) before any CTA writes into another's s_inbox on step 1
+  cluster.sync();
   for (int it = 1; it < npoint; ++it) {
     float d;
     int i;
@@ -259,16 +263,16 @@ fps_cluster_kernel(const float* __restrict__ xyz, int N, int npoint,
 }
 
 struct Plan {
-  int route;    // kWarp or kCluster
-  int C;        // CTAs a cluster (cluster route)
-  int threads;  // threads a CTA (cluster route) or lanes a row (warp route)
-  int ppt;      // points a thread
+  bool cluster;  // a cluster of C CTAs a row, else one warp a row
+  int C;         // CTAs a cluster (1 on the warp route)
+  int threads;   // threads a CTA (cluster route) or lanes a row (warp route)
+  int ppt;       // points a thread
 };
 
-int warp_ppt(int N) {
+Plan warp_plan(int N) {
   int ppt = 1;
   while (32 * ppt < N) ppt *= 2;
-  return ppt;
+  return {false, 1, 32, ppt};
 }
 
 // points a thread of the cluster kernel for a slice: 8 or 16, the fewer
@@ -283,29 +287,25 @@ ClusterKernel cluster_kernel(int ppt) {
   return ppt == 8 ? fps_cluster_kernel<8> : fps_cluster_kernel<16>;
 }
 
-// Chooses the route and, for a cluster, C; returns a cudaError_t.
-int make_plan(int R, int N, int route, Plan& plan) {
-  if (route == kAuto) route = N <= kWarpMaxN ? kWarp : kCluster;
-  plan.route = route;
-  if (route == kWarp) {
-    if (N > kWarpMaxN) return (int)cudaErrorInvalidValue;
-    plan.C = 1;
-    plan.threads = 32;
-    plan.ppt = warp_ppt(N);
-    return 0;
-  }
-  if (route != kCluster) return (int)cudaErrorInvalidValue;
+// Picks C for R rows of N points on the current device; returns a
+// cudaError_t. Both kernels are opted in to the largest slice any plan
+// uses. Every cluster launch plans anew: it costs about 1 us of host time
+// (csrc/bench/fps_routes.cu measures it) against a launch of 1.3 ms or more.
+int cluster_plan(int R, int N, Plan& plan) {
   int dev = 0, sms = 0;
   int err = (int)cudaGetDevice(&dev);
   if (!err)
     err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev);
-  for (int ppt = 8; ppt <= 16 && !err; ppt *= 2)
+  for (int ppt = 8; ppt <= 16 && !err; ppt *= 2) {
     err = (int)cudaFuncSetAttribute(
         (const void*)cluster_kernel(ppt),
         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (!err) err = ws3d_set_smem((const void*)cluster_kernel(ppt),
+                                  kMaxSliceBytes);
+  }
   if (err) return err;
-  plan.C = 0;
+  plan = {true, 0, 0, 0};
   // the largest C with one CTA an SM and every row resident at once; else
   // the smallest C whose slice fits a CTA
   for (int C = kMaxCluster; C >= 1; C >>= 1) {
@@ -316,8 +316,6 @@ int make_plan(int R, int N, int route, Plan& plan) {
     // a smaller C only needs more threads and shared memory
     if (threads > kClusterMaxThreads || smem > kMaxSliceBytes) break;
     if (C > 1 && slice < 32) continue;
-    if ((err = ws3d_set_smem((const void*)cluster_kernel(ppt), smem)))
-      return err;
     int clusters = INT_MAX;
     if (C > 1) {
       cudaLaunchConfig_t cfg = {};
@@ -356,33 +354,10 @@ void launch_warp(const float* xyz, int R, int N, int npoint, int* idx,
                          smem, s>>>(xyz, R, N, npoint, idx, out_xyz);
 }
 
-}  // namespace
-
-// The route (1 warp, 2 cluster), CTAs a cluster, threads a CTA and points a
-// thread that ws3d_fps would use for R rows of N points (route 0 = auto).
-WS3D_EXPORT int ws3d_fps_plan(int R, int N, int route, int* out4) {
-  if (R <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  Plan plan;
-  const int err = make_plan(R, N, route, plan);
-  if (err) return err;
-  out4[0] = plan.route;
-  out4[1] = plan.C;
-  out4[2] = plan.threads;
-  out4[3] = plan.ppt;
-  return 0;
-}
-
-// xyz (R, N, 3) f32 -> idx (R, npoint) i32, picked coords (R, npoint, 3) f32.
-// route: 0 picks by N (kWarpMaxN); 1 forces the warp kernel, 2 the cluster
-// kernel (for measuring the cut-over).
-WS3D_EXPORT int ws3d_fps(const float* xyz, int R, int N, int npoint, int route,
-                         int* idx, float* out_xyz, void* stream) {
-  if (R <= 0 || N <= 0 || npoint <= 0) return (int)cudaErrorInvalidValue;
-  Plan plan;
-  int err = make_plan(R, N, route, plan);
-  if (err) return err;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (plan.route == kWarp) {
+// Launches `plan` for R rows of N points; returns a cudaError_t.
+int launch_plan(const Plan& plan, const float* xyz, int R, int N, int npoint,
+                int* idx, float* out_xyz, cudaStream_t s) {
+  if (!plan.cluster) {
     switch (plan.ppt) {
       case 1: launch_warp<1>(xyz, R, N, npoint, idx, out_xyz, s); break;
       case 2: launch_warp<2>(xyz, R, N, npoint, idx, out_xyz, s); break;
@@ -406,10 +381,26 @@ WS3D_EXPORT int ws3d_fps(const float* xyz, int R, int N, int npoint, int route,
   cfg.stream = s;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = (int)cudaLaunchKernelEx(&cfg, cluster_kernel(plan.ppt), xyz, N,
-                                npoint, slice, idx, out_xyz);
+  const int err = (int)cudaLaunchKernelEx(&cfg, cluster_kernel(plan.ppt), xyz,
+                                          N, npoint, slice, idx, out_xyz);
   if (err) return err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// xyz (R, N, 3) f32 -> idx (R, npoint) i32, picked coords (R, npoint, 3) f32.
+// Rows of up to kWarpMaxN points run one warp a row, larger rows a cluster.
+WS3D_EXPORT int ws3d_fps(const float* xyz, int R, int N, int npoint, int* idx,
+                         float* out_xyz, void* stream) {
+  if (R <= 0 || N <= 0 || npoint <= 0) return (int)cudaErrorInvalidValue;
+  Plan plan = warp_plan(N);
+  if (N > kWarpMaxN) {
+    const int err = cluster_plan(R, N, plan);
+    if (err) return err;
+  }
+  return launch_plan(plan, xyz, R, N, npoint, idx, out_xyz,
+                     (cudaStream_t)stream);
 }
 
 WS3D_EXPORT const char* ws3d_error_string(int err) {

@@ -42,8 +42,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "ws3d_fps": [_P, _I, _I, _I, _I, _P, _P, _P],
-    "ws3d_fps_plan": [_I, _I, _I, _P],
+    "ws3d_fps": [_P, _I, _I, _I, _P, _P, _P],
     "ws3d_fused_sa": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P,
                       _P, _P],
     "ws3d_fused_sa_idx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,

@@ -31,32 +31,17 @@ def fps_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return idx
 
 
-# csrc/fps.cu's routes: chosen by the row size, or forced for measurement
-ROUTES = {"auto": 0, "warp": 1, "cluster": 2}
-
-
-def fps_plan(R: int, N: int, route: str = "auto") -> dict:
-    """The launch kernel 1 makes for R rows of N points: its route ("warp":
-    one warp a row; "cluster": a cluster of C CTAs a row), C, the threads
-    of a CTA and the points a thread holds."""
-    out = (_kernels.ctypes.c_int * 4)()
-    rc = _kernels.library().ws3d_fps_plan(int(R), int(N), ROUTES[route], out)
-    _kernels.raise_on_error(rc, "fps plan")
-    return {"route": {1: "warp", 2: "cluster"}[out[0]], "C": out[1],
-            "threads": out[2], "ppt": out[3]}
-
-
-def fps_cuda(xyz: torch.Tensor, npoint: int, route: str = "auto"):
+def fps_cuda(xyz: torch.Tensor, npoint: int):
     """Kernel 1: xyz (R, N, 3) f32 CUDA -> (idx (R, npoint) int32,
-    coords (R, npoint, 3) f32). `route` other than "auto" forces one of the
-    kernel's two designs (see fps_plan)."""
+    coords (R, npoint, 3) f32). Rows of up to 1,024 points run one warp a
+    row, larger rows a thread-block cluster a row."""
     _kernels.check_cuda(xyz, "fps xyz", torch.float32, (None, None, 3))
     R, N, _ = xyz.shape
     idx = torch.empty((R, npoint), dtype=torch.int32, device=xyz.device)
     coords = torch.empty((R, npoint, 3), dtype=torch.float32,
                          device=xyz.device)
     rc = _kernels.library().ws3d_fps(
-        xyz.data_ptr(), R, N, int(npoint), ROUTES[route], idx.data_ptr(),
+        xyz.data_ptr(), R, N, int(npoint), idx.data_ptr(),
         coords.data_ptr(), _kernels.stream_ptr(xyz))
     _kernels.raise_on_error(rc, "fps")
     _kernels.LAUNCHES["fps"] += 1
