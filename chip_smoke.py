@@ -6,15 +6,17 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from ws3d_tpu_torch/csrc (nvcc, sm_90a); print
      each kernel's registers and spills, and require TF32 tensor-core
-     instructions (HMMA) in kernel 2 and cluster barriers (UCGABAR) in the
-     FPS cluster kernel (cuobjdump -sass);
+     instructions (HMMA) in all three modes of the fused SA routine (kernels
+     2, 3 and 9), no SIMT MLP routine (fused_sa_kernel), and cluster
+     barriers (UCGABAR) in the FPS cluster kernel (cuobjdump -sass);
   2. run the two-stage pipeline once on a batch of the main path (16
      scenes), record every kernel call it makes, and hold each kernel
      against its plain PyTorch version on the recorded inputs (indices
      exact, floats within the stated tolerance), with CUDA-event times, the
-     plain version's time and a roofline bound (kernel 2's: 3x its MLP
-     FLOPs at the TF32 tensor-core peak); print kernel 2's time per launch
-     and FPS's per row class;
+     plain version's time and a roofline bound (the fused SA's: 3x its MLP
+     FLOPs at the TF32 tensor-core peak); print the time and the launch
+     layout (gather, Q, Sp, KC, warps, shared memory) of each launch of
+     kernels 2 and 3, and FPS's time per row class;
   3. the inference path: 16 synthetic scenes at full width with the fitted
      weights (ws3d_tpu/data/bench_weights.npz) through make_two_stage_fn,
      one warm-up and timed batches closed by torch.cuda.synchronize();
@@ -271,15 +273,13 @@ def compare_call(name, args, kw):
         nbytes = 4 * (B * P * 3 + B * P * C + B * M * 3 + B * M * widths[-1]
                       + sum(k.numel() + b.numel()
                             for k, b in zip(kernels, biases)))
-        if window:
-            # kernel 2: the MLP in three TF32 passes on the tensor cores,
-            # the search on the SIMT cores; the larger of the two bounds
-            ops = [(3 * mlp_ops, PEAK_TF32, "3xTF32 ops"),
-                   (9 * scanned, PEAK_F32, "search ops")]
-        else:
-            ops = mlp_ops + 9 * scanned
+        # the MLP in three TF32 passes on the tensor cores, the search on
+        # the SIMT cores; the larger of the two bounds
+        ops = [(3 * mlp_ops, PEAK_TF32, "3xTF32 ops"),
+               (9 * scanned, PEAK_F32, "search ops")]
         return (key, err, ms, plain, nbytes, ops,
-                f"B{B} P{P} M{M} C{C} S{nsample} {widths}")
+                f"B{B} P{P} M{M} C{C} S{nsample} {widths} "
+                + _plan_note(feat, new_xyz, nsample, widths))
 
     if name == "three_interpolate_cuda":
         unknown, known, feats = args
@@ -458,11 +458,22 @@ def compare_call(name, args, kw):
                       + B * M * widths[-1]
                       + sum(k.numel() + b.numel()
                             for k, b in zip(kernels, biases)))
-        ops = 2 * B * M * S * sum(a * b for a, b in zip(widths[:-1],
-                                                        widths[1:]))
+        # the MLP in three TF32 passes on the tensor cores
+        ops = [(3 * 2 * B * M * S * sum(a * b for a, b in zip(widths[:-1],
+                                                              widths[1:])),
+                PEAK_TF32, "3xTF32 ops")]
         return ("fused_sa_idx", err, ms, plain, nbytes, ops,
-                f"B{B} P{P} M{M} C{C} S{S} {widths}")
+                f"B{B} P{P} M{M} C{C} S{S} {widths} "
+                + _plan_note(feat, new_xyz, S, widths))
     raise KeyError(name)
+
+
+def _plan_note(feat, new_xyz, nsample, widths) -> str:
+    """The launch layout csrc/fused_sa.cu plans for a fused SA call."""
+    from ws3d_tpu_torch.ops import fused_sa
+    p = fused_sa.fused_sa_plan(feat, new_xyz, nsample, widths)
+    return (f"[{p['gather']} Q{p['Q']} Sp{p['Sp']} KC{p['KC']} "
+            f"{p['warps']}w {p['smem'] / 1024:.1f}KB {p['blocks']} blocks]")
 
 
 def _crop_windows(xyz, centers, radius, z_window):
@@ -530,7 +541,9 @@ def _scanned_points(xyz, new_xyz, radius, nsample, window) -> int:
 def _print_build(lib_path) -> None:
     """Each kernel's registers, shared memory and spills (ptxas -v), and
     from its SASS the tensor-core (HMMA) and cluster-barrier (UCGABAR)
-    instructions; kernel 2 must have HMMA, the FPS cluster kernel UCGABAR."""
+    instructions; the fused SA routine must have TF32 HMMA in each of its
+    three modes (kernels 3, 2 and 9) and no SIMT MLP routine may be left;
+    the FPS cluster kernel must have UCGABAR."""
     import re
     import shutil
 
@@ -563,9 +576,14 @@ def _print_build(lib_path) -> None:
             print(f"#   SASS {key}: {counts[key]}")
     if not any(k.startswith("fps_cluster_kernel") for k in counts):
         raise AssertionError("no FPS cluster kernel in the library")
-    if not any(op.startswith("HMMA") and "TF32" in op
-               for op in counts.get("fused_sa_tc_kernel<1>", {})):
-        raise AssertionError("kernel 2 has no TF32 HMMA instruction")
+    for mode in range(3):         # kFull (kernel 3), kWindow (2), kGiven (9)
+        if not any(op.startswith("HMMA") and "TF32" in op
+                   for op in counts.get(f"fused_sa_tc_kernel<{mode}>", {})):
+            raise AssertionError(f"fused_sa_tc_kernel<{mode}> has no TF32 "
+                                 f"HMMA instruction")
+    if any(k.startswith("fused_sa_kernel") for k in counts):
+        raise AssertionError("the SIMT MLP routine fused_sa_kernel is in the "
+                             "library")
     if not all(any(op.startswith("UCGABAR") for op in ops)
                for k, ops in counts.items()
                if k.startswith("fps_cluster_kernel")):
@@ -627,10 +645,11 @@ def main() -> int:
         torch.cuda.synchronize()
     per_kernel = {k: _fresh() for k in KERNELS}
     rows = _compare_calls(rec.calls, per_kernel, "inference")
-    k2 = [r for r in rows if r[0] == "fused_sa_window"]
-    print(f"# phase 2: kernel 2 by launch ({len(k2)} a batch): "
-          + "; ".join(f"{note} {ms:.4f} ms (bound {b:.4f})"
-                      for _, note, ms, b in k2), flush=True)
+    for num, key in ((2, "fused_sa_window"), (3, "fused_sa_full")):
+        kr = [r for r in rows if r[0] == key]
+        print(f"# phase 2: kernel {num} by launch ({len(kr)} a batch): "
+              + "; ".join(f"{note} {ms:.4f} ms (bound {b:.4f})"
+                          for _, note, ms, b in kr), flush=True)
     k1 = [r for r in rows if r[0] == "fps"]
     print(f"# phase 2: FPS by row class ({len(k1)} a batch): "
           + "; ".join(f"{note} {ms:.4f} ms" for _, note, ms, _ in k1)
@@ -1438,7 +1457,7 @@ def _profile(run, ms: float, label: str, unit: str) -> None:
           f"{100 * busy / ms:.1f} % of the {ms:.1f} ms {unit} "
           f"({len(rows)} kernel names)")
     ours = ("fps_warp_kernel", "fps_cluster_kernel", "fused_sa_tc_kernel",
-            "fused_sa_kernel", "three_interp_kernel",
+            "three_interp_kernel",
             "crop_gather_kernel", "ball_query_kernel", "three_nn_kernel",
             "ball_query_wrap_kernel", "three_interp_window_kernel")
     rows.sort(key=lambda r: -r[1])

@@ -293,3 +293,91 @@ def test_fused_sa_window_tensor_cores(dev, rng, S):
         ref = fused_sa_plain(*args, r, S, ks, bs)
         err = float((got - ref).abs().max())
         assert err <= 1e-3 + 1e-4 * float(ref.abs().max()), (C, S, err)
+
+
+# kernel 3's main-path shapes, cut to 2 batch rows: backbone SA1 (both
+# scales, random MLPs at the backbone's widths) and stage-2 SA2 (the fitted
+# MLP); M not a multiple of the block's queries leaves a ragged last block
+FULL_CASES = {  # name: (C, P, M, S, radius, widths or None for the fitted)
+    "backbone_s16": (96, 4096, 203, 16, 0.5, [64, 64, 128]),
+    "backbone_s32": (96, 4096, 203, 32, 1.0, [64, 96, 128]),
+    "stage2_s64": (128, 128, 32, 64, 1.0, None),
+    "stage2_s64_ragged": (128, 128, 33, 64, 1.0, None),
+}
+
+
+def _full_case(rng, dev, name):
+    """Points, features, queries (the first three with empty balls) and the
+    MLP of a FULL_CASES entry, on `dev`."""
+    from torch_port_helpers import WEIGHTS
+    C, P, M, S, r, widths = FULL_CASES[name]
+    xyz, feat = sorted_cloud(rng, 2, P, C, spread=2.0 if P > 1024 else 0.8)
+    new_xyz = xyz[:, np.sort(rng.choice(P, M, replace=False))].copy()
+    new_xyz[:, :3, 0] = 50.0
+    if widths is None:
+        key = "params/rcnn/sa_score_0/sa_2/mlp_0/Dense_{}/{}"
+        with np.load(WEIGHTS) as z:
+            ks, bs = ([z[key.format(i, w)].astype(np.float32)
+                       for i in range(3)] for w in ("kernel", "bias"))
+    else:
+        ks, bs = random_mlp(rng, C + 3, widths)
+        ks = [k * 0.3 for k in ks]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (xyz, feat, new_xyz)]
+    return (args, [torch.from_numpy(k).to(dev) for k in ks],
+            [torch.from_numpy(b).to(dev) for b in bs], S, r)
+
+
+@pytest.mark.parametrize("name", sorted(FULL_CASES))
+def test_fused_sa_full_tensor_cores(dev, rng, name):
+    """Kernel 3 (full mode) on the 3xTF32 tensor-core routine against the
+    f32 plain version at its main-path widths, with empty balls and a
+    ragged last block, within the chip_smoke gate 1e-3 + 1e-4 max|ref|."""
+    from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda, fused_sa_plain
+    args, ks, bs, S, r = _full_case(rng, dev, name)
+    got = fused_sa_cuda(*args, r, S, ks, bs, False)
+    ref = fused_sa_plain(*args, r, S, ks, bs)
+    err = float((got - ref).abs().max())
+    assert float(ref.abs().max()) > 0.1
+    assert err <= 1e-3 + 1e-4 * float(ref.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("name", sorted(FULL_CASES))
+def test_fused_sa_idx_tensor_cores(dev, rng, name):
+    """Kernel 9 (given mode) at kernel 3's shapes: on kernel 6's indices it
+    runs the same rows through the same routine as the full mode, so the
+    two agree bit for bit; on random indices with S + 8 slots (not a
+    multiple of 16) it holds its chip_smoke gate 1e-4 max|ref| + 1e-6
+    against the plain version."""
+    from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda
+    from ws3d_tpu_torch.ops.fused_sa_idx import (fused_sa_idx_cuda,
+                                                 fused_sa_idx_plain)
+    from ws3d_tpu_torch.ops.grouping import ball_query
+    args, ks, bs, S, r = _full_case(rng, dev, name)
+    idx = ball_query(r, S, args[0], args[2])
+    assert torch.equal(fused_sa_idx_cuda(*args, idx, ks, bs),
+                       fused_sa_cuda(*args, r, S, ks, bs, False))
+    P, M = args[0].shape[1], args[2].shape[1]
+    idx = torch.randint(0, P, (2, M, S + 8), dtype=torch.int32, device=dev)
+    got = fused_sa_idx_cuda(*args, idx, ks, bs)
+    ref = fused_sa_idx_plain(idx, *args, ks, bs)
+    err = float((got - ref).abs().max())
+    assert err <= 1e-4 * float(ref.abs().max()) + 1e-6, (name, err)
+
+
+def test_fused_sa_layouts_bench(dev, tmp_path):
+    """csrc/bench/fused_sa_layouts.cu builds and passes its own checks: at
+    every main-path launch shape of the fused SA each sizing gives the kept
+    sizing's output bit for bit, and the searching modes give the given
+    mode's output on a host ball query's indices bit for bit."""
+    import subprocess
+    from ws3d_tpu_torch.ops import _kernels
+    src = _kernels.CSRC / "bench" / "fused_sa_layouts.cu"
+    exe = tmp_path / "fused_sa_layouts"
+    subprocess.run([_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-Xcompiler", "-ffp-contract=off",
+                    "-o", str(exe), str(src)], check=True)
+    out = subprocess.run([str(exe)], capture_output=True, text=True)
+    print(out.stdout)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.splitlines()[-1] == "ok"

@@ -1,14 +1,15 @@
 // Fused set abstraction: ball query + gather + BN-folded ReLU MLP + max-pool.
 //
-// Replaces three TPU kernels:
-//   ws3d_tpu/ops/fused_sa_window_pallas.py:_kernel  (windowed, kernel 2:
+// One routine (fused_sa_tc_kernel) in three modes; it replaces three TPU
+// kernels:
+//   ws3d_tpu/ops/fused_sa_window_pallas.py:_kernel  (kWindow, kernel 2:
 //                                                     z-sorted points, scan
 //                                                     only the z-window of
 //                                                     the query)
-//   ws3d_tpu/ops/fused_sa_bq_pallas.py:_kernel      (full, kernel 3: rank
+//   ws3d_tpu/ops/fused_sa_bq_pallas.py:_kernel      (kFull, kernel 3: rank
 //                                                     search over all P
 //                                                     points)
-//   ws3d_tpu/ops/fused_sa_pallas.py:_kernel         (given, kernel 9: the
+//   ws3d_tpu/ops/fused_sa_pallas.py:_kernel         (kGiven, kernel 9: the
 //                                                     indices come from the
 //                                                     caller)
 // Semantics, all three: for each query the first S points with d2 < r2 in
@@ -19,48 +20,47 @@
 // subtracting it from the row, as the other two modes do, is the same
 // function.
 //
-// The search and the gather are shared and run on the SIMT cores in exact
-// f32: one warp per query scans points in ascending index with ballot + popc
-// ranks and stops after S hits (the windowed entry binary-searches [lo, hi)
-// in the sorted z first; the given mode copies the caller's indices). The
-// Q*S gathered rows sit in shared memory. Geometry never enters a product.
+// The modes differ only in where a query's indices come from, and that runs
+// on the SIMT cores in exact f32: one warp per query scans points in
+// ascending index with ballot + popc ranks and stops after S hits (kWindow
+// binary-searches [lo, hi) in the sorted z first, kFull scans [0, P)); kGiven
+// copies the caller's row, clamped into [0, P). Geometry never enters a
+// product. A block takes Q queries x Sp rows: Sp = S rounded up to 16, slots
+// S..Sp-1 repeating slot 0 (duplicates leave the max unchanged), so every
+// m16 tile is one query's rows.
 //
-// What bounds it on the H100: the MLP's FLOPs (2 * B*M*S * sum ci*co; ~1.3
-// TFLOP per inference batch in the windowed mode), far above the bytes it
-// moves (the grouped tensor never reaches device memory).
+// What bounds it on the H100: the MLP's FLOPs (2 * B*M*S * sum ci*co; ~1.7
+// TFLOP per inference batch over the three modes' launches), far above the
+// bytes it moves (the grouped tensor never reaches device memory). The MLP
+// runs on the tensor cores, mma.sync m16n8k8 TF32 in three passes
+// ("3xTF32"): each f32 operand x splits into hi = rna_tf32(x) and lo =
+// rna_tf32(x - hi), and each product accumulates lo*hi + hi*lo + hi*hi in
+// f32 (lo*lo dropped), about 22 mantissa bits, so the f32 tolerances of the
+// port hold. The bound is 3x the MLP's FLOPs at 495 TFLOP/s.
 //
-// Windowed mode (fused_sa_tc_kernel): the MLP runs on the tensor cores,
-// mma.sync m16n8k8 TF32 in three passes ("3xTF32"): each f32 operand x
-// splits into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and each product
-// accumulates lo*hi + hi*lo + hi*hi in f32 (lo*lo dropped), about 22
-// mantissa bits, so the f32 tolerances of the port hold. Its bound is 3x
-// the MLP's FLOPs at 495 TFLOP/s. Design: a block takes Q queries x Sp rows
-// (Sp = S rounded up to 16 with duplicates of the first slot, which leave
-// the max unchanged), so every m16 tile is one query's rows; at most 128
-// rows and 110 KB, so two blocks share an SM and one's search and gather
-// overlap the other's MLP. Feature rows arrive by 16-byte cp.async into a
-// [feat, xyz - q] layout (layer 0's weight rows are permuted to match).
-// Activations ping-pong in shared memory with K padded to 8 (row strides
-// = 4 mod 8, so A-fragment loads hit 32 distinct banks). Each layer's
-// weights stream through shared memory in double-buffered k-chunks with
-// cp.async, columns padded with zeros to whole 64-wide warp tiles. A warp
-// owns a 32 x 64 output tile (2 x 8 mma tiles, 64 accumulators); its k
-// loop is straight-line code (no guards: the rows and columns past the
-// live ones are in the buffers and their results are dropped), loads the
-// next step's fragments while it multiplies, and issues the three passes
-// pass by pass so consecutive mma are independent. A k8 step of a warp is
-// 48 mma, 24 fragment loads and 24 splits of five integer/f32 operations:
-// three issued instructions for each mma, which keeps it well below the
-// tensor pipe's rate; wgmma (one instruction a 64 x N x 8 tile, B read from
-// shared memory by the hardware) is the next step. Bias + ReLU in
-// the epilogue; the last layer max-pools each m16 tile in registers (rows
-// g and g + 8, then __shfl_xor across the quad's row groups), and the
-// Sp / 16 tile maxima of a query are combined with plain loads: no atomics.
-//
-// Full and given modes (fused_sa_kernel) keep the SIMT MLP: 8x4 register
-// tiles of fmaf with float4 loads, weights read through L1/L2, the last
-// layer max-pooling with shared atomics (ReLU outputs are >= 0, so the
-// float bits order like ints). Their bound is the f32 SIMT rate, 67 TFLOP/s.
+// Design: at most 128 rows and 110 KB a block, so two blocks share an SM
+// and one's search and gather overlap the other's MLP; a block too wide
+// for that (Cin 515) takes its SM alone with up to 8 warps (plan_tc). Feature
+// rows arrive by 16-byte cp.async (C % 4 == 0 and an aligned feat; scalar
+// loads otherwise) into a [feat, xyz - q] layout; layer 0's weight rows are
+// permuted to match. Activations ping-pong in shared memory with K padded
+// to 8 (row strides = 4 mod 8, so A-fragment loads hit 32 distinct banks). A
+// warp owns a 32 x 64 output tile (2 x 8 mma tiles, 64 accumulators); the
+// block's warps take a layer's tiles in rounds, and each round streams the
+// weight columns of its own tiles through shared memory in double-buffered
+// k-chunks with cp.async (columns padded with zeros to whole 64-wide
+// tiles). A warp's k loop is straight-line code (no guards: the rows and
+// columns past the live ones are in the buffers and their results are
+// dropped), loads the next step's fragments while it multiplies, and issues
+// the three passes pass by pass so consecutive mma are independent. A k8
+// step of a warp is 48 mma, 24 fragment loads and 24 splits of five
+// integer/f32 operations: three issued instructions for each mma, which
+// keeps it well below the tensor pipe's rate; wgmma (one instruction a 64 x
+// N x 8 tile, B read from shared memory by the hardware) is the next step.
+// Bias + ReLU in the epilogue; the last layer max-pools each m16 tile in
+// registers (rows g and g + 8, then __shfl_xor across the quad's row
+// groups), and the Sp / 16 tile maxima of a query are combined with plain
+// loads: no atomics.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -68,7 +68,6 @@
 namespace {
 
 constexpr int kMaxLayers = 4;
-constexpr int kThreads = 256;
 
 enum Mode { kFull = 0, kWindow = 1, kGiven = 2 };
 
@@ -77,6 +76,7 @@ struct MLPDesc {
   int width[kMaxLayers + 1];  // width[0] = 3 + C, width[l + 1] = layer l out
 };
 
+// the packed weights' row pad (pack_params)
 __host__ __device__ __forceinline__ int pad4(int c) { return (c + 3) & ~3; }
 __host__ __device__ __forceinline__ int pad8(int c) { return (c + 7) & ~7; }
 
@@ -102,14 +102,24 @@ __device__ __forceinline__ int upper_bound_z(const float* pts, int P,
   return lo;
 }
 
-// The block's nq queries (qs, (x, y, z) rows): `row` slots each in idx, the
-// first S from the ball query (one warp per query), slots S..row-1 repeating
-// slot 0.
+// The block's nq queries' indices, `row` slots each in idx: kGiven copies
+// the first S from the caller's rows (gb, S a row) clamped into [0, P) (the
+// wrapper's contract is that they already are; the clamp only keeps a bad
+// one in bounds); kFull and kWindow take them from the ball query (one warp
+// per query). Slots S..row-1 repeat slot 0.
 template <int MODE>
-__device__ __forceinline__ void block_ball_query(const float* __restrict__ pb,
-                                                 int P, const float* qs,
-                                                 int nq, float r2, float win,
-                                                 int S, int row, int* idx) {
+__device__ __forceinline__ void block_indices(const float* __restrict__ pb,
+                                              int P, const float* qs, int nq,
+                                              float r2, float win, int S,
+                                              const int* __restrict__ gb,
+                                              int row, int* idx) {
+  if constexpr (MODE == kGiven) {
+    for (int t = threadIdx.x; t < nq * row; t += blockDim.x) {
+      const int q = t / row, k = t - q * row;
+      idx[t] = min(max(gb[(size_t)q * S + (k < S ? k : 0)], 0), P - 1);
+    }
+    return;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   BallScales sc;
   sc.n = 1;
@@ -129,219 +139,36 @@ __device__ __forceinline__ void block_ball_query(const float* __restrict__ pb,
   }
 }
 
-// X[r] = [xyz[j] - q, feat[j], zeros] for the n_rows gathered points
-// j = idx[r] (query r / row_per_q), `stride` columns a row.
-__device__ __forceinline__ void gather_rows(const float* __restrict__ pb,
-                                            const float* __restrict__ fb,
-                                            int C, const float* qs,
-                                            const int* idx, int n_rows,
-                                            int row_per_q, int cin,
-                                            int stride, float* X) {
-  for (int t = threadIdx.x; t < n_rows * stride; t += blockDim.x) {
-    const int r = t / stride, c = t - r * stride;
-    const int j = idx[r];
-    X[t] = c < 3     ? pb[3 * j + c] - qs[3 * (r / row_per_q) + c]
-           : c < cin ? fb[(size_t)j * C + (c - 3)]
-                     : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------- SIMT MLP
-// full and given modes
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-fused_sa_kernel(const float* __restrict__ xyz, const float* __restrict__ feat,
-                const float* __restrict__ new_xyz,
-                const int* __restrict__ given, int P, int C, int M,
-                float r2, int S, int Q, MLPDesc desc,
-                const float* __restrict__ params, int bufA, int bufB,
-                float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int L = desc.n_layers;
-  const int cout = desc.width[L];
-  const int groups = (M + Q - 1) / Q;
-  const int b = blockIdx.x / groups;
-  const int q0 = (blockIdx.x % groups) * Q;
-  const int nq = min(Q, M - q0);
-  const int R = Q * S;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  float* bufs[2];
-  bufs[0] = smem;
-  bufs[1] = smem + (size_t)R * bufA;
-  float* pooled = bufs[1] + (size_t)R * bufB;
-  float* qs = pooled + (size_t)Q * cout;
-  int* idx = reinterpret_cast<int*>(qs + Q * 3);
-
-  const float* pb = xyz + (size_t)b * P * 3;
-  const float* fb = feat + (size_t)b * P * C;
-  for (int t = tid; t < nq * 3; t += nt)
-    qs[t] = new_xyz[((size_t)b * M + q0) * 3 + t];
-  for (int t = tid; t < Q * cout; t += nt) pooled[t] = 0.f;
-  __syncthreads();
-
-  if constexpr (MODE == kGiven) {
-    // the caller's indices, clamped into [0, P) (the wrapper's contract is
-    // that they already are; the clamp only keeps a bad one in bounds)
-    const int* gb = given + ((size_t)b * M + q0) * S;
-    for (int t = tid; t < nq * S; t += nt) idx[t] = min(max(gb[t], 0), P - 1);
-  } else {
-    block_ball_query<MODE>(pb, P, qs, nq, r2, 0.f, S, S, idx);
-  }
-  __syncthreads();
-
-  // gather [xyz - q, feat] rows, zero-padded to a multiple of 4 columns
-  const int Reff = nq * S;
-  gather_rows(pb, fb, C, qs, idx, Reff, S, desc.width[0],
-              pad4(desc.width[0]), bufs[0]);
-  __syncthreads();
-
-  // MLP, ping-pong through shared memory; last layer max-pools.
-  // Each thread owns an 8-row x 4-column tile: per 4 k-steps it reads 8
-  // float4 of X (shared) and 4 float4 of W (L1/L2) for 128 FMAs.
-  const float* wp = params;
-  for (int l = 0; l < L; ++l) {
-    const int kp = pad4(desc.width[l]), co = desc.width[l + 1];
-    const int CT = co >> 2;                     // co % 4 == 0 (host check)
-    const float4* W4 = reinterpret_cast<const float4*>(wp);   // (kp, CT)
-    const float4* bias4 = reinterpret_cast<const float4*>(wp + (size_t)kp * co);
-    wp += (size_t)kp * co + co;
-    const float* Xin = bufs[l & 1];
-    float4* Y4 = reinterpret_cast<float4*>(bufs[(l + 1) & 1]);
-    const bool last = (l == L - 1);
-    const int RT = (Reff + 7) >> 3;
-    for (int t = tid; t < RT * CT; t += nt) {
-      const int ct = t % CT, r0 = (t / CT) * 8;
-      // clamp the ragged edge to a valid row; its results are dropped
-      const float4* xr[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        xr[i] = reinterpret_cast<const float4*>(
-            Xin + (size_t)min(r0 + i, Reff - 1) * kp);
-      float acc[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int k4 = 0; k4 < (kp >> 2); ++k4) {
-        const float4* wk = W4 + (size_t)(4 * k4) * CT + ct;
-        const float4 w0 = __ldg(wk), w1 = __ldg(wk + CT),
-                     w2 = __ldg(wk + 2 * CT), w3 = __ldg(wk + 3 * CT);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float4 a = xr[i][k4];
-          acc[i][0] = fmaf(a.w, w3.x, fmaf(a.z, w2.x, fmaf(a.y, w1.x,
-                      fmaf(a.x, w0.x, acc[i][0]))));
-          acc[i][1] = fmaf(a.w, w3.y, fmaf(a.z, w2.y, fmaf(a.y, w1.y,
-                      fmaf(a.x, w0.y, acc[i][1]))));
-          acc[i][2] = fmaf(a.w, w3.z, fmaf(a.z, w2.z, fmaf(a.y, w1.z,
-                      fmaf(a.x, w0.z, acc[i][2]))));
-          acc[i][3] = fmaf(a.w, w3.w, fmaf(a.z, w2.w, fmaf(a.y, w1.w,
-                      fmaf(a.x, w0.w, acc[i][3]))));
-        }
-      }
-      const float4 b4 = bias4[ct];
-      const float bj[4] = {b4.x, b4.y, b4.z, b4.w};
-      if (!last) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          if (r0 + i >= Reff) break;
-          Y4[(size_t)(r0 + i) * CT + ct] = make_float4(
-              fmaxf(acc[i][0] + bj[0], 0.f), fmaxf(acc[i][1] + bj[1], 0.f),
-              fmaxf(acc[i][2] + bj[2], 0.f), fmaxf(acc[i][3] + bj[3], 0.f));
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          int qprev = -1;
-          float mx = 0.f;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            if (r0 + i >= Reff) break;
-            const int q = (r0 + i) / S;
-            const float v = fmaxf(acc[i][j] + bj[j], 0.f);
-            if (q == qprev) {
-              mx = fmaxf(mx, v);
-            } else {
-              if (qprev >= 0)
-                atomicMax(reinterpret_cast<int*>(pooled + qprev * co + 4 * ct + j),
-                          __float_as_int(mx));
-              qprev = q;
-              mx = v;
-            }
-          }
-          if (qprev >= 0)
-            atomicMax(reinterpret_cast<int*>(pooled + qprev * co + 4 * ct + j),
-                      __float_as_int(mx));
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int t = tid; t < nq * cout; t += nt)
-    out[((size_t)b * M + q0) * cout + t] = pooled[t];
-}
-
-// Checks the widths, sizes the query block Q to the shared memory and
-// launches mode MODE (kFull or kGiven); returns a cudaError_t.
-template <int MODE>
-int launch_fused_sa(const float* xyz, const float* feat, const float* new_xyz,
-                    const int* given, int B, int P, int C, int M, float r2,
-                    int S, const MLPDesc& d, const float* params, float* out,
-                    void* stream) {
-  const int* widths = d.width;
-  int bufA = 4, bufB = 4;  // layer l reads buffer l % 2
-  for (int l = 0; l < d.n_layers; ++l) {
-    const int w = pad4(widths[l]);
-    if (l & 1) bufB = w > bufB ? w : bufB;
-    else bufA = w > bufA ? w : bufA;
-  }
-  const size_t per_q = sizeof(float) *
-      ((size_t)S * (bufA + bufB) + widths[d.n_layers] + 3 + S);
-  int Q = 64;
-  while (Q > 1 && (Q * per_q > 110 * 1024 || Q / 2 >= M)) Q >>= 1;
-  const size_t smem = Q * per_q;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  const int grid = B * ((M + Q - 1) / Q);
-  const int err = ws3d_set_smem((const void*)fused_sa_kernel<MODE>, smem);
-  if (err) return err;
-  fused_sa_kernel<MODE><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      xyz, feat, new_xyz, given, P, C, M, r2, S, Q, d, params, bufA, bufB,
-      out);
-  return (int)cudaGetLastError();
-}
-
-// -------------------------------------------------------- tensor-core MLP
-// windowed mode
 constexpr int kMT = 2;            // m16 tiles of a warp's output tile
 constexpr int kNT = 8;            // n8 tiles of a warp's output tile
 constexpr int kWarpRows = 16 * kMT;
-constexpr int kTCWarps = 4;       // most warps a block
+constexpr int kTileCols = 8 * kNT;
+constexpr int kTCWarps = 4;       // most warps of a block that shares its SM
+constexpr int kTCMaxWarps = 8;    // most warps of a block alone on its SM
 constexpr int kMaxRows = 128;     // most rows a block
 constexpr size_t kTCSmem = 110 * 1024;        // two blocks an SM
+constexpr size_t kSmemMax = 227 * 1024;       // one block an SM
 constexpr size_t kWChunkBudget = 36 * 1024;   // both weight chunks
 
 // Row stride of a layer input of width c: K padded to 8, plus 4, so that
 // stride = 4 (mod 8) and the 32 lanes of an A-fragment load (rows g, columns
 // t) hit 32 distinct banks.
 __host__ __device__ __forceinline__ int act_stride(int c) { return pad8(c) + 4; }
-// Columns of a staged weight chunk: n padded to whole warp tiles (64), so
-// the unguarded B loads of the last tile stay in zeros; its row stride adds
-// 8, so that a B-fragment load (rows t, columns g) hits 32 distinct banks.
+// Columns of a layer's weights in whole warp tiles (64), so that the
+// unguarded B loads of the last tile stay in zeros; a staged chunk's row
+// stride adds 8, so that a B-fragment load (rows t, columns g) hits 32
+// distinct banks.
 __host__ __device__ __forceinline__ int w_cols(int n) {
-  return (n + 8 * kNT - 1) / (8 * kNT) * (8 * kNT);
+  return (n + kTileCols - 1) / kTileCols * kTileCols;
 }
-__host__ __device__ __forceinline__ int w_stride(int n) { return w_cols(n) + 8; }
 
 struct TCLayout {
   int Sp;           // rows a query: S rounded up to 16
   int Q;            // queries a block
-  int KC;           // weight rows a staged chunk (a multiple of 8)
+  int KC;           // weight rows a chunk of the widest layer's columns
   int bufA, bufB;   // floats a row of the two activation buffers
   int wchunk;       // floats of one staged weight chunk
-  int feat_first;   // rows laid out [feat, xyz - q] (C % 4 == 0, aligned)
+  int feat_async;   // feature rows by 16-byte cp.async (C % 4 == 0, aligned)
 };
 
 // rna_tf32(x): x rounded to the nearest TF32, ties away from zero, low 13
@@ -384,25 +211,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Stage weight rows [k0, k0 + KC) of a layer (kp4 rows of n columns,
-// row-major in global memory) into Ws (row stride ns, w_cols(n) columns):
-// rows past kp4 and columns past n are zeros. perm_c >= 0 reorders the first
-// layer's rows to match [feat (perm_c), xyz] inputs: row k < perm_c takes
-// global row k + 3, rows perm_c..perm_c + 2 take rows 0..2.
+// Stage weight rows [k0, k0 + rows) and columns [c0, c0 + ncol) of a layer
+// (kp4 rows of n columns, row-major in global memory) into Ws (row stride
+// ns): rows past kp4 and columns past n are zeros. perm_c >= 0 reorders the
+// first layer's rows to match [feat (perm_c), xyz] inputs: row k < perm_c
+// takes global row k + 3, rows perm_c..perm_c + 2 take rows 0..2.
 __device__ __forceinline__ void stage_weights(const float* __restrict__ wl,
-                                              int kp4, int n, int ns, int k0,
-                                              int KC, int perm_c, float* Ws) {
+                                              int kp4, int n, int c0,
+                                              int ncol, int ns, int k0,
+                                              int rows, int perm_c,
+                                              float* Ws) {
   // element p = r * c4n + c4 of the chunk, stepped by blockDim.x without
   // a division in the loop
-  const int c4n = w_cols(n) >> 2;
+  const int c4n = ncol >> 2;
   const int dr = blockDim.x / c4n, dc = blockDim.x - dr * c4n;
   int r = threadIdx.x / c4n, c4 = threadIdx.x - r * c4n;
-  while (r < KC) {
+  while (r < rows) {
     int k = k0 + r;
     if (perm_c >= 0) k = k < perm_c ? k + 3 : k < perm_c + 3 ? k - perm_c : k;
     float* dst = Ws + r * ns + 4 * c4;
-    if (k < kp4 && 4 * c4 < n)
-      cp_async16(dst, wl + (size_t)k * n + 4 * c4);
+    const int col = c0 + 4 * c4;
+    if (k < kp4 && col < n)
+      cp_async16(dst, wl + (size_t)k * n + col);
     else
       *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
     r += dr;
@@ -439,10 +269,11 @@ __device__ __forceinline__ void load_frags(const float* xa, int xs,
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(32 * kTCWarps, 2)
+__global__ void __launch_bounds__(32 * kTCMaxWarps, 1)
 fused_sa_tc_kernel(const float* __restrict__ xyz,
                    const float* __restrict__ feat,
-                   const float* __restrict__ new_xyz, int P, int C, int M,
+                   const float* __restrict__ new_xyz,
+                   const int* __restrict__ given, int P, int C, int M,
                    float r2, float win, int S, TCLayout lay, MLPDesc desc,
                    const float* __restrict__ params,
                    float* __restrict__ out) {
@@ -472,51 +303,66 @@ fused_sa_tc_kernel(const float* __restrict__ xyz,
   for (int t = tid; t < nq * 3; t += nt)
     qs[t] = new_xyz[((size_t)b * M + q0) * 3 + t];
   __syncthreads();
-  block_ball_query<MODE>(pb, P, qs, nq, r2, win, S, Sp, idx);
+  block_indices<MODE>(pb, P, qs, nq, r2, win, S,
+                      MODE == kGiven ? given + ((size_t)b * M + q0) * S
+                                     : nullptr,
+                      Sp, idx);
   __syncthreads();
+
+  // gather rows [feat, xyz - q, zeros up to K8]
   const int Reff = nq * Sp;                     // a multiple of 16
   const int xs0 = act_stride(desc.width[0]);
-  if (lay.feat_first) {
-    // the feature rows by 16-byte cp.async, many in flight; then xyz - q
-    // and the zero pad behind them
-    const int c4 = C >> 2, tail = xs0 - C;
+  if (lay.feat_async) {
+    // many 16-byte copies in flight while the xyz columns are written
+    const int c4 = C >> 2;
     for (int t = tid; t < Reff * c4; t += nt) {
       const int r = t / c4, q4 = t - r * c4;
       cp_async16(smem + (size_t)r * xs0 + 4 * q4,
                  fb + (size_t)idx[r] * C + 4 * q4);
     }
     cp_async_commit();
-    for (int t = tid; t < Reff * tail; t += nt) {
-      const int r = t / tail, c = t - r * tail;
-      smem[(size_t)r * xs0 + C + c] =
-          c < 3 ? pb[3 * idx[r] + c] - qs[3 * (r / Sp) + c] : 0.f;
-    }
-    cp_async_wait<0>();
   } else {
-    gather_rows(pb, fb, C, qs, idx, Reff, Sp, desc.width[0], xs0, smem);
+    for (int t = tid; t < Reff * C; t += nt) {
+      const int r = t / C, c = t - r * C;
+      smem[(size_t)r * xs0 + c] = fb[(size_t)idx[r] * C + c];
+    }
   }
+  const int tail = xs0 - C;
+  for (int t = tid; t < Reff * tail; t += nt) {
+    const int r = t / tail, c = t - r * tail;
+    smem[(size_t)r * xs0 + C + c] =
+        c < 3 ? pb[3 * idx[r] + c] - qs[3 * (r / Sp) + c] : 0.f;
+  }
+  cp_async_wait<0>();
   __syncthreads();
 
   const float* wp = params;
   for (int l = 0; l < L; ++l) {
     const int ci = desc.width[l], co = desc.width[l + 1];
     const int kp4 = pad4(ci), K8 = pad8(ci), n8 = pad8(co);
-    const int xs = act_stride(ci), ys = act_stride(co), ns = w_stride(co);
+    const int xs = act_stride(ci), ys = act_stride(co);
     const float* wl = wp;
     const float* bias = wp + (size_t)kp4 * co;
     wp += (size_t)kp4 * co + co;
     const float* X = smem + ((l & 1) ? boff[1] : boff[0]);
     float* Y = smem + ((l & 1) ? boff[0] : boff[1]);
     const bool last = (l == L - 1);
+    const int perm_c = l == 0 ? C : -1;
     const int RG = (Reff + kWarpRows - 1) / kWarpRows;   // row groups
     const int NTT = n8 >> 3;                    // n8 tiles
     const int items = RG * ((NTT + kNT - 1) / kNT);
-    const int nchunks = (K8 + lay.KC - 1) / lay.KC;
     for (int base = 0; base < items; base += nwarps) {
       const int item = base + warp;
       const bool active = item < items;         // warp-uniform
       const int r0 = (item % RG) * kWarpRows;
       const int ct0 = (item / RG) * kNT;
+      // the round's column tiles [cg0, cg1]: only their weights are staged,
+      // in chunks as deep as the chunk buffer allows
+      const int cg0 = base / RG, cg1 = (min(base + nwarps, items) - 1) / RG;
+      const int c0 = cg0 * kTileCols;
+      const int ncol = (cg1 - cg0 + 1) * kTileCols, ns = ncol + 8;
+      const int KC = (lay.wchunk / ns) & ~7;
+      const int nchunks = (K8 + KC - 1) / KC;
       float acc[kMT][kNT][4];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
@@ -525,13 +371,14 @@ fused_sa_tc_kernel(const float* __restrict__ xyz,
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
 
-      const int perm_c = (l == 0 && lay.feat_first) ? C : -1;
-      stage_weights(wl, kp4, co, ns, 0, lay.KC, perm_c, wbuf);
+      stage_weights(wl, kp4, co, c0, ncol, ns, 0, min(KC, K8), perm_c,
+                    wbuf);
       cp_async_commit();
       for (int c = 0; c < nchunks; ++c) {
         if (c + 1 < nchunks) {
-          stage_weights(wl, kp4, co, ns, (c + 1) * lay.KC, lay.KC, perm_c,
-                        wbuf + ((c + 1) & 1) * (size_t)lay.wchunk);
+          const int k1 = (c + 1) * KC;
+          stage_weights(wl, kp4, co, c0, ncol, ns, k1, min(KC, K8 - k1),
+                        perm_c, wbuf + ((c + 1) & 1) * (size_t)lay.wchunk);
           cp_async_commit();
           cp_async_wait<1>();
         } else {
@@ -540,11 +387,11 @@ fused_sa_tc_kernel(const float* __restrict__ xyz,
         __syncthreads();
         if (active) {
           const float* Ws = wbuf + (c & 1) * (size_t)lay.wchunk;
-          const int k0 = c * lay.KC;
-          const int ksteps = min(lay.KC, K8 - k0) >> 3;
+          const int k0 = c * KC;
+          const int ksteps = min(KC, K8 - k0) >> 3;
           // the next step's fragments load while this step's multiply
           const float* xa = X + (size_t)(r0 + g) * xs + k0 + tg;
-          const float* wb = Ws + tg * ns + ct0 * 8 + g;
+          const float* wb = Ws + tg * ns + (ct0 * 8 - c0) + g;
           float ra[kMT][4], rb[kNT][2];
           load_frags(xa, xs, wb, ns, ra, rb);
           for (int ks = 0; ks < ksteps; ++ks) {
@@ -636,61 +483,111 @@ fused_sa_tc_kernel(const float* __restrict__ xyz,
   }
 }
 
-// Sizes the block (Q queries of Sp rows, at most kMaxRows rows, within
-// kTCSmem of shared memory) and the weight chunks, and launches the
-// tensor-core kernel; returns a cudaError_t.
-template <int MODE>
-int launch_fused_sa_tc(const float* xyz, const float* feat,
-                       const float* new_xyz, int B, int P, int C, int M,
-                       float r2, float win, int S, const MLPDesc& d,
-                       const float* params, float* out, void* stream) {
-  if (reinterpret_cast<uintptr_t>(params) & 15)   // cp.async moves 16 bytes
-    return (int)cudaErrorMisalignedAddress;
+struct TCPlan {
+  TCLayout lay;
+  int warps;        // warps a block
+  size_t smem;      // bytes of dynamic shared memory a block
+};
+
+// Floats a row of a staged weight chunk of the widest layer
+int tc_nsmax(const MLPDesc& d) {
+  int ns = 8;
+  for (int l = 1; l <= d.n_layers; ++l)
+    ns = w_cols(d.width[l]) + 8 > ns ? w_cols(d.width[l]) + 8 : ns;
+  return ns;
+}
+
+// Bytes of shared memory a block of layout lay takes: its Q * Sp activation
+// rows (rounded up to whole warp tiles) in both buffers, two weight chunks,
+// the queries and their indices
+size_t tc_smem(const TCLayout& lay) {
+  const size_t rows =
+      (lay.Q * lay.Sp + kWarpRows - 1) / kWarpRows * kWarpRows;
+  return sizeof(float) * (rows * (lay.bufA + lay.bufB) +
+                          2 * (size_t)lay.wchunk + 3 * lay.Q +
+                          (size_t)lay.Q * lay.Sp);
+}
+
+// Warps a block of layout lay takes: one a 32 x 64 output tile of the
+// widest layer, at most max_warps
+int tc_warps(const TCLayout& lay, const MLPDesc& d, int max_warps) {
+  const int RG = (lay.Q * lay.Sp + kWarpRows - 1) / kWarpRows;
+  int warps = 1;
+  for (int l = 1; l <= d.n_layers; ++l) {
+    const int items = RG * (w_cols(d.width[l]) / kTileCols);
+    warps = items > warps ? items : warps;
+  }
+  return warps < max_warps ? warps : max_warps;
+}
+
+// Sizes a launch from the shapes alone. Rows first: the most queries Q of
+// Sp rows (at most kMaxRows rows) a block can take within kTCSmem, so that
+// two blocks share an SM, with the shallowest weight chunks (8 rows of the
+// widest layer's columns); a block that cannot share its SM even with one
+// query takes up to kSmemMax and up to kTCMaxWarps warps instead. Then the
+// chunks grow as deep as the rest allows (at most 32 rows, both within
+// kWChunkBudget). Warps: tc_warps, at most kTCWarps when two blocks share
+// an SM. csrc/bench/fused_sa_layouts.cu times this against other sizings.
+TCPlan plan_tc(int C, int M, int S, const MLPDesc& d, const float* feat) {
   const int* widths = d.width;
   const int L = d.n_layers;
-  TCLayout lay;
+  TCPlan p;
+  TCLayout& lay = p.lay;
   lay.Sp = (S + 15) & ~15;
-  lay.feat_first =
+  lay.feat_async =
       C % 4 == 0 && (reinterpret_cast<uintptr_t>(feat) & 15) == 0 ? 1 : 0;
   int buf[2] = {4, 4};    // layer l reads buffer l % 2
-  int nsmax = 8;
-  for (int l = 0; l < L; ++l) {
+  for (int l = 0; l < L; ++l)
     buf[l & 1] = act_stride(widths[l]) > buf[l & 1] ? act_stride(widths[l])
                                                     : buf[l & 1];
-    nsmax = w_stride(widths[l + 1]) > nsmax ? w_stride(widths[l + 1]) : nsmax;
-  }
   // the last layer writes one row of cout per 16 rows
   const int tile_rows = (widths[L] + 15) / 16;
   buf[L & 1] = tile_rows > buf[L & 1] ? tile_rows : buf[L & 1];
   lay.bufA = buf[0];
   lay.bufB = buf[1];
-  lay.KC = 32;
-  while (lay.KC > 8 && 2 * sizeof(float) * lay.KC * nsmax > kWChunkBudget)
-    lay.KC >>= 1;
+  const int nsmax = tc_nsmax(d);
+  lay.KC = 8;
   lay.wchunk = lay.KC * nsmax;
-  // activation rows rounded up to whole warp tiles
-  auto smem_for = [&](int Q) {
-    const size_t rows = (Q * lay.Sp + kWarpRows - 1) / kWarpRows * kWarpRows;
-    return sizeof(float) * (rows * (lay.bufA + lay.bufB) +
-                            2 * (size_t)lay.wchunk + 3 * Q +
-                            (size_t)Q * lay.Sp);
+  size_t cap = kTCSmem;
+  int max_warps = kTCWarps;
+  auto most_queries = [&] {
+    lay.Q = 64;
+    while (lay.Q > 1 && (lay.Q * lay.Sp > kMaxRows || lay.Q / 2 >= M ||
+                         tc_smem(lay) > cap))
+      lay.Q >>= 1;
   };
-  int Q = 64;
-  while (Q > 1 && (Q * lay.Sp > kMaxRows || Q / 2 >= M || smem_for(Q) > kTCSmem))
-    Q >>= 1;
-  lay.Q = Q;
-  const size_t smem = smem_for(Q);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  // one warp a 32 x 64 output tile of the widest layer, at most kTCWarps
-  const int RG = (Q * lay.Sp + kWarpRows - 1) / kWarpRows;
-  int warps = 1;
-  for (int l = 1; l <= L; ++l) {
-    const int items = RG * ((pad8(widths[l]) / 8 + kNT - 1) / kNT);
-    warps = items > warps ? items : warps;
+  most_queries();
+  if (tc_smem(lay) > cap) {     // alone on its SM
+    cap = kSmemMax;
+    max_warps = kTCMaxWarps;
+    most_queries();
   }
-  warps = warps < kTCWarps ? warps : kTCWarps;
-  const int grid = B * ((M + Q - 1) / Q);
-  int err = ws3d_set_smem((const void*)fused_sa_tc_kernel<MODE>, smem);
+  while (lay.KC < 32) {
+    TCLayout deeper = lay;
+    deeper.KC *= 2;
+    deeper.wchunk = deeper.KC * nsmax;
+    if (tc_smem(deeper) > cap ||
+        2 * sizeof(float) * (size_t)deeper.wchunk > kWChunkBudget)
+      break;
+    lay = deeper;
+  }
+  p.smem = tc_smem(lay);
+  p.warps = tc_warps(lay, d, max_warps);
+  return p;
+}
+
+// Launches mode MODE as planned; returns a cudaError_t.
+template <int MODE>
+int launch_fused_sa_tc(const TCPlan& p, const float* xyz, const float* feat,
+                       const float* new_xyz, const int* given, int B, int P,
+                       int C, int M, float r2, float win, int S,
+                       const MLPDesc& d, const float* params, float* out,
+                       void* stream) {
+  if (reinterpret_cast<uintptr_t>(params) & 15)   // cp.async moves 16 bytes
+    return (int)cudaErrorMisalignedAddress;
+  if (p.smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const int grid = B * ((M + p.lay.Q - 1) / p.lay.Q);
+  int err = ws3d_set_smem((const void*)fused_sa_tc_kernel<MODE>, p.smem);
   // all of the SM's 228 KB to shared memory, so that two blocks fit
   if (!err)
     err = (int)cudaFuncSetAttribute(
@@ -698,8 +595,9 @@ int launch_fused_sa_tc(const float* xyz, const float* feat,
         cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
   if (err) return err;
-  fused_sa_tc_kernel<MODE><<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
-      xyz, feat, new_xyz, P, C, M, r2, win, S, lay, d, params, out);
+  fused_sa_tc_kernel<MODE><<<grid, 32 * p.warps, p.smem,
+                             (cudaStream_t)stream>>>(
+      xyz, feat, new_xyz, given, P, C, M, r2, win, S, p.lay, d, params, out);
   return (int)cudaGetLastError();
 }
 
@@ -734,10 +632,12 @@ WS3D_EXPORT int ws3d_fused_sa(const float* xyz, const float* feat,
   const int err = make_desc(B, P, C, M, S, n_layers, widths, d);
   if (err) return err;
   if (windowed)
-    return launch_fused_sa_tc<kWindow>(xyz, feat, new_xyz, B, P, C, M, r2,
-                                       win, S, d, params, out, stream);
-  return launch_fused_sa<kFull>(xyz, feat, new_xyz, nullptr, B, P, C, M, r2,
-                                S, d, params, out, stream);
+    return launch_fused_sa_tc<kWindow>(plan_tc(C, M, S, d, feat), xyz, feat,
+                                       new_xyz, nullptr, B, P, C, M, r2, win,
+                                       S, d, params, out, stream);
+  return launch_fused_sa_tc<kFull>(plan_tc(C, M, S, d, feat), xyz, feat,
+                                   new_xyz, nullptr, B, P, C, M, r2, 0.f, S,
+                                   d, params, out, stream);
 }
 
 // The same with the indices given: idx (B, M, S) int32, each in [0, P).
@@ -749,6 +649,23 @@ WS3D_EXPORT int ws3d_fused_sa_idx(const float* xyz, const float* feat,
   MLPDesc d;
   const int err = make_desc(B, P, C, M, S, n_layers, widths, d);
   if (err) return err;
-  return launch_fused_sa<kGiven>(xyz, feat, new_xyz, idx, B, P, C, M, 0.f, S,
-                                 d, params, out, stream);
+  return launch_fused_sa_tc<kGiven>(plan_tc(C, M, S, d, feat), xyz, feat,
+                                    new_xyz, idx, B, P, C, M, 0.f, 0.f, S, d,
+                                    params, out, stream);
+}
+
+// The launch either entry makes for these shapes (the same in every mode):
+// plan[0..6] = feature gather by cp.async (1) or scalar loads (0), Q, Sp,
+// KC, warps, bytes of shared memory, blocks. Returns a cudaError_t.
+WS3D_EXPORT int ws3d_fused_sa_plan(int B, int P, int C, int M, int S,
+                                   int n_layers, const int* widths,
+                                   const float* feat, int* plan) {
+  MLPDesc d;
+  const int err = make_desc(B, P, C, M, S, n_layers, widths, d);
+  if (err) return err;
+  const TCPlan p = plan_tc(C, M, S, d, feat);
+  const int v[7] = {p.lay.feat_async, p.lay.Q, p.lay.Sp, p.lay.KC, p.warps,
+                    (int)p.smem, B * ((M + p.lay.Q - 1) / p.lay.Q)};
+  for (int i = 0; i < 7; ++i) plan[i] = v[i];
+  return 0;
 }

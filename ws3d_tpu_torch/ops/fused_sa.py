@@ -6,6 +6,9 @@ ReLU MLP and a max over the S samples. The CUDA source has two entry points
 for it: the windowed one (ws3d_tpu/ops/fused_sa_window_pallas.py) scans only
 the z-window of each query and requires points and queries sorted ascending
 by z; the full one (ws3d_tpu/ops/fused_sa_bq_pallas.py) scans all points.
+Both, and kernel 9's given indices (ops/fused_sa_idx.py), run one routine:
+the search and the gather in exact f32 on the SIMT cores, the MLP on the
+tensor cores in three TF32 passes (3xTF32, about 22 mantissa bits).
 The plain version is the f32 composition of fused_sa_bq_pallas._xla_reference.
 
 FusedSA gives both a backward, for the BN-free stage-2 SA stacks in train
@@ -70,6 +73,24 @@ def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
     name = "fused_sa_window" if window else "fused_sa_full"
     _kernels.raise_on_error(rc, name)
     _kernels.LAUNCHES[name] += 1
+    return out
+
+
+def fused_sa_plan(features, new_xyz, nsample: int, widths) -> dict:
+    """The launch csrc/fused_sa.cu plans for these shapes, in any of its
+    three modes: the feature gather ("cp.async" or "scalar" loads), Q
+    queries of Sp rows a block, KC weight rows a chunk, warps, bytes of
+    shared memory and blocks. Launches nothing."""
+    B, P, C = features.shape
+    w = (_kernels.ctypes.c_int * len(widths))(*widths)
+    plan = (_kernels.ctypes.c_int * 7)()
+    rc = _kernels.library().ws3d_fused_sa_plan(
+        B, P, C, new_xyz.shape[1], int(nsample), len(widths) - 1, w,
+        features.data_ptr(), plan)
+    _kernels.raise_on_error(rc, "fused_sa_plan")
+    out = dict(zip(("gather", "Q", "Sp", "KC", "warps", "smem", "blocks"),
+                   plan))
+    out["gather"] = "cp.async" if out["gather"] else "scalar"
     return out
 
 

@@ -5,9 +5,13 @@ Port of ws3d_tpu/ops/fused_sa_pallas.py: for each query its S given point
 indices, rows [xyz - q, feat], the ReLU MLP and a max over S. The TPU kernel
 gathers with a one-hot bf16 matmul and folds the centre into the first
 layer's bias; the CUDA kernel gathers the f32 rows and subtracts the centre,
-which is the same function. No model path of the JAX package launches
-kernel 9 (only its tests call fused_sa_single_scale), and none of the port
-does: it runs from its own entry point, fused_sa_single_scale.
+which is the same function, and runs the routine of kernels 2 and 3 with the
+caller's indices in place of the ball query: the MLP on the tensor cores in
+three TF32 passes (3xTF32), each row padded from S to a multiple of 16 with
+copies of its slot 0, which leave the max unchanged. No model path of the
+JAX package launches kernel 9 (only its tests call fused_sa_single_scale),
+and none of the port does: it runs from its own entry point,
+fused_sa_single_scale.
 
 Its backward, sa_from_idx_backward, is the JAX VJP of _xla_reference with
 the indices held constant: recompute group -> MLP -> amax under autograd and
