@@ -14,9 +14,12 @@ Phases (any failure exits non-zero; nothing is caught):
      against its plain PyTorch version on the recorded inputs (indices
      exact, floats within the stated tolerance), with CUDA-event times, the
      plain version's time and a roofline bound (the fused SA's: 3x its MLP
-     FLOPs at the TF32 tensor-core peak); print the time and the launch
-     layout (gather, Q, Sp, KC, warps, shared memory) of each launch of
-     kernels 2 and 3, and FPS's time per row class;
+     FLOPs at the TF32 tensor-core peak; kernel 4's: the pairs inside each
+     query's z window on z-sorted clouds, with the dense bound beside it);
+     print the time and the launch layout (gather, Q, Sp, KC, warps, shared
+     memory) of each launch of kernels 2 and 3, the time of each launch of
+     kernel 4, kernel 4 on FP0's inputs shuffled (nothing to prune; held
+     against its plain version) and FPS's time per row class;
   3. the inference path: 16 synthetic scenes at full width with the fitted
      weights (ws3d_tpu/data/bench_weights.npz) through make_two_stage_fn,
      one warm-up and timed batches closed by torch.cuda.synchronize();
@@ -28,7 +31,10 @@ Phases (any failure exits non-zero; nothing is caught):
      fitted stage-1 weights): record every kernel call of one step, forward
      and backward, and hold the ball query (kernel 6) and the 3-NN search
      (kernel 7) against their plain versions on the recorded inputs
-     (indices exact, d2 bit-exact), and the interpolation's backward
+     (indices exact, d2 bit-exact; kernel 6's bound counts the points of
+     each query's z slab, with the index-order scan's bound beside it),
+     print kernel 6's time by launch and on SA0's inputs shuffled (exact
+     against its plain version), and hold the interpolation's backward
      against autograd through its plain forward;
   6. the training path: one warm-up step through Trainer.train_steps, then
      timed steps closed by torch.cuda.synchronize() (steps/s, scenes/s,
@@ -45,8 +51,9 @@ Phases (any failure exits non-zero; nothing is caught):
      query against their plain versions on the recorded inputs; run kernel
      9 (SA with given indices) on each backward's kernel-6 indices against
      its plain version and against the fused kernel's output for the same
-     stage, then drive its entry point fused_sa_single_scale on them; hold
-     the FusedSA backward against autograd through the plain forward;
+     stage (bit-equal), then drive its entry point fused_sa_single_scale on
+     them; hold the FusedSA backward against autograd through the plain
+     forward;
   9. the RCNN training path: one warm-up step through Trainer.train_steps,
      then timed steps closed by torch.cuda.synchronize() (steps/s, crops/s,
      peak memory, finite losses); each step must launch FPS 3, the windowed
@@ -63,10 +70,10 @@ Phases (any failure exits non-zero; nothing is caught):
      interpolation) on the inputs phase 2 recorded from the inference batch:
      kernel 10 at z_window 32, 1 and every tile against kernel 5 and its plain
      version (bit-equal), kernel 8 on the four FP calls against kernel 4
-     (within 1e-5 of the largest magnitude), kernel 7 (indices and d2 exact)
-     and its plain version; then each through its entry point, with its
-     launches counted: crop_gather(z_window=32, center_z=...) and the
-     backbone's FP modules with sorted_points=True;
+     (bit-equal), kernel 7 (indices and d2 exact) and its plain version;
+     then each through its entry point, with its launches counted:
+     crop_gather(z_window=32, center_z=...) and the backbone's FP modules
+     with sorted_points=True;
  13. the proposal-database path (tools/generate_box_dataset's device stage
      and host loop) at full width: 16 synthetic whole scenes of 16,384
      points, the fitted stage-1 weights, K = 64, max_crop 2048, score
@@ -269,7 +276,7 @@ def compare_call(name, args, kw):
         widths = [C + 3] + [int(k.shape[1]) for k in kernels]
         mlp_ops = 2 * B * M * nsample * sum(
             a * b for a, b in zip(widths[:-1], widths[1:]))
-        scanned = _scanned_points(xyz, new_xyz, radius, nsample, window)
+        scanned = _scanned_points(xyz, new_xyz, radius, nsample)
         nbytes = 4 * (B * P * 3 + B * P * C + B * M * 3 + B * M * widths[-1]
                       + sum(k.numel() + b.numel()
                             for k, b in zip(kernels, biases)))
@@ -295,9 +302,18 @@ def compare_call(name, args, kw):
         B, n, _ = unknown.shape
         m, C = feats.shape[1], feats.shape[2]
         nbytes = 4 * (B * n * 3 + B * m * 3 + B * m * C + B * n * C)
-        ops = B * n * m * 10 + B * n * C * 5
+        # the pairs these inputs need tested (~10 operations each): on
+        # z-sorted clouds those inside each query's z window (kernel 8's
+        # search), else every pair; then the weighted three-row sum
+        dense = B * n * m * 10 + B * n * C * 5
+        if _z_sorted(unknown) and _z_sorted(known):
+            ops = (10 * int(interpolate.window_search(unknown, known)[2].sum())
+                   + B * n * C * 5)
+        else:
+            ops = dense
         return ("three_interpolate", err, ms, plain, nbytes, ops,
-                f"B{B} n{n} m{m} C{C}")
+                f"B{B} n{n} m{m} C{C} (dense bound "
+                f"{_bound_ms(nbytes, dense):.4f} ms)")
 
     if name == "crop_gather_cuda":
         xyz, ch, centers, radius, k, grouped, z_window = args
@@ -371,7 +387,8 @@ def compare_call(name, args, kw):
             raise AssertionError("three_interpolate_window d2 differs")
         ref4 = interpolate.three_interpolate_cuda(*args)           # kernel 4
         err4 = (out - ref4).abs().max().item()
-        if not err4 <= 1e-5 * ref4.abs().max().item():
+        # the same neighbours through the same arithmetic: bit-equal
+        if not torch.equal(out, ref4):
             raise AssertionError(f"three_interpolate_window differs from "
                                  f"kernel 4 by {err4}")
         ref = interpolate.three_interpolate_window_plain(*args)
@@ -413,10 +430,15 @@ def compare_call(name, args, kw):
         B, N, _ = xyz.shape
         M = new_xyz.shape[1]
         nbytes = 4 * (B * N * 3 + B * M * 3 + B * M * sum(nsamples))
-        ops = (8 + len(radii)) * _tested_points(radii, nsamples, xyz,
-                                                new_xyz)
+        # the points each query must test: those of its z slab (z term
+        # below its largest r2) up to the reach of an index-order scan
+        tested, slab = _tested_points(radii, nsamples, xyz, new_xyz)
+        ops = (8 + len(radii)) * slab
         return ("ball_query", 0.0, ms, plain, nbytes, ops,
-                f"B{B} N{N} M{M} r{radii} S{nsamples}")
+                f"B{B} N{N} M{M} r{radii} S{nsamples} (index-order bound "
+                f"{_bound_ms(nbytes, (8 + len(radii)) * tested):.4f} ms; "
+                f"{slab / (B * M):.1f} of {tested / (B * M):.1f} points a "
+                f"query in the slab)")
 
     if name == "three_nn_cuda":
         unknown, known = args
@@ -486,16 +508,30 @@ def _crop_windows(xyz, centers, radius, z_window):
     return lo, hi, crop_gather.window_tiles(lo, hi) <= z_window
 
 
-def _tested_points(radii, nsamples, xyz, new_xyz) -> int:
-    """Points the multi-scale ball query must test: per query, up to and
-    including the S_i-th hit of the scale that fills last (all points when
-    a scale does not fill)."""
+def _bound_ms(nbytes, ops) -> float:
+    """The f32 SIMT roofline bound of a call, ms."""
+    return max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
+
+
+def _z_sorted(pts) -> bool:
+    z = pts[..., 2]
+    return bool((z[:, 1:] >= z[:, :-1]).all())
+
+
+def _tested_points(radii, nsamples, xyz, new_xyz):
+    """Points the multi-scale ball query must test: (an index-order scan's,
+    per query up to and including the S_i-th hit of the scale that fills
+    last, all points when a scale does not fill; and of those, the points
+    of the query's z slab: z term fl(fl(qz - z)^2) below its largest r2)."""
     import torch
     from ws3d_tpu_torch.ops.grouping import pairwise_sqdist, radius_sq
     N = xyz.shape[1]
-    total = 0
+    r2max = max(radius_sq(r, xyz.device) for r in radii)
+    pos_n = torch.arange(N, device=xyz.device)
+    total = slab = 0
     for m0 in range(0, new_xyz.shape[1], 256):
-        d2 = pairwise_sqdist(new_xyz[:, m0:m0 + 256], xyz)      # (B, m, N)
+        q = new_xyz[:, m0:m0 + 256]
+        d2 = pairwise_sqdist(q, xyz)                            # (B, m, N)
         reach = None
         for r, k in zip(radii, nsamples):
             cum = torch.cumsum(d2 < radius_sq(r, xyz.device), dim=-1)
@@ -504,37 +540,28 @@ def _tested_points(radii, nsamples, xyz, new_xyz) -> int:
             pos = torch.where(cum[..., -1] >= k, pos, N)
             reach = pos if reach is None else torch.maximum(reach, pos)
         total += int(reach.sum())
-    return total
+        dz = q[..., 2, None] - xyz[:, None, :, 2]
+        slab += int(((dz * dz < r2max) & (pos_n < reach[..., None])).sum())
+    return total, slab
 
 
-def _scanned_points(xyz, new_xyz, radius, nsample, window) -> int:
-    """Points the ball query must test: per query, up to and including the
-    S-th hit inside its scan range ([lo, hi) for the windowed entry)."""
+def _scanned_points(xyz, new_xyz, radius, nsample) -> int:
+    """Points the fused SA's search must test: per query, the points of its
+    z slab (z term below r2) up to and including its S-th hit."""
     import torch
-    from ws3d_tpu_torch.ops import fused_sa
     from ws3d_tpu_torch.ops.grouping import pairwise_sqdist, radius_sq
-    B, P, _ = xyz.shape
+    P = xyz.shape[1]
     r2 = radius_sq(radius, xyz.device)
-    win = radius * (1 + fused_sa._WINDOW_REL) + fused_sa._WINDOW_ABS
     total = 0
     pos = torch.arange(P, device=xyz.device)
     for m0 in range(0, new_xyz.shape[1], 256):
         q = new_xyz[:, m0:m0 + 256]
-        inb = pairwise_sqdist(q, xyz) < r2                     # (B, m, P)
-        if window:
-            z = xyz[..., 2].double().contiguous()
-            qz = q[..., 2].double().contiguous()
-            lo = torch.searchsorted(z, qz - win, side="left")
-            hi = torch.searchsorted(z, qz + win, side="right")
-        else:
-            lo = torch.zeros(q.shape[:2], dtype=torch.long, device=q.device)
-            hi = torch.full_like(lo, P)
-        inr = (pos >= lo[..., None]) & (pos < hi[..., None])
-        cum = torch.cumsum(inb & inr, dim=-1)
+        cum = torch.cumsum(pairwise_sqdist(q, xyz) < r2, dim=-1)
         reach = torch.where(cum[..., -1] >= nsample,
                             torch.searchsorted(cum, torch.full_like(
-                                lo[..., None], nsample))[..., 0] + 1, hi)
-        total += int((reach - lo).clamp(min=0).sum())
+                                cum[..., :1], nsample))[..., 0] + 1, P)
+        dz = q[..., 2, None] - xyz[:, None, :, 2]
+        total += int(((pos < reach[..., None]) & (dz * dz < r2)).sum())
     return total
 
 
@@ -645,7 +672,8 @@ def main() -> int:
         torch.cuda.synchronize()
     per_kernel = {k: _fresh() for k in KERNELS}
     rows = _compare_calls(rec.calls, per_kernel, "inference")
-    for num, key in ((2, "fused_sa_window"), (3, "fused_sa_full")):
+    for num, key in ((2, "fused_sa_window"), (3, "fused_sa_full"),
+                     (4, "three_interpolate")):
         kr = [r for r in rows if r[0] == key]
         print(f"# phase 2: kernel {num} by launch ({len(kr)} a batch): "
               + "; ".join(f"{note} {ms:.4f} ms (bound {b:.4f})"
@@ -658,6 +686,8 @@ def main() -> int:
     # the crop and FP inputs kernels 10 and 8 run on in phase 12
     crop_call = [a for n, a, _ in rec.calls if n == "crop_gather_cuda"][0]
     fp_calls = [a for n, a, _ in rec.calls if n == "three_interpolate_cuda"]
+    print(f"# phase 2: kernel 4 on FP0's inputs shuffled: "
+          f"{_shuffled('three_interpolate_cuda', fp_calls)}", flush=True)
     for key in INFERENCE_KERNELS:
         if per_kernel[key]["ms"] == 0.0:
             raise AssertionError(f"kernel {key} was never called on the "
@@ -784,6 +814,57 @@ def _compare_calls(calls, per_kernel, path: str) -> list:
     return rows
 
 
+def _shuffled(name, calls) -> str:
+    """Kernel 6 or 4 on the largest of its recorded calls with each cloud's
+    points in a random order (the known points with their feature rows),
+    where no chunk can be skipped: held against its plain version on the
+    same shuffled inputs (indices exact; the interpolation within its
+    gate); returns the shape and CUDA-event times of the kernel on the
+    shuffled and on the recorded inputs."""
+    import torch
+    from ws3d_tpu_torch.ops import ball_query, interpolate
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def shuffle(*ts):
+        B, N = ts[0].shape[:2]
+        perm = torch.argsort(torch.rand((B, N), device="cuda",
+                                        generator=gen), dim=1)
+        return [torch.gather(x, 1, perm[..., None].expand(-1, -1, x.shape[2]))
+                .contiguous() for x in ts]
+    if name == "ball_query_multi_cuda":
+        radii, ks, xyz, new_xyz = max(calls, key=lambda a: a[2].shape[1])
+        sxyz, = shuffle(xyz)
+        snew, = shuffle(new_xyz)
+        got = ball_query.ball_query_multi_cuda(radii, ks, sxyz, snew)
+        ref = ball_query.ball_query_multi_plain(radii, ks, sxyz, snew)
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError("ball_query on shuffled inputs differs from "
+                                 "the plain version")
+        shape = f"B{xyz.shape[0]} N{xyz.shape[1]} M{new_xyz.shape[1]}"
+        ms = cuda_ms(lambda: ball_query.ball_query_multi_cuda(
+            radii, ks, sxyz, snew), 5)
+        ms0 = cuda_ms(lambda: ball_query.ball_query_multi_cuda(
+            radii, ks, xyz, new_xyz), 5)
+    else:
+        unknown, known, feats = max(calls, key=lambda a: a[0].shape[1])
+        su, = shuffle(unknown)
+        sk, sf = shuffle(known, feats)
+        got = interpolate.three_interpolate_cuda(su, sk, sf)
+        ref = interpolate.three_interpolate_plain(su, sk, sf)
+        err = (got - ref).abs().max().item()
+        if not err <= 1e-4 + 1e-5 * ref.abs().max().item():
+            raise AssertionError(f"three_interpolate on shuffled inputs "
+                                 f"differs by {err}")
+        shape = (f"B{unknown.shape[0]} n{unknown.shape[1]} m{known.shape[1]} "
+                 f"C{feats.shape[2]}")
+        ms = cuda_ms(lambda: interpolate.three_interpolate_cuda(su, sk, sf),
+                     5)
+        ms0 = cuda_ms(lambda: interpolate.three_interpolate_cuda(
+            unknown, known, feats), 5)
+    return (f"{shape}: {ms:.4f} ms shuffled, {ms0:.4f} ms as recorded "
+            f"(the plain version agrees)")
+
+
 def _fps_one_row(calls) -> str:
     """Kernel 1 on the first row of the batch's largest FPS input: the
     proposal-database path's row class (one scene of 16,384 points, C = 16
@@ -846,7 +927,15 @@ def _train_phases(card, per_kernel) -> dict:
         torch.cuda.synchronize()
     calls = [c for c in rec.calls
              if c[0] in ("ball_query_multi_cuda", "three_nn_cuda")]
-    _compare_calls(calls, per_kernel, "train")
+    rows = _compare_calls(calls, per_kernel, "train")
+    kr = [r for r in rows if r[0] == "ball_query"]
+    print(f"# phase 5: kernel 6 by launch ({len(kr)} a step): "
+          + "; ".join(f"{note.split(' (')[0]} {ms:.4f} ms (bound {b:.4f})"
+                      for _, note, ms, b in kr), flush=True)
+    print(f"# phase 5: kernel 6 on SA0's inputs shuffled: "
+          + _shuffled("ball_query_multi_cuda",
+                      [a for n, a, _ in calls if n == "ball_query_multi_cuda"]),
+          flush=True)
     for key in ("ball_query", "three_nn"):
         if per_kernel[key]["ms"] == 0.0:
             raise AssertionError(f"kernel {key} was never called in a step")
@@ -1046,11 +1135,11 @@ def _stage2_kernels(host_batch, per_kernel) -> dict:
         got = fused_sa_idx.fused_sa_idx_cuda(xyz, feat, new_xyz, idx,
                                              kernels, biases)
         err = (got - fo).abs().max().item()
-        tol = 1e-4 * fo.abs().max().item()
         print(f"#   fused_sa_idx on kernel 6's indices vs the fused kernel "
-              f"(window={window}) S{nsample}: max|diff| {err:.3g} "
-              f"(tol {tol:.3g})", flush=True)
-        if not err <= tol:
+              f"(window={window}) S{nsample}: max|diff| {err:.3g}",
+              flush=True)
+        # the same rows through the same routine: bit-equal
+        if not torch.equal(got, fo):
             raise AssertionError(f"kernel 9 differs from the fused kernel "
                                  f"by {err}")
         idx_calls.append(("fused_sa_idx_cuda",
@@ -1457,7 +1546,7 @@ def _profile(run, ms: float, label: str, unit: str) -> None:
           f"{100 * busy / ms:.1f} % of the {ms:.1f} ms {unit} "
           f"({len(rows)} kernel names)")
     ours = ("fps_warp_kernel", "fps_cluster_kernel", "fused_sa_tc_kernel",
-            "three_interp_kernel",
+            "three_interp_kernel", "chunk_bounds_kernel",
             "crop_gather_kernel", "ball_query_kernel", "three_nn_kernel",
             "ball_query_wrap_kernel", "three_interp_window_kernel")
     rows.sort(key=lambda r: -r[1])

@@ -381,3 +381,131 @@ def test_fused_sa_layouts_bench(dev, tmp_path):
     print(out.stdout)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.splitlines()[-1] == "ok"
+
+
+def _search_cloud(rng, B, N, kind):
+    """Kernels 6 and 4 inputs of a kind, sorted by z but for "shuffled":
+    LiDAR-like scenes ("sorted", "shuffled"), every z equal ("single_z"),
+    or points on a 1/8 grid in [-1, 1]^3 ("boundary": many repeated points,
+    and many pairs at a d2 of exactly 0.25, r 0.5's r2)."""
+    u = rng.rand(B, N, 4).astype(np.float32)
+    z = 70.0 * u[..., 0] * u[..., 1] + 2.0
+    x = (u[..., 2] - 0.5) * (0.2 + 1.4 * z)
+    y = np.where(u[..., 3] < 0.6, 1.7 + 0.05 * rng.randn(B, N),
+                 1.7 - 2.0 * rng.rand(B, N))
+    pts = np.stack([x, y, z], -1).astype(np.float32)
+    if kind == "single_z":
+        pts[..., 2] = 7.0
+        pts[..., :2] *= 0.05
+    elif kind == "boundary":
+        pts = (rng.randint(-8, 9, (B, N, 3)) * 0.125).astype(np.float32)
+    pts = pts[np.arange(B)[:, None], np.argsort(pts[..., 2], axis=1,
+                                                 kind="stable")]
+    if kind == "shuffled":
+        pts = pts[np.arange(B)[:, None],
+                  np.stack([rng.permutation(N) for _ in range(B)])]
+    return np.ascontiguousarray(pts)
+
+
+SEARCH_KINDS = ["sorted", "shuffled", "single_z", "boundary"]
+
+
+@pytest.mark.parametrize("kind", SEARCH_KINDS)
+@pytest.mark.parametrize("N,M,radii,ks", [
+    (16384, 4096, [0.1, 0.5], [16, 32]),      # stage-1 SA0
+    (4096, 1024, [0.5, 1.0], [16, 32]),       # stage-1 SA1
+    (1000, 250, [1.0, 2.0], [16, 32]),        # SA2-like, N % 32 != 0
+    (130, 33, [1.0], [64]),                   # RCNN SA2-like, ragged
+])
+def test_ball_query_pruned(dev, rng, kind, N, M, radii, ks):
+    """Kernel 6's staged, pruned scan equals the plain version exactly on
+    sorted, shuffled, single-z and radius-boundary clouds at the stage-1
+    shapes (2 scenes) and at point counts that are not a multiple of the
+    chunk, with an empty ball in every row."""
+    from ws3d_tpu_torch.ops.ball_query import (ball_query_multi_cuda,
+                                               ball_query_multi_plain)
+    xyz = _search_cloud(rng, 2, N, kind)
+    new_xyz = np.ascontiguousarray(xyz[:, ::N // M][:, :M])
+    new_xyz[:, M // 2] = 500.0
+    if kind == "shuffled":
+        new_xyz = np.ascontiguousarray(new_xyz[:, rng.permutation(M)])
+    args = [torch.from_numpy(a).to(dev) for a in (xyz, new_xyz)]
+    got = ball_query_multi_cuda(radii, ks, *args)
+    ref = ball_query_multi_plain(radii, ks, *args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("kind", SEARCH_KINDS)
+@pytest.mark.parametrize("n_u,m,C", [
+    (16384, 4096, 128),                       # FP0
+    (4096, 1024, 256),                        # FP1
+    (1000, 250, 64),                          # m % 32 != 0
+    (300, 2, 16),                             # m < 3
+])
+def test_interpolate_pruned(dev, rng, kind, n_u, m, C):
+    """Kernel 4's staged, pruned search within the chip_smoke gate
+    (1e-4 + 1e-5 max|ref|) of the plain version, on kernel 7's neighbours,
+    and bit-equal to kernel 8 where both clouds are sorted by z."""
+    from ws3d_tpu_torch.ops.interpolate import (
+        _weighted_rows, three_interpolate_cuda, three_interpolate_plain,
+        three_interpolate_window_cuda, three_nn_cuda)
+    unknown = _search_cloud(rng, 2, n_u, kind)
+    known = np.ascontiguousarray(unknown[:, ::max(n_u // m, 1)][:, :m])
+    if kind == "shuffled":
+        known = np.ascontiguousarray(known[:, rng.permutation(m)])
+    feats = rng.randn(2, m, C).astype(np.float32)
+    u, k, f = (torch.from_numpy(a).to(dev) for a in (unknown, known, feats))
+    got = three_interpolate_cuda(u, k, f)
+    ref = three_interpolate_plain(u, k, f)
+    err = float((got - ref).abs().max())
+    assert err <= 1e-4 + 1e-5 * float(ref.abs().max()), err
+    d2, idx = three_nn_cuda(u, k)
+    if kind != "shuffled":
+        assert torch.equal(got, three_interpolate_window_cuda(u, k, f))
+    # the neighbours are kernel 7's: the plain weights on them agree too
+    err7 = float((_weighted_rows(f, d2, idx) - got).abs().max())
+    assert err7 <= 1e-4 + 1e-5 * float(ref.abs().max()), err7
+
+
+def test_fused_sa_full_shuffled(dev, rng):
+    """Kernel 3's search is kernel 6's: on a shuffled cloud (nothing to
+    skip) at backbone SA1's width it holds the gate 1e-3 + 1e-4 max|ref|
+    against the plain version, and kernel 9 on kernel 6's indices equals
+    it bit for bit."""
+    from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda, fused_sa_plain
+    from ws3d_tpu_torch.ops.fused_sa_idx import fused_sa_idx_cuda
+    from ws3d_tpu_torch.ops.grouping import ball_query
+    xyz = _search_cloud(rng, 2, 4096, "shuffled")
+    feat = rng.rand(2, 4096, 96).astype(np.float32)
+    new_xyz = np.ascontiguousarray(xyz[:, rng.permutation(4096)[:203]])
+    ks, bs = random_mlp(rng, 99, [64, 64, 128])
+    ks = [k * 0.3 for k in ks]
+    args = [torch.from_numpy(a).to(dev) for a in (xyz, feat, new_xyz)]
+    ks = [torch.from_numpy(k).to(dev) for k in ks]
+    bs = [torch.from_numpy(b).to(dev) for b in bs]
+    for r, S in ((0.5, 16), (1.0, 32)):
+        got = fused_sa_cuda(*args, r, S, ks, bs, False)
+        ref = fused_sa_plain(*args, r, S, ks, bs)
+        err = float((got - ref).abs().max())
+        assert err <= 1e-3 + 1e-4 * float(ref.abs().max()), (S, err)
+        idx = ball_query(r, S, args[0], args[2])
+        assert torch.equal(fused_sa_idx_cuda(*args, idx, ks, bs), got)
+
+
+def test_neighbour_search_bench(dev, tmp_path):
+    """csrc/bench/neighbour_search.cu builds and passes its own checks:
+    kernels 6 and 4 give the outputs of the index-order searches they
+    replaced bit for bit at every main-path launch shape, sorted and
+    shuffled, and kernel 6's first row matches a host ball query."""
+    import subprocess
+    from ws3d_tpu_torch.ops import _kernels
+    src = _kernels.CSRC / "bench" / "neighbour_search.cu"
+    exe = tmp_path / "neighbour_search"
+    subprocess.run([_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-Xcompiler", "-ffp-contract=off",
+                    "-o", str(exe), str(src)], check=True)
+    out = subprocess.run([str(exe)], capture_output=True, text=True)
+    print(out.stdout)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.splitlines()[-1] == "ok"

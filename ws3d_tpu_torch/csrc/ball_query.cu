@@ -11,19 +11,34 @@
 // the rank of a hit is a warp ballot + popc, and no distance block exists.
 //
 // What bounds it on the H100: the distance tests, about 8 + n_scales
-// operations per point tested, against 12 bytes a point read (from L1/L2:
-// a scene's points are at most 196 KB) and the index bytes written. At the
-// backbone's SA-1 shape (16 x 4096 queries over 16384 points, r = 0.1 with
-// S = 16 and r = 0.5 with S = 32) the small radius rarely fills, so most
-// queries test every point: the operations bound it.
+// operations a point tested, against 12 bytes a point read and the index
+// bytes written. An index-order scan tests every point up to the S_i-th hit
+// of the scale that fills last; at the backbone's SA-1 shape (16 x 4096
+// queries over 16384 points, r = 0.1 with S = 16 and r = 0.5 with S = 32)
+// hardly any ball fills, so that scan tests all 16384 points a query. But
+// the clouds of the main path are sorted by z (cfg.TPU.SORT_POINTS_Z, and
+// every SA stage re-sorts its picks), so a query's in-ball points lie in a
+// thin z slab: a few hundred of the 16384 at SA-1. Only those need testing.
 //
-// Design: one warp per query (8 a block) scans the points in ascending
-// index, 32 at a time, computes d2 once (sqdist3: term-rounded, as the
-// plain version) and tests it against every scale, ranks each scale's hits
-// with ballot + popc, and stops once every scale holds its S_i hits
-// (warp_ball_query in common.cuh, shared with the fused SA kernel). The rows
-// are built in shared memory and written out coalesced. The JAX kernel scans
-// all points too; a z-window over the sorted cloud is later work.
+// Design: a pre-pass writes each 32-point chunk's z range into the
+// workspace the wrapper allocates (launch_chunk_bounds, in search.cuh); then
+// a block of 8 warps takes 16 consecutive queries, 2 a warp, and runs
+// block_ball_query (search.cuh, shared with the fused SA, kernels 2 and 3):
+// warp 0 walks the chunks in ascending index and stages those that any
+// query may still need (the chunk's z term from the block's query z range
+// below the largest r2 still unfilled) into a ring of shared-memory tiles
+// with cp.async, a tile ahead, while every warp tests the tile that has
+// arrived. A warp skips a chunk for a query whose own z term reaches the r2
+// of every unfilled scale of that query; a skipped chunk holds no hit, so
+// the ascending-index ranks (ballot + popc) and the early stop are those of
+// the full scan, on any input. Each staged point is read from shared memory
+// once for the warp's 2 queries. d2 is sqdist3 (term-rounded, as the plain
+// version). The rows are built in shared memory and written out coalesced.
+// On an unsorted cloud every chunk spans the z range and nothing is
+// skipped: the block then reads each point from global memory once for 16
+// queries, where the index-order scan read it once a query. 2 queries a
+// warp: csrc/bench/neighbour_search.cu measures 1 and 4 too; 2 is fastest
+// at the stage-1 launches, 4 at the RCNN step's SA0 and SA1.
 //
 // Kernel 6w, the same TPU kernel's wrap_pad mode (wrap_pad=True in
 // ball_query_pallas; _bev_first_k_wrap_batched in the JAX pipeline, and here
@@ -37,42 +52,87 @@
 // the crop kernels); the first min(cnt, S) member indices stay in shared
 // memory (8 KB at S = 2048) and the block writes the S slots coalesced.
 // All scales go in one launch, one scan per scale.
-#include "common.cuh"
+#include <stdint.h>
+
+#include "search.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // queries per block
+constexpr int kBQWarps = 8;
+constexpr int kBQPerWarp = 2;                          // queries a warp
 
 struct BQOut {
   int* out[kMaxScales];  // per scale (B, M, S_i) int32
 };
 
-__global__ void __launch_bounds__(kWarps * 32)
+// Kernel 6: a block of kBQWarps warps takes kBQWarps * kQW consecutive
+// queries of one batch row.
+template <int kQW>
+__global__ void __launch_bounds__(kBQWarps * 32)
 ball_query_kernel(const float* __restrict__ xyz,
-                  const float* __restrict__ new_xyz, int BM, int N, int M,
-                  BallScales sc, BQOut o, int row_len) {
-  extern __shared__ int srows[];  // kWarps * row_len
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q = blockIdx.x * kWarps + warp;  // (b, m) flattened
-  if (q >= BM) return;                       // whole warp
-  const int b = q / M;
-  const float qx = new_xyz[3 * (size_t)q], qy = new_xyz[3 * (size_t)q + 1],
-              qz = new_xyz[3 * (size_t)q + 2];
-  int* rows[kMaxScales];
-  int off = warp * row_len;
+                  const float* __restrict__ new_xyz,
+                  const float2* __restrict__ bounds, int N, int M,
+                  BallScales sc, BQOut o, int row_len, int a16) {
+  constexpr int kQueries = kBQWarps * kQW;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const TileRing ring = ring_at(smem);
+  float* qs = smem + kRingFloats;                          // 3 a query
+  int* srows = reinterpret_cast<int*>(qs + 3 * kQueries);  // row_len a query
+  const int groups = (M + kQueries - 1) / kQueries;
+  const int b = blockIdx.x / groups;
+  const int q0 = (blockIdx.x % groups) * kQueries;
+  const int nq = min(kQueries, M - q0);
+  for (int t = threadIdx.x; t < 3 * nq; t += blockDim.x)
+    qs[t] = new_xyz[((size_t)b * M + q0) * 3 + t];
+  __syncthreads();
+  BallRows rows;
+  rows.base = srows;
+  rows.stride = row_len;
+  int off = 0;
 #pragma unroll
   for (int s = 0; s < kMaxScales; ++s) {
-    rows[s] = srows + off;
+    rows.off[s] = off;
     if (s < sc.n) off += sc.S[s];
   }
-  warp_ball_query(xyz + (size_t)b * N * 3, 0, N, qx, qy, qz, sc, rows);
+  block_ball_query<kQW>(xyz + (size_t)b * N * 3, N,
+                        bounds + (size_t)b * n_chunks(N), a16 != 0, qs, nq,
+                        sc, rows, ring);
+  __syncthreads();
 #pragma unroll
   for (int s = 0; s < kMaxScales; ++s) {
     if (s < sc.n) {
-      int* dst = o.out[s] + (size_t)q * sc.S[s];
-      for (int k = lane; k < sc.S[s]; k += 32) dst[k] = rows[s][k];
+      const int S = sc.S[s];
+      int* dst = o.out[s] + ((size_t)b * M + q0) * S;
+      for (int t = threadIdx.x; t < nq * S; t += blockDim.x) {
+        const int q = t / S;
+        dst[t] = srows[q * row_len + rows.off[s] + (t - q * S)];
+      }
     }
   }
+}
+
+// Launches kernel 6 with kQW queries a warp after the pre-pass; returns a
+// cudaError_t.
+template <int kQW>
+int launch_ball_query(const float* xyz, const float* new_xyz, int B, int N,
+                      int M, const BallScales& sc, const BQOut& o,
+                      int row_len, float2* bounds, cudaStream_t st) {
+  constexpr int kQueries = kBQWarps * kQW;
+  const size_t smem = sizeof(float) * (kRingFloats + 3 * kQueries +
+                                       (size_t)kQueries * row_len);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  int err = 0;
+  if (smem > 48 * 1024)
+    err = ws3d_set_smem((const void*)ball_query_kernel<kQW>, smem);
+  if (!err) err = launch_chunk_bounds(xyz, B, N, bounds, st);
+  if (err) return err;
+  const int a16 =
+      (reinterpret_cast<uintptr_t>(xyz) & 15) == 0 && N % 4 == 0 ? 1 : 0;
+  const long long grid = (long long)B * ((M + kQueries - 1) / kQueries);
+  ball_query_kernel<kQW><<<(unsigned)grid, kBQWarps * 32, smem, st>>>(
+      xyz, new_xyz, bounds, N, M, sc, o, row_len, a16);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kWrapThreads = 256;
@@ -145,11 +205,12 @@ WS3D_EXPORT int ws3d_ball_query_wrap(const float* xyz, const float* new_xyz,
 }
 
 // xyz (B, N, 3), new_xyz (B, M, 3) f32; r2[s] and nsample[s] for n_scales
-// scales; outs[s] a (B, M, nsample[s]) int32 device buffer.
+// scales; outs[s] a (B, M, nsample[s]) int32 device buffer; bounds a
+// workspace of B * n_chunks(N) float2 (the pre-pass writes it).
 WS3D_EXPORT int ws3d_ball_query(const float* xyz, const float* new_xyz, int B,
                                 int N, int M, int n_scales, const float* r2,
                                 const int* nsample, void* const* outs,
-                                void* stream) {
+                                void* bounds, void* stream) {
   if (B <= 0 || N <= 0 || M <= 0 || n_scales < 1 || n_scales > kMaxScales)
     return (int)cudaErrorInvalidValue;
   BallScales sc;
@@ -165,11 +226,6 @@ WS3D_EXPORT int ws3d_ball_query(const float* xyz, const float* new_xyz, int B,
       row_len += nsample[s];
     }
   }
-  const size_t smem = (size_t)kWarps * row_len * sizeof(int);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const long long BM = (long long)B * M;
-  const int grid = (int)((BM + kWarps - 1) / kWarps);
-  ball_query_kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      xyz, new_xyz, (int)BM, N, M, sc, o, row_len);
-  return (int)cudaGetLastError();
+  return launch_ball_query<kBQPerWarp>(xyz, new_xyz, B, N, M, sc, o, row_len,
+                                       (float2*)bounds, (cudaStream_t)stream);
 }

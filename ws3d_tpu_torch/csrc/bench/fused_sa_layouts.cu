@@ -110,19 +110,22 @@ TCPlan one_per_sm(TCPlan p, const MLPDesc& d, int M, int max_warps) {
   return p;
 }
 
+// bounds: the searching modes' chunk workspace, B * n_chunks(P) float2
 int launch(int mode, const TCPlan& p, const float* xyz, const float* feat,
            const float* q, const int* idx, const Shape& s, float r2,
-           float win, const MLPDesc& d, const float* params, float* out) {
+           const MLPDesc& d, const float* params, float* out,
+           float2* bounds) {
   if (mode == kWindow)
     return launch_fused_sa_tc<kWindow>(p, xyz, feat, q, nullptr, s.B, s.P,
-                                       s.C, s.M, r2, win, s.S, d, params, out,
-                                       nullptr);
+                                       s.C, s.M, r2, s.S, d, params, out,
+                                       bounds, nullptr);
   if (mode == kFull)
     return launch_fused_sa_tc<kFull>(p, xyz, feat, q, nullptr, s.B, s.P, s.C,
-                                     s.M, r2, 0.f, s.S, d, params, out,
+                                     s.M, r2, s.S, d, params, out, bounds,
                                      nullptr);
   return launch_fused_sa_tc<kGiven>(p, xyz, feat, q, idx, s.B, s.P, s.C, s.M,
-                                    0.f, 0.f, s.S, d, params, out, nullptr);
+                                    0.f, s.S, d, params, out, nullptr,
+                                    nullptr);
 }
 
 // the first S points of each query's ball in ascending index, padded with
@@ -204,7 +207,6 @@ int main() {
       for (int c = 0; c < co; ++c) params.push_back(0.1f * normal(gen));
     }
     const float r2 = (float)((double)s.radius * s.radius);
-    const float win = s.radius * (1.f + 1e-5f) + 1e-6f;
     std::vector<int> hidx;
     if (s.mode == kGiven) {
       std::uniform_int_distribution<int> pick(0, s.P - 1);
@@ -221,6 +223,8 @@ int main() {
     const size_t n_out = (size_t)s.B * s.M * s.w[2];
     float* dout;
     CHECK(cudaMalloc(&dout, n_out * sizeof(float)));
+    float2* dbounds;
+    CHECK(cudaMalloc(&dbounds, (size_t)s.B * n_chunks(s.P) * sizeof(float2)));
     std::vector<float> ref(n_out), got(n_out);
 
     const TCPlan kept = plan_tc(s.C, s.M, s.S, d, dfeat);
@@ -232,12 +236,12 @@ int main() {
                 s.S, s.mode == kWindow ? "window" : s.mode == kFull ? "full"
                                                                    : "given");
     auto time_plan = [&](int mode, const TCPlan& p) {
-      CHECK(launch(mode, p, dxyz, dfeat, dq, didx, s, r2, win, d, dparams,
-                   dout));
+      CHECK(launch(mode, p, dxyz, dfeat, dq, didx, s, r2, d, dparams, dout,
+                   dbounds));
       CHECK(cudaEventRecord(e0));
       for (int k = 0; k < 5; ++k)
-        CHECK(launch(mode, p, dxyz, dfeat, dq, didx, s, r2, win, d, dparams,
-                     dout));
+        CHECK(launch(mode, p, dxyz, dfeat, dq, didx, s, r2, d, dparams, dout,
+                     dbounds));
       CHECK(cudaEventRecord(e1));
       CHECK(cudaEventSynchronize(e1));
       float ms = 0.f;
@@ -267,7 +271,7 @@ int main() {
     }
     std::printf("\n");
     for (void* p : {(void*)dxyz, (void*)dq, (void*)dfeat, (void*)dparams,
-                    (void*)didx, (void*)dout})
+                    (void*)didx, (void*)dout, (void*)dbounds})
       CHECK(cudaFree(p));
   }
   std::printf("%s\n", ok ? "ok" : "FAILED");

@@ -21,6 +21,28 @@ __device__ __forceinline__ float sqdist2(float dx, float dz) {
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dz, dz));
 }
 
+// 16-byte (cg) and 4- or 8-byte (ca) asynchronous copies into shared memory
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // Opt a kernel in to `bytes` of dynamic shared memory (needed above the 48 KB
 // default, which also counts the kernel's static shared memory).
 static inline int ws3d_set_smem(const void* kernel, size_t bytes) {
@@ -65,7 +87,7 @@ __device__ __forceinline__ int block_rank_scan(int lo, int hi, Member member,
   return running;
 }
 
-// ---- ball query: shared by ball_query.cu and fused_sa.cu -------------------
+// ---- ball query scales: ball_query.cu (kernels 6, 6w) and fused_sa.cu ------
 
 constexpr int kMaxScales = 4;
 
@@ -74,50 +96,6 @@ struct BallScales {
   float r2[kMaxScales];  // f32 rounding of the double product radius * radius
   int S[kMaxScales];     // samples per scale
 };
-
-// One warp scans points [lo, hi) of `pts` ((x, y, z) rows) in ascending
-// index, 32 at a time, computes each d2 once and tests it against every
-// scale. rows[s] receives the first S[s] indices with d2 < r2[s], padded with
-// the first hit, all 0 when the ball is empty. The scan stops once every
-// scale has its S hits. All 32 lanes call it with the same arguments.
-__device__ __forceinline__ void warp_ball_query(
-    const float* __restrict__ pts, int lo, int hi, float qx, float qy,
-    float qz, const BallScales& sc, int* const* rows) {
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  int cnt[kMaxScales];
-#pragma unroll
-  for (int s = 0; s < kMaxScales; ++s) cnt[s] = 0;
-  bool full = false;
-  for (int base = lo; base < hi && !full; base += 32) {
-    const int j = base + lane;
-    const float d = j < hi ? sqdist3(qx - pts[3 * j], qy - pts[3 * j + 1],
-                                     qz - pts[3 * j + 2])
-                           : __int_as_float(0x7f800000);
-    full = true;
-#pragma unroll
-    for (int s = 0; s < kMaxScales; ++s) {
-      if (s < sc.n) {  // warp-uniform
-        const bool in = d < sc.r2[s];
-        const unsigned m = __ballot_sync(0xffffffffu, in);
-        const int rank = cnt[s] + __popc(m & below);
-        if (in && rank < sc.S[s]) rows[s][rank] = j;
-        cnt[s] += __popc(m);
-        full = full && cnt[s] >= sc.S[s];
-      }
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int s = 0; s < kMaxScales; ++s) {
-    if (s < sc.n) {
-      const int n = min(cnt[s], sc.S[s]);
-      const int first = n > 0 ? rows[s][0] : 0;
-      for (int k = n + lane; k < sc.S[s]; k += 32) rows[s][k] = first;
-    }
-  }
-  __syncwarp();
-}
 
 // ---- 3-NN search: shared by three_nn.cu and interpolate.cu -----------------
 

@@ -21,13 +21,20 @@
 // function.
 //
 // The modes differ only in where a query's indices come from, and that runs
-// on the SIMT cores in exact f32: one warp per query scans points in
-// ascending index with ballot + popc ranks and stops after S hits (kWindow
-// binary-searches [lo, hi) in the sorted z first, kFull scans [0, P)); kGiven
-// copies the caller's row, clamped into [0, P). Geometry never enters a
-// product. A block takes Q queries x Sp rows: Sp = S rounded up to 16, slots
-// S..Sp-1 repeating slot 0 (duplicates leave the max unchanged), so every
-// m16 tile is one query's rows.
+// on the SIMT cores in exact f32. kFull and kWindow run kernel 6's staged
+// search (block_ball_query, search.cuh): the launch's pre-pass writes the
+// z range of each 32-point chunk, the block stages the chunks its queries
+// may need through its activation buffers (free until the gather) with
+// cp.async, and a warp skips a chunk whose z term reaches r2 for its query;
+// hits are ranked in ascending index with ballot + popc and a query stops
+// after S. On a z-sorted cloud that leaves the query's z slab, which is
+// what kWindow's window was (a binary-searched z range at least r wide,
+// holding every in-ball point), so the two modes share the search and
+// kWindow needs no window argument; on any cloud the search is exact.
+// kGiven copies the caller's row, clamped into [0, P). Geometry never
+// enters a product. A block takes Q queries x Sp rows: Sp = S rounded up
+// to 16, slots S..Sp-1 repeating slot 0 (duplicates leave the max
+// unchanged), so every m16 tile is one query's rows.
 //
 // What bounds it on the H100: the MLP's FLOPs (2 * B*M*S * sum ci*co; ~1.7
 // TFLOP per inference batch over the three modes' launches), far above the
@@ -63,13 +70,18 @@
 // loads: no atomics.
 #include <stdint.h>
 
-#include "common.cuh"
+#include "search.cuh"
 
 namespace {
 
 constexpr int kMaxLayers = 4;
 
 enum Mode { kFull = 0, kWindow = 1, kGiven = 2 };
+
+// queries a warp of the search (kFull, kWindow): Q * Sp rows with Sp >= 16
+// fill at least Q / 2 warp tiles, and plan_tc gives a block at least that
+// many warps (up to 4), so no warp takes more than 2 queries
+constexpr int kSearchQW = 2;
 
 struct MLPDesc {
   int n_layers;
@@ -80,62 +92,42 @@ struct MLPDesc {
 __host__ __device__ __forceinline__ int pad4(int c) { return (c + 3) & ~3; }
 __host__ __device__ __forceinline__ int pad8(int c) { return (c + 7) & ~7; }
 
-__device__ __forceinline__ int lower_bound_z(const float* pts, int P,
-                                             double key) {
-  int lo = 0, hi = P;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((double)pts[3 * mid + 2] < key) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ int upper_bound_z(const float* pts, int P,
-                                             double key) {
-  int lo = 0, hi = P;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((double)pts[3 * mid + 2] <= key) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
 // The block's nq queries' indices, `row` slots each in idx: kGiven copies
 // the first S from the caller's rows (gb, S a row) clamped into [0, P) (the
 // wrapper's contract is that they already are; the clamp only keeps a bad
-// one in bounds); kFull and kWindow take them from the ball query (one warp
-// per query). Slots S..row-1 repeat slot 0.
+// one in bounds); kFull and kWindow take them from block_ball_query
+// (search.cuh, kernel 6's search: chunks staged through `scratch`,
+// kRingFloats floats of shared memory, and skipped by their z range, whose
+// bounds the launch's pre-pass wrote). Slots S..row-1 repeat slot 0.
 template <int MODE>
 __device__ __forceinline__ void block_indices(const float* __restrict__ pb,
                                               int P, const float* qs, int nq,
-                                              float r2, float win, int S,
+                                              float r2, int S,
                                               const int* __restrict__ gb,
+                                              const float2* __restrict__ bounds,
+                                              int a16, float* scratch,
                                               int row, int* idx) {
   if constexpr (MODE == kGiven) {
     for (int t = threadIdx.x; t < nq * row; t += blockDim.x) {
       const int q = t / row, k = t - q * row;
       idx[t] = min(max(gb[(size_t)q * S + (k < S ? k : 0)], 0), P - 1);
     }
-    return;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  BallScales sc;
-  sc.n = 1;
-  sc.r2[0] = r2;
-  sc.S[0] = S;
-  for (int qi = warp; qi < nq; qi += blockDim.x >> 5) {
-    const float qx = qs[3 * qi], qy = qs[3 * qi + 1], qz = qs[3 * qi + 2];
-    int lo = 0, hi = P;
-    if (MODE == kWindow) {
-      lo = lower_bound_z(pb, P, (double)qz - (double)win);
-      hi = upper_bound_z(pb, P, (double)qz + (double)win);
+  } else {
+    BallScales sc;
+    sc.n = 1;
+    sc.r2[0] = r2;
+    sc.S[0] = S;
+    BallRows rows;
+    rows.base = idx;
+    rows.stride = row;
+    rows.off[0] = 0;
+    block_ball_query<kSearchQW>(pb, P, bounds, a16 != 0, qs, nq, sc, rows,
+                                ring_at(scratch));
+    __syncthreads();
+    for (int t = threadIdx.x; t < nq * (row - S); t += blockDim.x) {
+      const int q = t / (row - S);
+      idx[q * row + S + (t - q * (row - S))] = idx[q * row];
     }
-    int* rows[kMaxScales] = {idx + qi * row};
-    warp_ball_query(pb, lo, hi, qx, qy, qz, sc, rows);
-    for (int k = S + lane; k < row; k += 32) rows[0][k] = rows[0][0];
-    __syncwarp();
   }
 }
 
@@ -171,6 +163,16 @@ struct TCLayout {
   int feat_async;   // feature rows by 16-byte cp.async (C % 4 == 0, aligned)
 };
 
+// Floats at the front of a block's shared memory: its Q * Sp activation
+// rows (rounded up to whole warp tiles) in both buffers; the search of
+// kFull and kWindow stages its tiles there first, so at least kRingFloats.
+__host__ __device__ __forceinline__ size_t act_floats(const TCLayout& lay) {
+  const size_t rows =
+      (lay.Q * lay.Sp + kWarpRows - 1) / kWarpRows * kWarpRows;
+  const size_t f = rows * (lay.bufA + lay.bufB);
+  return f > (size_t)kRingFloats ? f : (size_t)kRingFloats;
+}
+
 // rna_tf32(x): x rounded to the nearest TF32, ties away from zero, low 13
 // bits 0: cvt.rna.tf32.f32's rounding, bit for bit on finite x, done with
 // two integer ops (half a magnitude ulp added, then truncated), which run
@@ -194,21 +196,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // Stage weight rows [k0, k0 + rows) and columns [c0, c0 + ncol) of a layer
@@ -274,7 +261,8 @@ fused_sa_tc_kernel(const float* __restrict__ xyz,
                    const float* __restrict__ feat,
                    const float* __restrict__ new_xyz,
                    const int* __restrict__ given, int P, int C, int M,
-                   float r2, float win, int S, TCLayout lay, MLPDesc desc,
+                   float r2, int S, TCLayout lay, MLPDesc desc,
+                   const float2* __restrict__ bounds, int a16,
                    const float* __restrict__ params,
                    float* __restrict__ out) {
   extern __shared__ float4 smem4[];
@@ -294,7 +282,8 @@ fused_sa_tc_kernel(const float* __restrict__ xyz,
   // activation buffer l % 2 at smem + boff[l % 2] (offsets, not a pointer
   // array, so the compiler keeps shared-memory loads)
   const int boff[2] = {0, R * lay.bufA};
-  float* wbuf = smem + R * (lay.bufA + lay.bufB);   // two weight chunks
+  // two weight chunks after the activations (or the search's ring)
+  float* wbuf = smem + act_floats(lay);
   float* qs = wbuf + 2 * (size_t)lay.wchunk;
   int* idx = reinterpret_cast<int*>(qs + 3 * Q);
 
@@ -303,10 +292,12 @@ fused_sa_tc_kernel(const float* __restrict__ xyz,
   for (int t = tid; t < nq * 3; t += nt)
     qs[t] = new_xyz[((size_t)b * M + q0) * 3 + t];
   __syncthreads();
-  block_indices<MODE>(pb, P, qs, nq, r2, win, S,
+  block_indices<MODE>(pb, P, qs, nq, r2, S,
                       MODE == kGiven ? given + ((size_t)b * M + q0) * S
                                      : nullptr,
-                      Sp, idx);
+                      MODE == kGiven ? nullptr
+                                     : bounds + (size_t)b * n_chunks(P),
+                      a16, smem, Sp, idx);
   __syncthreads();
 
   // gather rows [feat, xyz - q, zeros up to K8]
@@ -497,15 +488,11 @@ int tc_nsmax(const MLPDesc& d) {
   return ns;
 }
 
-// Bytes of shared memory a block of layout lay takes: its Q * Sp activation
-// rows (rounded up to whole warp tiles) in both buffers, two weight chunks,
-// the queries and their indices
+// Bytes of shared memory a block of layout lay takes: act_floats, two weight
+// chunks, the queries and their indices
 size_t tc_smem(const TCLayout& lay) {
-  const size_t rows =
-      (lay.Q * lay.Sp + kWarpRows - 1) / kWarpRows * kWarpRows;
-  return sizeof(float) * (rows * (lay.bufA + lay.bufB) +
-                          2 * (size_t)lay.wchunk + 3 * lay.Q +
-                          (size_t)lay.Q * lay.Sp);
+  return sizeof(float) * (act_floats(lay) + 2 * (size_t)lay.wchunk +
+                          3 * lay.Q + (size_t)lay.Q * lay.Sp);
 }
 
 // Warps a block of layout lay takes: one a 32 x 64 output tile of the
@@ -580,12 +567,20 @@ TCPlan plan_tc(int C, int M, int S, const MLPDesc& d, const float* feat) {
 template <int MODE>
 int launch_fused_sa_tc(const TCPlan& p, const float* xyz, const float* feat,
                        const float* new_xyz, const int* given, int B, int P,
-                       int C, int M, float r2, float win, int S,
+                       int C, int M, float r2, int S,
                        const MLPDesc& d, const float* params, float* out,
-                       void* stream) {
+                       float2* bounds, void* stream) {
   if (reinterpret_cast<uintptr_t>(params) & 15)   // cp.async moves 16 bytes
     return (int)cudaErrorMisalignedAddress;
   if (p.smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  // the search: the chunks' z ranges first (pre-pass)
+  if (MODE != kGiven) {
+    const int e =
+        launch_chunk_bounds(xyz, B, P, bounds, (cudaStream_t)stream);
+    if (e) return e;
+  }
+  const int a16 =
+      (reinterpret_cast<uintptr_t>(xyz) & 15) == 0 && P % 4 == 0 ? 1 : 0;
   const int grid = B * ((M + p.lay.Q - 1) / p.lay.Q);
   int err = ws3d_set_smem((const void*)fused_sa_tc_kernel<MODE>, p.smem);
   // all of the SM's 228 KB to shared memory, so that two blocks fit
@@ -597,7 +592,8 @@ int launch_fused_sa_tc(const TCPlan& p, const float* xyz, const float* feat,
   if (err) return err;
   fused_sa_tc_kernel<MODE><<<grid, 32 * p.warps, p.smem,
                              (cudaStream_t)stream>>>(
-      xyz, feat, new_xyz, given, P, C, M, r2, win, S, p.lay, d, params, out);
+      xyz, feat, new_xyz, given, P, C, M, r2, S, p.lay, d, bounds, a16,
+      params, out);
   return (int)cudaGetLastError();
 }
 
@@ -621,23 +617,27 @@ int make_desc(int B, int P, int C, int M, int S, int n_layers,
 // xyz (B, P, 3), feat (B, P, C), new_xyz (B, M, 3) f32; params packs
 // [W0 (pad4(ci), co) row-major with zero rows past ci, b0 (co), W1, b1, ...]
 // (BN folded; every co a multiple of 4; 16-byte aligned) -> out (B, M,
-// width[n_layers]). windowed != 0 requires xyz and new_xyz sorted ascending
-// by z.
+// width[n_layers]); bounds a workspace of B * n_chunks(P) float2 (the
+// pre-pass writes it). windowed != 0 (kernel 2) is for xyz and new_xyz
+// sorted ascending by z: there every in-ball point lies in the query's z
+// window, and the search, the same as kernel 3's, gives the window's
+// indices.
 WS3D_EXPORT int ws3d_fused_sa(const float* xyz, const float* feat,
                               const float* new_xyz, int B, int P, int C, int M,
-                              float r2, float win, int S, int windowed,
-                              int n_layers, const int* widths,
-                              const float* params, float* out, void* stream) {
+                              float r2, int S, int windowed, int n_layers,
+                              const int* widths, const float* params,
+                              float* out, void* bounds, void* stream) {
   MLPDesc d;
   const int err = make_desc(B, P, C, M, S, n_layers, widths, d);
   if (err) return err;
+  if (bounds == nullptr) return (int)cudaErrorInvalidValue;
   if (windowed)
     return launch_fused_sa_tc<kWindow>(plan_tc(C, M, S, d, feat), xyz, feat,
-                                       new_xyz, nullptr, B, P, C, M, r2, win,
-                                       S, d, params, out, stream);
+                                       new_xyz, nullptr, B, P, C, M, r2, S, d,
+                                       params, out, (float2*)bounds, stream);
   return launch_fused_sa_tc<kFull>(plan_tc(C, M, S, d, feat), xyz, feat,
-                                   new_xyz, nullptr, B, P, C, M, r2, 0.f, S,
-                                   d, params, out, stream);
+                                   new_xyz, nullptr, B, P, C, M, r2, S, d,
+                                   params, out, (float2*)bounds, stream);
 }
 
 // The same with the indices given: idx (B, M, S) int32, each in [0, P).
@@ -650,8 +650,8 @@ WS3D_EXPORT int ws3d_fused_sa_idx(const float* xyz, const float* feat,
   const int err = make_desc(B, P, C, M, S, n_layers, widths, d);
   if (err) return err;
   return launch_fused_sa_tc<kGiven>(plan_tc(C, M, S, d, feat), xyz, feat,
-                                    new_xyz, idx, B, P, C, M, 0.f, 0.f, S, d,
-                                    params, out, stream);
+                                    new_xyz, idx, B, P, C, M, 0.f, S, d,
+                                    params, out, nullptr, stream);
 }
 
 // The launch either entry makes for these shapes (the same in every mode):

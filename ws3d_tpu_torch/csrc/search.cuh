@@ -1,0 +1,339 @@
+// Staged, pruned neighbour search: shared by ball_query.cu (kernel 6),
+// interpolate.cu (kernel 4) and fused_sa.cu (kernels 2 and 3).
+//
+// A cloud is cut into chunks of kChunk consecutive points, and a pre-pass
+// (launch_chunk_bounds) writes each chunk's z range. A block of queries
+// stages the chunks it may need through shared memory, a ring of kStages
+// tiles of kTileChunks chunks: warp 0 picks the chunks and starts their
+// copies (cp.async) a tile ahead, and every warp searches the tile that has
+// arrived. A chunk is left out when its z term bounds every d2 into it away
+// from what the queries still need. The bound holds on any
+// input: the term-rounded sqdist3 from a query to any point of a chunk is at
+// least the z term fl(fl(qz - z_near)^2) of the chunk's nearer end (a
+// rounded difference and a rounded square are monotone in |dz|, and
+// rounding a sum of non-negative terms keeps it at least each term). On
+// z-sorted clouds, the main path's, a chunk is a thin z slab and a query's
+// ball or 3-NN sphere meets a few of them.
+#pragma once
+
+#include "common.cuh"
+
+constexpr int kChunk = 32;       // points a chunk: one a lane
+constexpr int kTileChunks = 16;  // chunks a staged tile
+constexpr int kStages = 2;       // tiles of the ring: one in flight
+
+__host__ __device__ __forceinline__ int n_chunks(int n) {
+  return (n + kChunk - 1) / kChunk;
+}
+
+namespace {
+
+// One warp a chunk: (min z, max z) of its points; NaN z are left out, and
+// a chunk of NaN z only gets (+inf, -inf), whose z term from a finite query
+// is +inf.
+__global__ void __launch_bounds__(256)
+chunk_bounds_kernel(const float* __restrict__ pts, int R, int n,
+                    float2* __restrict__ bounds) {
+  const int nch = n_chunks(n);
+  const long long g = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (g >= (long long)R * nch) return;  // whole warp
+  const int r = (int)(g / nch), c = (int)(g - (long long)r * nch);
+  const int j = c * kChunk + (threadIdx.x & 31);
+  const float inf = __int_as_float(0x7f800000);
+  float lo = inf, hi = -inf;
+  if (j < n) {
+    const float z = pts[((size_t)r * n + j) * 3 + 2];
+    if (z == z) lo = hi = z;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if ((threadIdx.x & 31) == 0) bounds[g] = make_float2(lo, hi);
+}
+
+}  // namespace
+
+// bounds[r * n_chunks(n) + c] = (min z, max z) of chunk c of each of R rows
+// of n (x, y, z) points; returns a cudaError_t.
+static inline int launch_chunk_bounds(const float* pts, int R, int n,
+                                      float2* bounds, cudaStream_t stream) {
+  const long long chunks = (long long)R * n_chunks(n);
+  chunk_bounds_kernel<<<(unsigned)((chunks + 7) / 8), 256, 0, stream>>>(
+      pts, R, n, bounds);
+  return (int)cudaGetLastError();
+}
+
+// The z term from qz to the nearer end of the range b = (lo, hi), 0 inside.
+__device__ __forceinline__ float zterm(float qz, float2 b) {
+  const float dz = qz < b.x ? __fsub_rn(qz, b.x)
+                 : qz > b.y ? __fsub_rn(qz, b.y) : 0.f;
+  return __fmul_rn(dz, dz);
+}
+
+// The least z term from any z in [lo, hi] to the range b.
+__device__ __forceinline__ float zterm_hull(float lo, float hi, float2 b) {
+  const float dz = hi < b.x ? __fsub_rn(hi, b.x)
+                 : lo > b.y ? __fsub_rn(lo, b.y) : 0.f;
+  return __fmul_rn(dz, dz);
+}
+
+// The ring in shared memory (kRingFloats floats, a multiple of 4, at a
+// 16-byte aligned address): each tile's points (3 * kChunk floats a chunk,
+// as in global memory), each chunk's bounds and index, each tile's chunk
+// count, and two floats a warp (one for each parity of the tile count)
+// that warp 0 reads when it picks chunks: the warp's threshold.
+struct TileRing {
+  float* pts;
+  float2* zb;
+  int* cid;
+  int* cnt;
+  float* warp_v;  // [2][32]
+};
+constexpr int kRingSlots = kStages * kTileChunks;
+constexpr int kRingFloats =
+    (kRingSlots * (3 * kChunk + 3) + kStages + 64 + 3) & ~3;
+
+__device__ __forceinline__ TileRing ring_at(float* base) {
+  TileRing r;
+  r.pts = base;
+  r.zb = reinterpret_cast<float2*>(base + kRingSlots * 3 * kChunk);
+  r.cid = reinterpret_cast<int*>(r.zb + kRingSlots);
+  r.cnt = r.cid + kRingSlots;
+  r.warp_v = reinterpret_cast<float*>(r.cnt + kStages);
+  return r;
+}
+
+// The largest of the nw warps' values of parity `par`.
+__device__ __forceinline__ float ring_max(const TileRing& ring, int par,
+                                          int nw) {
+  float t = -__int_as_float(0x7f800000);
+  for (int w = 0; w < nw; ++w) t = fmaxf(t, ring.warp_v[32 * par + w]);
+  return t;
+}
+
+// Warp 0: from position `pos` of a visit order of npos positions (order(p)
+// is a chunk, or -1 for none) take the next chunks whose bounds pass
+// need(bounds), at most kTileChunks, into ring slot `slot`; start the
+// copies of their points from pb (n points; 16 bytes at a time when a16:
+// pb 16-byte aligned and n % 4 == 0, else 4) and commit one cp.async group.
+// `pos` moves past the last chunk taken. Four ballots of bounds are loaded
+// at once, so the walk over skipped chunks waits on few round trips.
+template <class Order, class Need>
+__device__ __forceinline__ void ring_stage(const float* __restrict__ pb, int n,
+                                           const float2* __restrict__ bounds,
+                                           bool a16, int npos, Order order,
+                                           Need need, int& pos,
+                                           const TileRing& ring, int slot) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int* cid = ring.cid + slot * kTileChunks;
+  float2* zb = ring.zb + slot * kTileChunks;
+  int got = 0;
+  while (got < kTileChunks && pos < npos) {
+    const int base = pos;
+    int c[4];
+    float2 b[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int p = base + 32 * k + lane;
+      c[k] = p < npos ? order(p) : -1;
+      b[k] = c[k] >= 0 ? bounds[c[k]] : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (got < kTileChunks) {  // warp-uniform
+        const bool ok = c[k] >= 0 && need(b[k]);
+        const unsigned m = __ballot_sync(0xffffffffu, ok);
+        const int nm = __popc(m), rank = __popc(m & below);
+        const int take = min(nm, kTileChunks - got);
+        if (ok && rank < take) {
+          cid[got + rank] = c[k];
+          zb[got + rank] = b[k];
+        }
+        pos = take < nm
+                  ? base + 32 * k +
+                        __ffs(__ballot_sync(0xffffffffu,
+                                            ok && rank == take - 1))
+                  : base + 32 * (k + 1);
+        got += take;
+      }
+    }
+  }
+  __syncwarp();
+  if (lane == 0) ring.cnt[slot] = got;
+  float* dst = ring.pts + slot * kTileChunks * 3 * kChunk;
+  const int nf = 3 * n;
+  for (int k = 0; k < got; ++k) {  // a chunk is 3 * kChunk floats
+    const int f0 = 3 * kChunk * cid[k];
+    if (a16) {
+      if (lane < 24 && f0 + 4 * lane < nf)
+        cp_async16(dst + 3 * kChunk * k + 4 * lane, pb + f0 + 4 * lane);
+    } else {
+      for (int w = lane; w < 3 * kChunk; w += 32)
+        if (f0 + w < nf) cp_async4(dst + 3 * kChunk * k + w, pb + f0 + w);
+    }
+  }
+  cp_async_commit();
+}
+
+// The staged loop of a block, as both searches run it:
+//   warp 0: kStages - 1 ring_stage calls (tiles 0 .. kStages - 2)
+//   for t = 0, 1, ...:
+//     warp 0: ring_wait(); then the block: __syncthreads()
+//     tile t (slot t % kStages) empty: the order is exhausted, stop
+//     warp 0: ring_stage into slot (t + kStages - 1) % kStages, reading the
+//             warps' values of parity (t + 1) & 1
+//     every warp: search tile t, then publish its value of parity t & 1
+//   warp 0: ring_drain(); then the block: __syncthreads()
+// Warp 0 stages a tile only after every warp is done with the tile that
+// slot held (the barrier of iteration t follows the search of t - 1), and
+// the values it reads were written before that barrier, while the warps
+// write the other parity: its picks do not depend on timing. A value only
+// falls as the search goes on, so a pick made with an older one is
+// conservative.
+__device__ __forceinline__ void ring_wait() { cp_async_wait<kStages - 2>(); }
+__device__ __forceinline__ void ring_drain() { cp_async_wait<0>(); }
+
+// Where query qi's hits of scale s go: base + qi * stride + off[s].
+struct BallRows {
+  int* base;
+  int stride;
+  int off[kMaxScales];
+};
+
+// The multi-scale ball query of nq queries (qs: (x, y, z) rows in shared
+// memory; ceil(nq / warps) <= kQW) over the n points of pb, exact on any
+// input: for each query and scale the first S[s] indices with d2 < r2[s] in
+// ascending index, padded with the first hit, all 0 for an empty ball.
+// Chunks go in ascending index. Warp 0 stages a chunk unless its z term
+// from the block's query z range is >= the largest r2 any query still
+// needs; a warp skips a staged chunk for a query whose own z term is >= the
+// largest r2 of that query's unfilled scales (a full scale needs no more
+// hits), and a chunk in which no lane's d2 is below that r2. A hit needs
+// d2 < r2, so no hit is skipped and the ranks stand. A warp takes
+// consecutive queries (z neighbours on sorted clouds); a lane tests one
+// point of a chunk against each of them (the point is read from shared
+// memory once), ranks hits with ballot + popc, and a query stops once every
+// scale is full. All threads of the block call it (it synchronises the
+// block); bounds are pb's chunk bounds (launch_chunk_bounds).
+template <int kQW>
+__device__ __forceinline__ void block_ball_query(
+    const float* __restrict__ pb, int n, const float2* __restrict__ bounds,
+    bool a16, const float* qs, int nq, const BallScales& sc,
+    const BallRows& rows, const TileRing& ring) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const float inf = __int_as_float(0x7f800000);
+  const int per = (nq + nw - 1) / nw;
+  const int q0 = warp * per, mine = max(0, min(per, nq - q0));
+  float r2[kMaxScales];
+  int S[kMaxScales], off[kMaxScales];
+  float r2max = 0.f;
+#pragma unroll
+  for (int s = 0; s < kMaxScales; ++s) {
+    r2[s] = sc.r2[s];
+    S[s] = sc.S[s];
+    off[s] = rows.off[s];
+    if (s < sc.n) r2max = fmaxf(r2max, r2[s]);
+  }
+  float qx[kQW], qy[kQW], qz[kQW], thr[kQW];
+  int cnt[kQW][kMaxScales];
+  int* row[kQW];
+#pragma unroll
+  for (int i = 0; i < kQW; ++i) {
+    const int q = i < mine ? q0 + i : 0;
+    qx[i] = qs[3 * q];
+    qy[i] = qs[3 * q + 1];
+    qz[i] = qs[3 * q + 2];
+    thr[i] = i < mine ? r2max : -inf;  // -inf: nothing more to find
+    row[i] = rows.base + (q0 + i) * rows.stride;
+#pragma unroll
+    for (int s = 0; s < kMaxScales; ++s) cnt[i][s] = 0;
+  }
+  float zlo = inf, zhi = -inf;  // the block's query z range
+  for (int q = 0; q < nq; ++q) {
+    zlo = fminf(zlo, qs[3 * q + 2]);
+    zhi = fmaxf(zhi, qs[3 * q + 2]);
+  }
+  auto warp_thr = [&] {
+    float t = -inf;
+#pragma unroll
+    for (int i = 0; i < kQW; ++i) t = fmaxf(t, thr[i]);
+    return t;
+  };
+  if (lane == 0) ring.warp_v[warp] = ring.warp_v[32 + warp] = warp_thr();
+  __syncthreads();
+
+  const int nch = n_chunks(n);
+  const auto order = [](int p) { return p; };
+  int pos = 0;  // warp 0's cursor
+  if (warp == 0) {
+    const float t0 = ring_max(ring, 1, nw);
+    for (int s = 0; s < kStages - 1; ++s)
+      ring_stage(pb, n, bounds, a16, nch, order,
+                 [=](float2 b) { return zterm_hull(zlo, zhi, b) < t0; }, pos,
+                 ring, s);
+  }
+  for (int t = 0;; ++t) {
+    if (warp == 0) ring_wait();
+    __syncthreads();
+    const int slot = t % kStages;
+    const int nc = ring.cnt[slot];
+    if (nc == 0) break;  // block-uniform
+    if (warp == 0) {
+      const float tb = ring_max(ring, (t + 1) & 1, nw);
+      ring_stage(pb, n, bounds, a16, nch, order,
+                 [=](float2 b) { return zterm_hull(zlo, zhi, b) < tb; }, pos,
+                 ring, (t + kStages - 1) % kStages);
+    }
+    const float* tp = ring.pts + slot * kTileChunks * 3 * kChunk;
+    for (int k = 0; k < nc; ++k) {
+      const int c = ring.cid[slot * kTileChunks + k];
+      const float2 b = ring.zb[slot * kTileChunks + k];
+      const int j = c * kChunk + lane;
+      const float* p = tp + 3 * kChunk * k + 3 * lane;
+      const float px = p[0], py = p[1], pz = p[2];
+#pragma unroll
+      for (int i = 0; i < kQW; ++i) {
+        if (!(zterm(qz[i], b) < thr[i])) continue;  // warp-uniform
+        const float d = j < n ? sqdist3(qx[i] - px, qy[i] - py, qz[i] - pz)
+                              : inf;
+        if (!__any_sync(0xffffffffu, d < thr[i])) continue;
+        float nt = -inf;
+#pragma unroll
+        for (int s = 0; s < kMaxScales; ++s) {
+          if (s < sc.n) {
+            const bool in = d < r2[s];
+            const unsigned m = __ballot_sync(0xffffffffu, in);
+            const int rank = cnt[i][s] + __popc(m & below);
+            if (in && rank < S[s]) row[i][off[s] + rank] = j;
+            cnt[i][s] += __popc(m);
+            if (cnt[i][s] < S[s]) nt = fmaxf(nt, r2[s]);
+          }
+        }
+        thr[i] = nt;
+      }
+    }
+    if (lane == 0) ring.warp_v[32 * (t & 1) + warp] = warp_thr();
+  }
+  if (warp == 0) ring_drain();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kQW; ++i) {
+    if (i < mine) {
+#pragma unroll
+      for (int s = 0; s < kMaxScales; ++s) {
+        if (s < sc.n) {
+          int* r = row[i] + off[s];
+          const int nh = min(cnt[i][s], S[s]);
+          const int first = nh > 0 ? r[0] : 0;
+          for (int k = nh + lane; k < S[s]; k += 32) r[k] = first;
+        }
+      }
+    }
+  }
+  __syncwarp();
+}

@@ -43,20 +43,33 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "ws3d_fps": [_P, _I, _I, _I, _P, _P, _P],
-    "ws3d_fused_sa": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P,
+    "ws3d_fused_sa": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P,
                       _P, _P],
     "ws3d_fused_sa_idx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                           _P],
     "ws3d_fused_sa_plan": [_I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "ws3d_three_interpolate": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "ws3d_three_interpolate": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "ws3d_three_interpolate_window": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                       _P],
     "ws3d_crop_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P,
                          _P],
-    "ws3d_ball_query": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ws3d_ball_query": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "ws3d_ball_query_wrap": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "ws3d_three_nn": [_P, _P, _I, _I, _I, _P, _P, _P],
 }
+
+
+# points a chunk of the pruned searches (csrc/common.cuh:kChunk)
+CHUNK = 32
+
+
+def chunk_bounds_workspace(pts: torch.Tensor) -> torch.Tensor:
+    """The (R, ceil(n / CHUNK), 2) f32 workspace into which a kernel's
+    pre-pass writes the z range of each CHUNK-point chunk of the (R, n, 3)
+    cloud `pts`."""
+    R, n, _ = pts.shape
+    return torch.empty((R, (n + CHUNK - 1) // CHUNK, 2), dtype=torch.float32,
+                       device=pts.device)
 
 
 def reset_launch_counts() -> None:

@@ -58,7 +58,8 @@ def ball_query_multi_cuda(radii: Sequence[float], nsamples: Sequence[int],
                           xyz: torch.Tensor,
                           new_xyz: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Kernel 6: (B, N, 3), (B, M, 3) f32 CUDA -> per scale (B, M, S_i)
-    int32, all scales in one launch."""
+    int32, all scales in one launch (after a pre-pass that writes the
+    cloud's chunk z ranges into a workspace)."""
     r2, ns = _scale_args(radii, nsamples, "ball_query")
     _kernels.check_cuda(xyz, "ball_query xyz", torch.float32, (None, None, 3))
     B, N, _ = xyz.shape
@@ -68,9 +69,10 @@ def ball_query_multi_cuda(radii: Sequence[float], nsamples: Sequence[int],
     outs = tuple(torch.empty((B, M, int(s)), dtype=torch.int32,
                              device=xyz.device) for s in nsamples)
     ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
+    bounds = _kernels.chunk_bounds_workspace(xyz)
     rc = _kernels.library().ws3d_ball_query(
         xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, len(outs), r2, ns, ptrs,
-        _kernels.stream_ptr(xyz))
+        bounds.data_ptr(), _kernels.stream_ptr(xyz))
     _kernels.raise_on_error(rc, "ball_query")
     _kernels.LAUNCHES["ball_query"] += 1
     return outs

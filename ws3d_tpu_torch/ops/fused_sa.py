@@ -3,13 +3,16 @@ backward.
 
 One function: ball query, gather of [xyz - q, feat] rows, the BN-folded
 ReLU MLP and a max over the S samples. The CUDA source has two entry points
-for it: the windowed one (ws3d_tpu/ops/fused_sa_window_pallas.py) scans only
-the z-window of each query and requires points and queries sorted ascending
-by z; the full one (ws3d_tpu/ops/fused_sa_bq_pallas.py) scans all points.
-Both, and kernel 9's given indices (ops/fused_sa_idx.py), run one routine:
-the search and the gather in exact f32 on the SIMT cores, the MLP on the
-tensor cores in three TF32 passes (3xTF32, about 22 mantissa bits).
-The plain version is the f32 composition of fused_sa_bq_pallas._xla_reference.
+for it: the windowed one (ws3d_tpu/ops/fused_sa_window_pallas.py, which
+scans only the z-window of each query) is for points and queries sorted
+ascending by z; the full one (ws3d_tpu/ops/fused_sa_bq_pallas.py) takes any
+order. Both search with kernel 6's staged search, which skips the chunks
+outside a query's z slab after a pre-pass (so on sorted clouds it keeps
+the window's points and gives the window's indices), and both, with kernel
+9's given indices (ops/fused_sa_idx.py), run one routine: the search and
+the gather in exact f32 on the SIMT cores, the MLP on the tensor cores in
+three TF32 passes (3xTF32, about 22 mantissa bits). The plain version is
+the f32 composition of fused_sa_bq_pallas._xla_reference.
 
 FusedSA gives both a backward, for the BN-free stage-2 SA stacks in train
 mode. Like the JAX custom VJPs (fused_sa_bq_pallas.py:213-239,
@@ -32,11 +35,6 @@ from ws3d_tpu_torch.ops.ball_query import ball_query_multi_plain
 from ws3d_tpu_torch.ops.fused_sa_idx import (  # noqa: F401 (pack_params)
     check_mlp, fused_sa_idx_plain, pack_params, sa_from_idx_backward)
 from ws3d_tpu_torch.ops.grouping import ball_query
-
-# slack added to the window half-width: every point outside [qz - win,
-# qz + win] has dz^2 > r^2 even after f32 rounding, so the window drops none
-_WINDOW_REL = 1e-5
-_WINDOW_ABS = 1e-6
 
 
 def fused_sa_plain(xyz, features, new_xyz, radius: float, nsample: int,
@@ -65,11 +63,13 @@ def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
     out = torch.empty((B, M, widths[len(kernels)]), dtype=torch.float32,
                       device=xyz.device)
     r = float(radius)
+    # the search skips chunks by their z range (a pre-pass writes them)
+    bounds = _kernels.chunk_bounds_workspace(xyz)
     rc = _kernels.library().ws3d_fused_sa(
         xyz.data_ptr(), features.data_ptr(), new_xyz.data_ptr(), B, P, C, M,
-        r * r, r * (1.0 + _WINDOW_REL) + _WINDOW_ABS, int(nsample),
-        int(bool(window)), len(kernels), widths, params.data_ptr(),
-        out.data_ptr(), _kernels.stream_ptr(xyz))
+        r * r, int(nsample), int(bool(window)), len(kernels), widths,
+        params.data_ptr(), out.data_ptr(), bounds.data_ptr(),
+        _kernels.stream_ptr(xyz))
     name = "fused_sa_window" if window else "fused_sa_full"
     _kernels.raise_on_error(rc, name)
     _kernels.LAUNCHES[name] += 1

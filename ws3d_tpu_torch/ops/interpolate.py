@@ -182,7 +182,9 @@ def three_interpolate_window_plain(unknown: torch.Tensor, known: torch.Tensor,
 
 def three_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
                            known_feats: torch.Tensor) -> torch.Tensor:
-    """Kernel 4: (B, n, 3), (B, m, 3), (B, m, C) f32 CUDA -> (B, n, C)."""
+    """Kernel 4: (B, n, 3), (B, m, 3), (B, m, C) f32 CUDA -> (B, n, C)
+    (after a pre-pass that writes the known cloud's chunk z ranges into a
+    workspace)."""
     B, n, _ = unknown.shape
     m = known.shape[1]
     C = known_feats.shape[-1]
@@ -192,9 +194,10 @@ def three_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
     _kernels.check_cuda(known_feats, "interpolate feats", torch.float32,
                         (B, m, C))
     out = torch.empty((B, n, C), dtype=torch.float32, device=unknown.device)
+    bounds = _kernels.chunk_bounds_workspace(known)
     rc = _kernels.library().ws3d_three_interpolate(
         unknown.data_ptr(), known.data_ptr(), known_feats.data_ptr(), B, n, m,
-        C, out.data_ptr(), _kernels.stream_ptr(unknown))
+        C, out.data_ptr(), bounds.data_ptr(), _kernels.stream_ptr(unknown))
     _kernels.raise_on_error(rc, "three_interpolate")
     _kernels.LAUNCHES["three_interpolate"] += 1
     return out
