@@ -30,11 +30,13 @@ Phases (any failure exits non-zero; nothing is caught):
   5. the stage-1 train step at full width (batch 16, TRAIN batches, the
      fitted stage-1 weights): record every kernel call of one step, forward
      and backward, and hold the ball query (kernel 6) and the 3-NN search
-     (kernel 7) against their plain versions on the recorded inputs
-     (indices exact, d2 bit-exact; kernel 6's bound counts the points of
-     each query's z slab, with the index-order scan's bound beside it),
-     print kernel 6's time by launch and on SA0's inputs shuffled (exact
-     against its plain version), and hold the interpolation's backward
+     (kernel 7, on the chunk bounds its forward's pre-pass wrote) against
+     their plain versions on the recorded inputs (indices exact, d2
+     bit-exact; kernel 6's bound counts the points of each query's z slab,
+     with the index-order scan's bound beside it; kernel 7's the pairs of
+     each query's z window, with the dense bound beside it), print the
+     time of each by launch and on SA0's / FP0's inputs shuffled (exact
+     against the plain version), and hold the interpolation's backward
      against autograd through its plain forward;
   6. the training path: one warm-up step through Trainer.train_steps, then
      timed steps closed by torch.cuda.synchronize() (steps/s, scenes/s,
@@ -79,7 +81,9 @@ Phases (any failure exits non-zero; nothing is caught):
      points, the fitted stage-1 weights, K = 64, max_crop 2048, score
      threshold 0.1; scenes/s of the device stage and of the whole loop,
      exactly one kernel-6w launch a scene, its recorded calls against its
-     plain version (exact), one scene under torch.profiler;
+     plain version (exact), its time by launch with its bound (the points
+     of each centre's z slab, the dense bound beside it) and on the first
+     scene's points shuffled (exact), one scene under torch.profiler;
  14. one scene of that path on the GPU and on the CPU (the plain versions):
      the same records, floats within 1e-5; then one RCNN train step at the
      stage-2 CLI's default batch of 64 crops from the generated database,
@@ -170,6 +174,24 @@ def cuda_ms(fn, reps: int) -> float:
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of `fn`, ms a call: the launches queue behind a sleep
+    kernel of about a millisecond issued before the start event, so the
+    host's time in the wrappers does not show between them (cuda_ms reads
+    it where a launch is shorter than its wrapper)."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -289,6 +311,9 @@ def compare_call(name, args, kw):
                 + _plan_note(feat, new_xyz, nsample, widths))
 
     if name == "three_interpolate_cuda":
+        # the forward's workspace, if it passed one, is left out: a call
+        # here allocates its own, as the forward does
+        args = args[:3]
         unknown, known, feats = args
         out = interpolate.three_interpolate_cuda(*args)
         ref = interpolate.three_interpolate_plain(*args)
@@ -360,15 +385,23 @@ def compare_call(name, args, kw):
                                      f"S{nsamples}: {bad} entries differ "
                                      f"from the plain version")
         ms = cuda_ms(lambda: ball_query.ball_query_wrap_cuda(*args), 5)
+        dev = device_ms(lambda: ball_query.ball_query_wrap_cuda(*args), 5)
         plain = cuda_ms(lambda: ball_query.ball_query_wrap_plain(*args), 1)
         B, N, _ = xyz.shape
         M = new_xyz.shape[1]
         nbytes = 4 * (B * N * 3 + B * M * 3 + B * M * sum(nsamples)
                       + B * M * len(nsamples))
-        # every point of every scale: 3 sub, 3 mul, 2 add, 1 compare
-        ops = 9 * B * M * N * len(radii)
+        # the points of each centre's z slab (z term below r2), each scale:
+        # 3 sub, 3 mul, 2 add, 1 compare; every point for the dense bound
+        slab = sum(_slab_points(xyz, new_xyz, r) for r in radii)
+        ops = 9 * slab
+        dense = 9 * B * M * N * len(radii)
         return ("ball_query_wrap", 0.0, ms, plain, nbytes, ops,
-                f"B{B} N{N} M{M} r{radii} S{nsamples}")
+                f"B{B} N{N} M{M} r{radii} S{nsamples} (device {dev:.4f} ms"
+                f" queued; dense bound "
+                f"{_bound_ms(nbytes, dense):.4f} ms; {slab / (B * M):.1f} "
+                f"slab points a centre; {float(cnt[0].float().mean()):.1f} "
+                f"members a centre)")
 
     if name == "three_interpolate_window_cuda":
         unknown, known, feats = args
@@ -441,9 +474,9 @@ def compare_call(name, args, kw):
                 f"query in the slab)")
 
     if name == "three_nn_cuda":
-        unknown, known = args
+        unknown, known = args[:2]
         d2, idx = interpolate.three_nn_cuda(*args)
-        rd2, ridx = interpolate.three_nn_plain(*args)
+        rd2, ridx = interpolate.three_nn_plain(unknown, known)
         if not torch.equal(idx, ridx):
             bad = (idx != ridx).sum().item()
             raise AssertionError(f"three_nn {tuple(unknown.shape)}: {bad} "
@@ -452,12 +485,23 @@ def compare_call(name, args, kw):
         if err != 0.0:
             raise AssertionError(f"three_nn d2 differs by {err}")
         ms = cuda_ms(lambda: interpolate.three_nn_cuda(*args), 5)
-        plain = cuda_ms(lambda: interpolate.three_nn_plain(*args), 1)
+        dev = device_ms(lambda: interpolate.three_nn_cuda(*args), 5)
+        plain = cuda_ms(lambda: interpolate.three_nn_plain(unknown, known), 1)
         B, n, _ = unknown.shape
         m = known.shape[1]
         nbytes = 4 * (B * n * 3 + B * m * 3 + B * n * 6)
-        ops = B * n * m * 10
-        return ("three_nn", err, ms, plain, nbytes, ops, f"B{B} n{n} m{m}")
+        # the pairs these inputs need tested (~10 operations each): on
+        # z-sorted clouds those inside each query's z window (kernel 8's
+        # search), else every pair
+        dense = B * n * m * 10
+        if _z_sorted(unknown) and _z_sorted(known):
+            ops = 10 * int(interpolate.window_search(unknown, known)[2].sum())
+        else:
+            ops = dense
+        return ("three_nn", err, ms, plain, nbytes, ops,
+                f"B{B} n{n} m{m} (device {dev:.4f} ms queued; dense bound "
+                f"{_bound_ms(nbytes, dense):.4f} ms"
+                f"{'' if len(args) > 2 else '; with its pre-pass'})")
 
     if name == "fused_sa_idx_cuda":
         xyz, feat, new_xyz, idx, kernels, biases = args
@@ -516,6 +560,18 @@ def _bound_ms(nbytes, ops) -> float:
 def _z_sorted(pts) -> bool:
     z = pts[..., 2]
     return bool((z[:, 1:] >= z[:, :-1]).all())
+
+
+def _slab_points(xyz, new_xyz, radius) -> int:
+    """Points of each query's z slab, z term fl(fl(qz - z)^2) below r2,
+    summed over the queries."""
+    from ws3d_tpu_torch.ops.grouping import radius_sq
+    r2 = radius_sq(radius, xyz.device)
+    total = 0
+    for m0 in range(0, new_xyz.shape[1], 256):
+        dz = new_xyz[:, m0:m0 + 256, 2, None] - xyz[:, None, :, 2]
+        total += int((dz * dz < r2).sum())
+    return total
 
 
 def _tested_points(radii, nsamples, xyz, new_xyz):
@@ -685,7 +741,8 @@ def main() -> int:
           flush=True)
     # the crop and FP inputs kernels 10 and 8 run on in phase 12
     crop_call = [a for n, a, _ in rec.calls if n == "crop_gather_cuda"][0]
-    fp_calls = [a for n, a, _ in rec.calls if n == "three_interpolate_cuda"]
+    fp_calls = [a[:3] for n, a, _ in rec.calls
+                if n == "three_interpolate_cuda"]
     print(f"# phase 2: kernel 4 on FP0's inputs shuffled: "
           f"{_shuffled('three_interpolate_cuda', fp_calls)}", flush=True)
     for key in INFERENCE_KERNELS:
@@ -815,12 +872,13 @@ def _compare_calls(calls, per_kernel, path: str) -> list:
 
 
 def _shuffled(name, calls) -> str:
-    """Kernel 6 or 4 on the largest of its recorded calls with each cloud's
-    points in a random order (the known points with their feature rows),
-    where no chunk can be skipped: held against its plain version on the
-    same shuffled inputs (indices exact; the interpolation within its
-    gate); returns the shape and CUDA-event times of the kernel on the
-    shuffled and on the recorded inputs."""
+    """Kernel 6, 4, 7 or 6w on the largest of its recorded calls with each
+    cloud's points in a random order (the known points with their feature
+    rows; kernel 6w's centres keep theirs), where no chunk can be skipped:
+    held against its plain version on the same shuffled inputs (indices
+    and d2 exact; the interpolation within its gate); returns the shape
+    and CUDA-event times of the kernel on the shuffled and on the recorded
+    inputs."""
     import torch
     from ws3d_tpu_torch.ops import ball_query, interpolate
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -831,20 +889,38 @@ def _shuffled(name, calls) -> str:
                                         generator=gen), dim=1)
         return [torch.gather(x, 1, perm[..., None].expand(-1, -1, x.shape[2]))
                 .contiguous() for x in ts]
-    if name == "ball_query_multi_cuda":
+
+    def same(got, ref, what):
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"{what} on shuffled inputs differs from "
+                                 f"the plain version")
+    if name in ("ball_query_multi_cuda", "ball_query_wrap_cuda"):
         radii, ks, xyz, new_xyz = max(calls, key=lambda a: a[2].shape[1])
         sxyz, = shuffle(xyz)
-        snew, = shuffle(new_xyz)
-        got = ball_query.ball_query_multi_cuda(radii, ks, sxyz, snew)
-        ref = ball_query.ball_query_multi_plain(radii, ks, sxyz, snew)
-        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
-            raise AssertionError("ball_query on shuffled inputs differs from "
-                                 "the plain version")
+        snew, = (shuffle(new_xyz) if name == "ball_query_multi_cuda"
+                 else (new_xyz,))
+        if name == "ball_query_multi_cuda":
+            run = ball_query.ball_query_multi_cuda
+            same(run(radii, ks, sxyz, snew),
+                 ball_query.ball_query_multi_plain(radii, ks, sxyz, snew),
+                 "ball_query")
+        else:
+            run = ball_query.ball_query_wrap_cuda
+            got, ref = (f(radii, ks, sxyz, snew) for f in (
+                run, ball_query.ball_query_wrap_plain))
+            same(got[0] + got[1], ref[0] + ref[1], "ball_query_wrap")
         shape = f"B{xyz.shape[0]} N{xyz.shape[1]} M{new_xyz.shape[1]}"
-        ms = cuda_ms(lambda: ball_query.ball_query_multi_cuda(
-            radii, ks, sxyz, snew), 5)
-        ms0 = cuda_ms(lambda: ball_query.ball_query_multi_cuda(
-            radii, ks, xyz, new_xyz), 5)
+        ms = cuda_ms(lambda: run(radii, ks, sxyz, snew), 5)
+        ms0 = cuda_ms(lambda: run(radii, ks, xyz, new_xyz), 5)
+    elif name == "three_nn_cuda":
+        unknown, known = max(calls, key=lambda a: a[0].shape[1])[:2]
+        su, = shuffle(unknown)
+        sk, = shuffle(known)
+        same(interpolate.three_nn_cuda(su, sk),
+             interpolate.three_nn_plain(su, sk), "three_nn")
+        shape = f"B{unknown.shape[0]} n{unknown.shape[1]} m{known.shape[1]}"
+        ms = cuda_ms(lambda: interpolate.three_nn_cuda(su, sk), 5)
+        ms0 = cuda_ms(lambda: interpolate.three_nn_cuda(unknown, known), 5)
     else:
         unknown, known, feats = max(calls, key=lambda a: a[0].shape[1])
         su, = shuffle(unknown)
@@ -936,6 +1012,16 @@ def _train_phases(card, per_kernel) -> dict:
           + _shuffled("ball_query_multi_cuda",
                       [a for n, a, _ in calls if n == "ball_query_multi_cuda"]),
           flush=True)
+    kr = [r for r in rows if r[0] == "three_nn"]
+    print(f"# phase 5: kernel 7 by launch ({len(kr)} a step, on the "
+          f"forward's chunk bounds): "
+          + "; ".join(f"{note} {ms:.4f} ms (bound {b:.4f})"
+                      for _, note, ms, b in kr), flush=True)
+    print(f"# phase 5: kernel 7 on FP0's inputs shuffled (with its "
+          f"pre-pass): "
+          + _shuffled("three_nn_cuda",
+                      [a for n, a, _ in calls if n == "three_nn_cuda"]),
+          flush=True)
     for key in ("ball_query", "three_nn"):
         if per_kernel[key]["ms"] == 0.0:
             raise AssertionError(f"kernel {key} was never called in a step")
@@ -943,7 +1029,7 @@ def _train_phases(card, per_kernel) -> dict:
     for name, args, _ in rec.calls:
         if name != "three_interpolate_cuda":
             continue
-        unknown, known, feats = args
+        unknown, known, feats = args[:3]
         g = torch.randn(unknown.shape[:2] + feats.shape[2:], device="cuda",
                         generator=gen)
         f1 = feats.clone().requires_grad_(True)
@@ -1459,7 +1545,15 @@ def _db_phases(card, per_kernel) -> dict:
           f"{1e3 * t_host:.0f} ms for {DB_SCENES} scenes of {P} points, "
           f"{padded} padded); {len(database)} records ({n_fg} foreground); "
           f"launches {launches}", flush=True)
-    _compare_calls(rec.calls, per_kernel, "proposal_db")
+    rows = _compare_calls(rec.calls, per_kernel, "proposal_db")
+    print(f"# phase 13: kernel 6w by launch ({len(rows)} scenes, one a "
+          f"scene), ms (device ms queued): "
+          + "; ".join(f"{ms:.4f} ({note.split('(device ')[1].split()[0]})"
+                      for _, note, ms, _ in rows)
+          + f"; bound {rows[0][3]:.4f} ms a scene ({rows[0][1]})",
+          flush=True)
+    print(f"# phase 13: kernel 6w on the first scene's points shuffled: "
+          + _shuffled("ball_query_wrap_cuda", [rec.calls[0][1]]), flush=True)
     del rec
     pts = torch.from_numpy(first["pts_input"]).cuda()
     valid = torch.from_numpy(first["valid"]).cuda()

@@ -468,6 +468,69 @@ def test_interpolate_pruned(dev, rng, kind, n_u, m, C):
     assert err7 <= 1e-4 + 1e-5 * float(ref.abs().max()), err7
 
 
+@pytest.mark.parametrize("kind", SEARCH_KINDS)
+@pytest.mark.parametrize("n_u,m", [
+    (16384, 4096),                            # stage-1 FP0
+    (1024, 256),                              # stage-1 FP2
+    (1000, 250),                              # m % 32 != 0
+    (300, 2),                                 # m < 3
+])
+def test_three_nn_pruned(dev, rng, kind, n_u, m):
+    """Kernel 7's staged search equals three_nn_plain bit for bit (d2 and
+    indices), with its own pre-pass and on the chunk bounds kernel 4's
+    pre-pass wrote for the same known cloud (the interpolation backward's
+    reuse), and picks kernel 8's neighbours where both clouds are sorted."""
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.ops.interpolate import (
+        three_interpolate_cuda, three_interpolate_window_cuda, three_nn_cuda,
+        three_nn_plain)
+    unknown = _search_cloud(rng, 2, n_u, kind)
+    known = np.ascontiguousarray(unknown[:, ::max(n_u // m, 1)][:, :m])
+    if kind == "shuffled":
+        known = np.ascontiguousarray(known[:, rng.permutation(m)])
+    u, k = (torch.from_numpy(a).to(dev) for a in (unknown, known))
+    f = torch.ones((2, m, 4), device=dev)
+    rd2, ridx = three_nn_plain(u, k)
+    d2, idx = three_nn_cuda(u, k)
+    assert torch.equal(idx, ridx) and torch.equal(d2, rd2)
+    bounds = _kernels.chunk_bounds_workspace(k)
+    three_interpolate_cuda(u, k, f, bounds)
+    d2b, idxb = three_nn_cuda(u, k, bounds)
+    assert torch.equal(idxb, ridx) and torch.equal(d2b, rd2)
+    if kind != "shuffled":
+        _, wd2, widx = three_interpolate_window_cuda(u, k, f, with_nn=True)
+        assert torch.equal(widx, idx) and torch.equal(wd2, d2)
+
+
+@pytest.mark.parametrize("kind", SEARCH_KINDS)
+def test_ball_query_wrap_pruned(dev, rng, kind):
+    """Kernel 6w's staged, pruned count scan at the database path's launch
+    (one scene of 16,384 points, y zeroed, the last 3,000 moved FAR; 64
+    centres in score order; r 4 m, S 2,048), with an empty ball, a ball of
+    more than S members (truncated, with the true count), points with NaN
+    z and a centre with NaN z: idx and counts equal the plain version."""
+    from ws3d_tpu_torch.ops.ball_query import (ball_query_wrap_cuda,
+                                               ball_query_wrap_plain)
+    N, M = 16384, 64
+    xyz = _search_cloud(rng, 1, N, kind)
+    if kind != "shuffled":
+        xyz[:, N - 3000:, 0] = xyz[:, N - 3000:, 2] = 1.0e6
+    xyz[..., 1] = 0.0
+    centers = np.ascontiguousarray(xyz[:, rng.permutation(N - 3000)[:M]])
+    xyz[:, 5000:5040:3, 2] = np.nan
+    centers[:, 0] = (0.0, 0.0, -50.0)                  # an empty ball
+    centers[:, 1, 2] = np.nan
+    centers[:, 2] = xyz[:, 0]                          # the densest end
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (xyz, centers)]
+    (idx,), (cnt,) = ball_query_wrap_cuda([4.0], [2048], *args)
+    (ridx,), (rcnt,) = ball_query_wrap_plain([4.0], [2048], *args)
+    assert torch.equal(cnt, rcnt) and torch.equal(idx, ridx)
+    assert int(cnt[0, 0]) == 0 and int(cnt[0, 1]) == 0
+    if kind in ("sorted", "single_z", "boundary"):
+        assert int(cnt.max()) > 2048
+
+
 def test_fused_sa_full_shuffled(dev, rng):
     """Kernel 3's search is kernel 6's: on a shuffled cloud (nothing to
     skip) at backbone SA1's width it holds the gate 1e-3 + 1e-4 max|ref|
@@ -495,9 +558,9 @@ def test_fused_sa_full_shuffled(dev, rng):
 
 def test_neighbour_search_bench(dev, tmp_path):
     """csrc/bench/neighbour_search.cu builds and passes its own checks:
-    kernels 6 and 4 give the outputs of the index-order searches they
-    replaced bit for bit at every main-path launch shape, sorted and
-    shuffled, and kernel 6's first row matches a host ball query."""
+    kernels 6, 4, 7 and 6w give the outputs of the searches they replaced
+    bit for bit at every main-path launch shape, sorted and shuffled, and
+    kernel 6's first row matches a host ball query."""
     import subprocess
     from ws3d_tpu_torch.ops import _kernels
     src = _kernels.CSRC / "bench" / "neighbour_search.cu"

@@ -44,14 +44,28 @@
 // ball_query_pallas; _bev_first_k_wrap_batched in the JAX pipeline, and here
 // crop_membership of the proposal-database path): slot s takes the
 // (s % cnt)-th in-ball point, cnt is the true in-ball count over all N, an
-// empty ball gives 0 everywhere and count 0. The count needs every point, so
-// nothing stops early; at the database path's shape (64 centres over a
-// 16,384-point scene, S = 2048) the N-point scan of each centre bounds it,
-// about 9 operations a point, with S * 4 bytes out a centre.
-// Design: one block per query (block_rank_scan in common.cuh, shared with
-// the crop kernels); the first min(cnt, S) member indices stay in shared
-// memory (8 KB at S = 2048) and the block writes the S slots coalesced.
-// All scales go in one launch, one scan per scale.
+// empty ball gives 0 everywhere and count 0. The count needs every in-ball
+// point, so nothing stops early; but on the database path (64 centres over
+// a 16,384-point scene sorted by z, invalid points moved to z = 1e6 at its
+// tail; r = 4 m, S = 2048) only the points of a centre's 4 m z slab can be
+// in its ball, and the bytes bound it (12 bytes a point in, S * 4 out a
+// centre) beside about 9 operations a slab point. Design: the pre-pass of
+// search.cuh writes the chunk z ranges; a centre tests only the chunks
+// whose z term from it is below r2 (exact: every d2 into another chunk is
+// at least r2), in ascending index and never stopping, so the count and
+// the ranks are the full scan's on any input. At batch 1 the 64 centres
+// arrive in score order, not z order, and would leave half the card idle
+// one to a warp, so a block of 16 warps takes one centre: it lists the
+// centre's chunks, then its warps test them in rounds, 4 consecutive
+// chunks a warp with the points read straight from global memory (L2), a
+// count a warp and a block prefix ranking the members.
+// csrc/bench/neighbour_search.cu measures the alternatives: 8 or 32 warps,
+// 2 or 8 chunks a warp a round, and the staged ring of search.cuh (one
+// centre a block, or 2-8 centres taken in z order), which lost: every tile
+// waits on warp 0's walk over the chunk bounds and on its copies. The
+// first min(cnt, S) member indices stay in shared memory (8 KB at S =
+// 2048) and the S slots go out coalesced. All scales go in one launch, one
+// pass per scale.
 #include <stdint.h>
 
 #include "search.cuh"
@@ -135,51 +149,141 @@ int launch_ball_query(const float* xyz, const float* new_xyz, int B, int N,
   return (int)cudaGetLastError();
 }
 
-constexpr int kWrapThreads = 256;
+constexpr int kWrapWarps = 16;  // warps a centre (a block)
+constexpr int kWrapRound = 4;   // chunks a warp tests a round
 
 struct WrapOut {
   int* idx[kMaxScales];  // per scale (B, M, S_i) int32
   int* cnt[kMaxScales];  // per scale (B, M) int32
 };
 
-__global__ void __launch_bounds__(kWrapThreads)
+// Kernel 6w: a block of kWarps warps takes one centre. For each scale and
+// each window of kWarps * 32 chunks, the block lists the chunks whose z term
+// from the centre is below r2 in ascending index (ballot, warp counts and a
+// prefix), then tests them in rounds of kWarps * kU, kU consecutive list
+// entries a warp with the points read straight from global memory: each
+// warp ballots its chunks' members and publishes its count, and after a
+// barrier ranks each member by the centre's running count, the counts of
+// the round's earlier warps and its own earlier chunks: the ranks of an
+// ascending scan. The first min(cnt, S) members stay in shared memory
+// (max_s ints) and the S slots, members[s % cnt], go out coalesced.
+template <int kWarps, int kU>
+__global__ void __launch_bounds__(kWarps * 32)
 ball_query_wrap_kernel(const float* __restrict__ xyz,
-                       const float* __restrict__ new_xyz, int N, int M,
+                       const float* __restrict__ new_xyz,
+                       const float2* __restrict__ bounds, int N, int M,
                        BallScales sc, WrapOut o) {
-  extern __shared__ int members[];  // max S_i ints
-  __shared__ int warp_cnt[kWrapThreads / 32];
-  const int q = blockIdx.x;  // (b, m) flattened
+  constexpr int kT = kWarps * 32;
+  extern __shared__ int members[];  // max_s
+  __shared__ int s_list[kT];        // the window's chunks to test
+  __shared__ int s_wc[3][kWarps];   // warp counts: the list, rounds by parity
+  const int q = blockIdx.x;         // (b, m) flattened
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int nch = n_chunks(N);
   const float* pb = xyz + (size_t)(q / M) * N * 3;
+  const float2* bb = bounds + (size_t)(q / M) * nch;
   const float qx = new_xyz[3 * (size_t)q], qy = new_xyz[3 * (size_t)q + 1],
               qz = new_xyz[3 * (size_t)q + 2];
+  // the counts of warps before this one, and of all, in row w of s_wc
+  const auto prefix = [&](int w, int& before, int& total) {
+    before = total = 0;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      const int v = s_wc[w][k];
+      before += k < warp ? v : 0;
+      total += v;
+    }
+  };
   for (int s = 0; s < sc.n; ++s) {
     const float r2 = sc.r2[s];
     const int S = sc.S[s];
-    const int cnt = block_rank_scan<kWrapThreads>(
-        0, N,
-        [&](int i) {
-          return sqdist3(qx - pb[3 * i], qy - pb[3 * i + 1],
-                         qz - pb[3 * i + 2]) < r2;
-        },
-        S, members, warp_cnt);
+    int running = 0;  // the centre's members so far
+    int round = 0;
+    for (int w0 = 0; w0 < nch; w0 += kT) {
+      const int c = w0 + threadIdx.x;
+      const bool need = c < nch && zterm(qz, bb[c]) < r2;
+      const unsigned m = __ballot_sync(0xffffffffu, need);
+      if (lane == 0) s_wc[0][warp] = __popc(m);
+      __syncthreads();
+      int before, L;
+      prefix(0, before, L);
+      if (need) s_list[before + __popc(m & below)] = c;
+      __syncthreads();
+      for (int e0 = 0; e0 < L; e0 += kWarps * kU, ++round) {
+        unsigned hit[kU];
+        int mine = 0;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int e = e0 + warp * kU + u;
+          hit[u] = 0u;
+          if (e < L) {  // warp-uniform
+            const int j = s_list[e] * kChunk + lane;
+            const float* p = pb + 3 * (size_t)j;
+            hit[u] = __ballot_sync(
+                0xffffffffu,
+                j < N && sqdist3(qx - p[0], qy - p[1], qz - p[2]) < r2);
+            mine += __popc(hit[u]);
+          }
+        }
+        const int par = 1 + (round & 1);
+        if (lane == 0) s_wc[par][warp] = mine;
+        __syncthreads();
+        int rank, total;
+        prefix(par, rank, total);
+        rank += running;
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int r = rank + __popc(hit[u] & below);
+          if ((hit[u] >> lane & 1u) && r < S)
+            members[r] = s_list[e0 + warp * kU + u] * kChunk + lane;
+          rank += __popc(hit[u]);
+        }
+        running += total;
+      }
+      __syncthreads();  // the next window rewrites the list
+    }
     int* dst = o.idx[s] + (size_t)q * S;
-    for (int k = threadIdx.x; k < S; k += kWrapThreads)
-      dst[k] = cnt > 0 ? members[k % cnt] : 0;
-    if (threadIdx.x == 0) o.cnt[s][q] = cnt;
+    for (int k = threadIdx.x; k < S; k += kT)
+      dst[k] = running > 0 ? members[k % running] : 0;
+    if (threadIdx.x == 0) o.cnt[s][q] = running;
     __syncthreads();  // the next scale reuses `members`
   }
+}
+
+// Launches kernel 6w with kWarps warps a centre and kU chunks a warp a
+// round after the pre-pass; max_s is the largest S; returns a cudaError_t.
+template <int kWarps, int kU>
+int launch_ball_query_wrap(const float* xyz, const float* new_xyz, int B,
+                           int N, int M, const BallScales& sc,
+                           const WrapOut& o, int max_s, float2* bounds,
+                           cudaStream_t st) {
+  const size_t smem = sizeof(int) * (size_t)max_s;
+  // the opt-in counts the kernel's static shared memory too
+  const size_t stat = sizeof(int) * (kWarps * 32 + 3 * kWarps);
+  int err = smem + stat > 48 * 1024
+                ? ws3d_set_smem(
+                      (const void*)ball_query_wrap_kernel<kWarps, kU>, smem)
+                : 0;
+  if (!err) err = launch_chunk_bounds(xyz, B, N, bounds, st);
+  if (err) return err;
+  ball_query_wrap_kernel<kWarps, kU>
+      <<<(unsigned)((long long)B * M), kWarps * 32, smem, st>>>(
+          xyz, new_xyz, bounds, N, M, sc, o);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Kernel 6w: xyz (B, N, 3), new_xyz (B, M, 3) f32; r2[s] and nsample[s] for
 // n_scales scales; idx[s] a (B, M, nsample[s]) and cnt[s] a (B, M) int32
-// device buffer.
+// device buffer; bounds a workspace of B * n_chunks(N) float2 (the
+// pre-pass writes it).
 WS3D_EXPORT int ws3d_ball_query_wrap(const float* xyz, const float* new_xyz,
                                      int B, int N, int M, int n_scales,
                                      const float* r2, const int* nsample,
                                      void* const* idx, void* const* cnt,
-                                     void* stream) {
+                                     void* bounds, void* stream) {
   if (B <= 0 || N <= 0 || M <= 0 || n_scales < 1 || n_scales > kMaxScales)
     return (int)cudaErrorInvalidValue;
   BallScales sc;
@@ -196,12 +300,9 @@ WS3D_EXPORT int ws3d_ball_query_wrap(const float* xyz, const float* new_xyz,
       max_s = max(max_s, nsample[s]);
     }
   }
-  const size_t smem = (size_t)max_s * sizeof(int);
-  int err = ws3d_set_smem((const void*)ball_query_wrap_kernel, smem);
-  if (err) return err;
-  ball_query_wrap_kernel<<<B * M, kWrapThreads, smem, (cudaStream_t)stream>>>(
-      xyz, new_xyz, N, M, sc, o);
-  return (int)cudaGetLastError();
+  return launch_ball_query_wrap<kWrapWarps, kWrapRound>(
+      xyz, new_xyz, B, N, M, sc, o, max_s, (float2*)bounds,
+      (cudaStream_t)stream);
 }
 
 // xyz (B, N, 3), new_xyz (B, M, 3) f32; r2[s] and nsample[s] for n_scales

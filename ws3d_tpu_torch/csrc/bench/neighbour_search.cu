@@ -1,7 +1,8 @@
 // The measurement behind the staged, pruned searches of kernels 6
-// (csrc/ball_query.cu) and 4 (csrc/interpolate.cu): each against the
-// index-order search it replaced, at every launch shape of the main path,
-// on z-sorted clouds and on the same clouds shuffled.
+// (csrc/ball_query.cu), 4 (csrc/interpolate.cu), 7 (csrc/three_nn.cu) and
+// 6w (csrc/ball_query.cu, wrap-pad mode): each against the search it
+// replaced, at every launch shape of the main path, on z-sorted clouds and
+// on the same clouds shuffled.
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -Xcompiler -ffp-contract=off -o neighbour_search \
@@ -10,26 +11,38 @@
 // Shapes: kernel 6 at the stage-1 train step's four SA stages (16 scenes)
 // and the RCNN step's three backward stages (800 crops); kernel 4 at the
 // inference batch's four FP stages (16 scenes) and the database's FP0
-// (one scene). Clouds are seeded and LiDAR-like (scenes: depth z in
-// [0, 70] m biased to the near range, a ground layer and objects above it;
-// crops: a 4 m disc of the same), sorted by z; the queries (kernel 6) and
-// the known points (kernel 4) are every (N / M)-th point, so they stay
-// sorted too. "shuffled" is the same points, queries and known points in a
-// random order, where the z ranges of the chunks span the cloud and
-// nothing is skipped. The old searches: kernel 6 as one warp a query over
-// all points in ascending index (warp_ball_query), kernel 4 as one thread
-// a query over every known point through shared-memory tiles
-// (block_three_nn, which kernel 7 still runs). Each prints the CUDA-event
-// time of both (mean of 5 launches after one warm-up; the new one with its
-// pre-pass), the new one as the library launches it and with the other
-// sizes it could take: kernel 6 with 1 and 4 queries a warp where it keeps
-// 2; kernel 4 with launch bounds for 4 and 12 blocks an SM where it keeps
-// 8, and with 2 and 4 queries a thread where it keeps 1. It exits 1 if
-// any output differs from the old one by a bit, or if kernel 6's first row
-// differs from a host ball query.
+// (one scene); kernel 7 at the stage-1 step's four FP stages (16 scenes:
+// n 256 / 1,024 / 4,096 / 16,384 over m 64 / 256 / 1,024 / 4,096); kernel
+// 6w at the proposal database's launch (one scene of 16,384 points with y
+// zeroed and its last 3,000 moved to x = z = 1e6 as invalid points, 64
+// centres picked at random among the valid points, in that order, r 4 m,
+// S 2,048). Clouds are seeded and LiDAR-like (scenes: depth z in [0, 70]
+// m biased to the near range, a ground layer and objects above it; crops:
+// a 4 m disc of the same), sorted by z; the queries (kernel 6) and the
+// known points (kernels 4 and 7) are every (N / M)-th point, so they stay
+// sorted too. "shuffled" is the same points, queries and known points in
+// a random order, where the z ranges of the chunks span the cloud and
+// nothing is skipped (kernel 6w's centres keep their order). The old
+// searches: kernel 6 as one warp a query over all points in ascending
+// index (warp_ball_query), kernels 4 and 7 as one thread a query over
+// every known point through shared-memory tiles (block_three_nn), kernel
+// 6w as one block a centre ranking all N points (block_rank_scan). Each
+// prints the CUDA-event time of both (mean of 5 launches after one
+// warm-up; the new one with its pre-pass), the new one as the library
+// launches it and with the other sizes it could take: kernel 6 with 1 and
+// 4 queries a warp where it keeps 2; kernels 4 and 7 with launch bounds
+// for 4 and 12 blocks an SM where they keep 8, and with 2 and 4 queries a
+// thread where they keep 1; kernel 7 also on the chunk bounds a pre-pass
+// already wrote (the interpolation backward reuses its forward's); kernel
+// 6w with 8 and 32 warps a centre where it keeps 16, with 2 and 8 chunks
+// a warp a round where it keeps 4, and on the staged ring of search.cuh
+// with one centre a block and with 2 and 8 centres a block taken in z
+// order.
+// It exits 1 if any output differs from the old one by a bit, or if
+// kernel 6's first row differs from a host ball query.
 //
 // Not part of the kernel library (csrc/*.cu only): it compiles
-// ball_query.cu and interpolate.cu into itself.
+// ball_query.cu, interpolate.cu and three_nn.cu into itself.
 #include <algorithm>
 #include <array>
 #include <cmath>
@@ -42,6 +55,7 @@
 
 #include "../ball_query.cu"
 #include "../interpolate.cu"
+#include "../three_nn.cu"
 
 namespace {
 
@@ -128,6 +142,282 @@ old_ball_query_kernel(const float* __restrict__ xyz,
   }
 }
 
+// The 3-NN search of kernels 4 and 7 before: every known point for every
+// query. The three known points of `kb` ((x, y, z) rows, m of them) nearest
+// to (qx, qy, qz): a running top-3 with strict < over ascending indices;
+// every thread of a kNNThreads-thread block calls it (it synchronises the
+// block); `tile` is 3 * kNNTile floats of shared memory.
+constexpr int kNNTile = 1024;  // known points per shared-memory tile
+
+__device__ __forceinline__ void block_three_nn(const float* __restrict__ kb,
+                                               int m, float qx, float qy,
+                                               float qz, float* tile,
+                                               float (&d)[3], int (&i)[3]) {
+  float* kx = tile;
+  float* ky = tile + kNNTile;
+  float* kz = tile + 2 * kNNTile;
+  const int tid = threadIdx.x;
+  const float inf = __int_as_float(0x7f800000);
+  d[0] = d[1] = d[2] = inf;
+  i[0] = i[1] = i[2] = -1;
+  for (int t0 = 0; t0 < m; t0 += kNNTile) {
+    const int cnt = min(kNNTile, m - t0);
+    __syncthreads();
+    for (int t = tid; t < cnt; t += kNNThreads) {
+      kx[t] = kb[3 * (t0 + t)];
+      ky[t] = kb[3 * (t0 + t) + 1];
+      kz[t] = kb[3 * (t0 + t) + 2];
+    }
+    __syncthreads();
+    for (int t = 0; t < cnt; ++t) {
+      const float v = sqdist3(qx - kx[t], qy - ky[t], qz - kz[t]);
+      const int j = t0 + t;
+      if (v < d[2]) {
+        if (v < d[1]) {
+          d[2] = d[1];
+          i[2] = i[1];
+          if (v < d[0]) {
+            d[1] = d[0];
+            i[1] = i[0];
+            d[0] = v;
+            i[0] = j;
+          } else {
+            d[1] = v;
+            i[1] = j;
+          }
+        } else {
+          d[2] = v;
+          i[2] = j;
+        }
+      }
+    }
+  }
+  top3_fill(d, i);
+}
+
+// kernel 7 before: one thread a query, every known point, dense tiles
+__global__ void __launch_bounds__(kNNThreads)
+old_three_nn_kernel(const float* __restrict__ unknown,
+                    const float* __restrict__ known, int n, int m,
+                    float* __restrict__ dist, int* __restrict__ idx) {
+  __shared__ float tile[3 * kNNTile];
+  const int tiles = (n + kNNThreads - 1) / kNNThreads;
+  const int b = blockIdx.x / tiles;
+  const int u = (blockIdx.x % tiles) * kNNThreads + threadIdx.x;
+  const float* ub = unknown + (size_t)b * n * 3;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (u < n) {
+    qx = ub[3 * u];
+    qy = ub[3 * u + 1];
+    qz = ub[3 * u + 2];
+  }
+  float d[3];
+  int nn[3];
+  block_three_nn(known + (size_t)b * m * 3, m, qx, qy, qz, tile, d, nn);
+  if (u < n) {
+    const size_t o = ((size_t)b * n + u) * 3;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      dist[o + k] = d[k];
+      idx[o + k] = nn[k];
+    }
+  }
+}
+
+// kernel 6w before: one block of 256 threads a centre ranks all N points
+__global__ void __launch_bounds__(256)
+old_ball_query_wrap_kernel(const float* __restrict__ xyz,
+                           const float* __restrict__ new_xyz, int N, int M,
+                           BallScales sc, WrapOut o) {
+  extern __shared__ int members[];  // max S_i ints
+  __shared__ int warp_cnt[8];
+  const int q = blockIdx.x;  // (b, m) flattened
+  const float* pb = xyz + (size_t)(q / M) * N * 3;
+  const float qx = new_xyz[3 * (size_t)q], qy = new_xyz[3 * (size_t)q + 1],
+              qz = new_xyz[3 * (size_t)q + 2];
+  for (int s = 0; s < sc.n; ++s) {
+    const float r2 = sc.r2[s];
+    const int S = sc.S[s];
+    const int cnt = block_rank_scan<256>(
+        0, N,
+        [&](int i) {
+          return sqdist3(qx - pb[3 * i], qy - pb[3 * i + 1],
+                         qz - pb[3 * i + 2]) < r2;
+        },
+        S, members, warp_cnt);
+    int* dst = o.idx[s] + (size_t)q * S;
+    for (int k = threadIdx.x; k < S; k += 256)
+      dst[k] = cnt > 0 ? members[k % cnt] : 0;
+    if (threadIdx.x == 0) o.cnt[s][q] = cnt;
+    __syncthreads();  // the next scale reuses `members`
+  }
+}
+
+constexpr int kRingWarps = 8;
+
+// z as an int in the same order, NaN last: (key, index) orders any centres.
+__device__ __forceinline__ int z_key(float z) {
+  if (z != z) return 0x7fffffff;
+  const int i = __float_as_int(z);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+// Kernel 6w on the staged ring of search.cuh (the other design the bench
+// weighs): a block of kRingWarps warps takes kCPB
+// centres of one batch row, kRingWarps / kCPB warps a centre; with kCPB > 1
+// they are the row's centres of ranks blockIdx * kCPB ... in (z, index)
+// order, so a block's centres are z neighbours. For each scale, warp 0
+// stages the chunks, in ascending index, whose z term from the block's
+// centre z range is below r2, and a centre tests a staged chunk only where
+// its own z term is below r2. The warps of a centre take the chunks of
+// each tile in turn and rank their members after a barrier by the counts
+// of the tile's earlier chunks.
+template <int kCPB>
+__global__ void __launch_bounds__(kRingWarps * 32)
+ring_wrap_kernel(const float* __restrict__ xyz,
+                 const float* __restrict__ new_xyz,
+                 const float2* __restrict__ bounds, int N, int M,
+                 BallScales sc, WrapOut o, int max_s, int a16) {
+  constexpr int kGW = kRingWarps / kCPB;    // warps a centre
+  constexpr int kMine = kTileChunks / kGW;  // a warp's chunks of a tile
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const TileRing ring = ring_at(smem);
+  int* members = reinterpret_cast<int*>(smem + kRingFloats);
+  __shared__ int s_cnt[kCPB][kTileChunks];  // members of each staged chunk
+  __shared__ int s_q[kCPB];                 // the block's centres, or -1
+  const int groups = (M + kCPB - 1) / kCPB;
+  const int b = blockIdx.x / groups, r0 = (blockIdx.x % groups) * kCPB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = warp / kGW, gw = warp % kGW;
+  const unsigned below = (1u << lane) - 1u;
+  const float inf = __int_as_float(0x7f800000);
+  const float* pb = xyz + (size_t)b * N * 3;
+  const float* qb = new_xyz + (size_t)b * M * 3;
+  const float2* bb = bounds + (size_t)b * n_chunks(N);
+  if (kCPB == 1) {
+    if (threadIdx.x == 0) s_q[0] = r0;
+  } else {
+    if (threadIdx.x < kCPB) s_q[threadIdx.x] = -1;
+    __syncthreads();
+    for (int c = threadIdx.x; c < M; c += blockDim.x) {
+      const int kc = z_key(qb[3 * c + 2]);
+      int rank = 0;
+      for (int j = 0; j < M; ++j) {
+        const int kj = z_key(qb[3 * j + 2]);
+        rank += kj < kc || (kj == kc && j < c);
+      }
+      if (rank >= r0 && rank < r0 + kCPB) s_q[rank - r0] = c;
+    }
+  }
+  __syncthreads();
+  const int q = s_q[grp];
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (q >= 0) {
+    qx = qb[3 * q];
+    qy = qb[3 * q + 1];
+    qz = qb[3 * q + 2];
+  }
+  float zlo = inf, zhi = -inf;  // the block's centre z range, NaN left out
+  for (int g = 0; g < kCPB; ++g) {
+    if (s_q[g] >= 0) {
+      zlo = fminf(zlo, qb[3 * s_q[g] + 2]);
+      zhi = fmaxf(zhi, qb[3 * s_q[g] + 2]);
+    }
+  }
+  const int nch = n_chunks(N);
+  const auto order = [](int p) { return p; };
+  int* mem = members + grp * max_s;
+  for (int s = 0; s < sc.n; ++s) {
+    const float r2 = sc.r2[s];
+    const int S = sc.S[s];
+    const auto need = [=](float2 zb) {
+      return zterm_hull(zlo, zhi, zb) < r2;
+    };
+    int running = 0;  // the centre's members so far, in each of its warps
+    int pos = 0;      // warp 0's cursor
+    if (warp == 0)
+      for (int t = 0; t < kStages - 1; ++t)
+        ring_stage(pb, N, bb, a16 != 0, nch, order, need, pos, ring, t);
+    for (int t = 0;; ++t) {
+      if (warp == 0) ring_wait();
+      __syncthreads();
+      const int slot = t % kStages;
+      const int nc = ring.cnt[slot];
+      if (nc == 0) break;  // block-uniform
+      if (warp == 0)
+        ring_stage(pb, N, bb, a16 != 0, nch, order, need, pos, ring,
+                   (t + kStages - 1) % kStages);
+      const float* tp = ring.pts + slot * kTileChunks * 3 * kChunk;
+      const int* cid = ring.cid + slot * kTileChunks;
+      unsigned hit[kMine];
+#pragma unroll
+      for (int i = 0; i < kMine; ++i) {
+        const int k = gw + i * kGW;
+        hit[i] = 0u;
+        if (k < nc) {  // warp-uniform
+          if (q >= 0 && zterm(qz, ring.zb[slot * kTileChunks + k]) < r2) {
+            const int j = cid[k] * kChunk + lane;
+            const float* p = tp + 3 * kChunk * k + 3 * lane;
+            hit[i] = __ballot_sync(
+                0xffffffffu,
+                j < N && sqdist3(qx - p[0], qy - p[1], qz - p[2]) < r2);
+          }
+          if (lane == 0) s_cnt[grp][k] = __popc(hit[i]);
+        }
+      }
+      __syncthreads();
+      // lane l: the centre's members in the tile's chunks before l
+      const int c = lane < nc ? s_cnt[grp][lane] : 0;
+      int incl = c;
+#pragma unroll
+      for (int o2 = 1; o2 < 32; o2 <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o2);
+        if (lane >= o2) incl += v;
+      }
+      const int excl = incl - c;
+#pragma unroll
+      for (int i = 0; i < kMine; ++i) {
+        const int k = gw + i * kGW;
+        const int rank = running + __shfl_sync(0xffffffffu, excl, k) +
+                         __popc(hit[i] & below);
+        if ((hit[i] >> lane & 1u) && rank < S)
+          mem[rank] = cid[k] * kChunk + lane;
+      }
+      running += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (warp == 0) ring_drain();
+    __syncthreads();
+    if (q >= 0) {
+      int* dst = o.idx[s] + ((size_t)b * M + q) * S;
+      for (int k = gw * 32 + lane; k < S; k += kGW * 32)
+        dst[k] = running > 0 ? mem[k % running] : 0;
+      if (gw == 0 && lane == 0) o.cnt[s][(size_t)b * M + q] = running;
+    }
+    __syncthreads();  // the next scale reuses the ring and `members`
+  }
+}
+
+// Launches the ring variant with kCPB centres a block after the pre-pass.
+template <int kCPB>
+int launch_ring_wrap(const float* xyz, const float* new_xyz, int B, int N,
+                     int M, const BallScales& sc, const WrapOut& o, int max_s,
+                     float2* bounds, cudaStream_t st) {
+  const size_t smem = sizeof(float) * kRingFloats +
+                      sizeof(int) * (size_t)kCPB * max_s;
+  if (smem + sizeof(int) * kCPB * (kTileChunks + 1) > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
+  int err = ws3d_set_smem((const void*)ring_wrap_kernel<kCPB>, smem);
+  if (!err) err = launch_chunk_bounds(xyz, B, N, bounds, st);
+  if (err) return err;
+  const int a16 =
+      (reinterpret_cast<uintptr_t>(xyz) & 15) == 0 && N % 4 == 0 ? 1 : 0;
+  const long long grid = (long long)B * ((M + kCPB - 1) / kCPB);
+  ring_wrap_kernel<kCPB><<<(unsigned)grid, kRingWarps * 32, smem, st>>>(
+      xyz, new_xyz, bounds, N, M, sc, o, max_s, a16);
+  return (int)cudaGetLastError();
+}
+
 // kernel 4 before: one thread a query, every known point, dense tiles
 __global__ void __launch_bounds__(kNNThreads)
 old_three_interp_kernel(const float* __restrict__ unknown,
@@ -201,6 +491,18 @@ const FPShape kFPShapes[] = {
     {"inference FP1", 16, 4096, 1024, 256},
     {"inference FP0", 16, 16384, 4096, 128},
     {"database FP0", 1, 16384, 4096, 128},
+};
+
+struct NNShape {
+  const char* name;
+  int B, n, m;
+};
+
+const NNShape kNNShapes[] = {
+    {"stage-1 FP3", 16, 256, 64},
+    {"stage-1 FP2", 16, 1024, 256},
+    {"stage-1 FP1", 16, 4096, 1024},
+    {"stage-1 FP0", 16, 16384, 4096},
 };
 
 // B rows of N LiDAR-like points sorted by z
@@ -479,6 +781,213 @@ int main() {
       ok = ok && same;
       for (void* p : {(void*)du, (void*)dk, (void*)df, (void*)dold,
                       (void*)dnew, (void*)dbounds})
+        CHECK(cudaFree(p));
+    }
+  }
+  for (const NNShape& s : kNNShapes) {
+    std::vector<float> un = cloud(gen, s.B, s.n, false);
+    std::vector<float> kn = every(un, s.B, s.n, s.m);
+    for (int order = 0; order < 2; ++order) {
+      if (order == 1) {
+        shuffle_rows(gen, un, s.B, s.n, 3);
+        shuffle_rows(gen, kn, s.B, s.m, 3);
+      }
+      float* du = to_device(un);
+      float* dk = to_device(kn);
+      const size_t n_out = (size_t)s.B * s.n * 3;
+      float *dd_old, *dd_new;
+      int *di_old, *di_new;
+      float2* dbounds;
+      CHECK(cudaMalloc(&dd_old, n_out * 4));
+      CHECK(cudaMalloc(&dd_new, n_out * 4));
+      CHECK(cudaMalloc(&di_old, n_out * 4));
+      CHECK(cudaMalloc(&di_new, n_out * 4));
+      CHECK(cudaMalloc(&dbounds, (size_t)s.B * n_chunks(s.m) * 8));
+      const float t_old = time_ms([&] {
+        old_three_nn_kernel<<<s.B * ((s.n + kNNThreads - 1) / kNNThreads),
+                              kNNThreads>>>(du, dk, s.n, s.m, dd_old, di_old);
+        return (int)cudaGetLastError();
+      }, e0, e1);
+      const float t_new = time_ms([&] {
+        return ws3d_three_nn(du, dk, s.B, s.n, s.m, dd_new, di_new, dbounds, 1,
+                             nullptr);
+      }, e0, e1);
+      std::vector<float> a(n_out), b(n_out);
+      std::vector<int> ai(n_out), bi(n_out);
+      CHECK(cudaMemcpy(a.data(), dd_old, n_out * 4, cudaMemcpyDeviceToHost));
+      CHECK(cudaMemcpy(ai.data(), di_old, n_out * 4, cudaMemcpyDeviceToHost));
+      auto same_as_old = [&] {
+        CHECK(cudaMemcpy(b.data(), dd_new, n_out * 4, cudaMemcpyDeviceToHost));
+        CHECK(cudaMemcpy(bi.data(), di_new, n_out * 4, cudaMemcpyDeviceToHost));
+        return std::memcmp(a.data(), b.data(), n_out * 4) == 0 && ai == bi;
+      };
+      bool same = same_as_old();
+      std::printf("kernel 7 %s B%d n%d m%d %s: old %.4f ms, new %.4f ms "
+                  "(%.2fx", s.name, s.B, s.n, s.m,
+                  order ? "shuffled" : "sorted", t_old, t_new, t_old / t_new);
+      // the kept sizing, and the pre-pass, against the alternatives
+      auto variant = [&](const char* name, auto launch) {
+        CHECK(cudaMemset(dd_new, 0xff, n_out * 4));
+        CHECK(cudaMemset(di_new, 0xff, n_out * 4));
+        const float tv = time_ms(launch, e0, e1);
+        const bool sv = same_as_old();
+        same = same && sv;
+        std::printf("; %s %.4f ms%s", name, tv, sv ? "" : " FAIL");
+      };
+      variant("the forward's bounds (no pre-pass)", [&] {
+        return ws3d_three_nn(du, dk, s.B, s.n, s.m, dd_new, di_new, dbounds, 0,
+                             nullptr);
+      });
+      variant("4 blocks an SM", [&] {
+        return launch_three_nn<1, 4>(du, dk, s.B, s.n, s.m, dd_new, di_new,
+                                     dbounds, 1, nullptr);
+      });
+      variant("12 blocks an SM", [&] {
+        return launch_three_nn<1, 12>(du, dk, s.B, s.n, s.m, dd_new, di_new,
+                                      dbounds, 1, nullptr);
+      });
+      variant("2 queries a thread", [&] {
+        return launch_three_nn<2, 4>(du, dk, s.B, s.n, s.m, dd_new, di_new,
+                                     dbounds, 1, nullptr);
+      });
+      variant("4 queries a thread", [&] {
+        return launch_three_nn<4, 4>(du, dk, s.B, s.n, s.m, dd_new, di_new,
+                                     dbounds, 1, nullptr);
+      });
+      std::printf(")%s\n", same ? "" : " FAIL: new != old");
+      ok = ok && same;
+      for (void* p : {(void*)du, (void*)dk, (void*)dd_old, (void*)dd_new,
+                      (void*)di_old, (void*)di_new, (void*)dbounds})
+        CHECK(cudaFree(p));
+    }
+  }
+
+  {  // kernel 6w at the database path's launch: one scene
+    const int B = 1, N = 16384, M = 64, n_far = 3000;
+    int S = 2048;
+    const float radius = 4.f;
+    const float r2 = (float)((double)radius * radius);
+    std::vector<float> xyz = cloud(gen, B, N, false);
+    for (int j = 0; j < N; ++j) {
+      xyz[3 * j + 1] = 0.f;  // BEV: y zeroed on both sides
+      if (j >= N - n_far) xyz[3 * j] = xyz[3 * j + 2] = 1e6f;  // invalid
+    }
+    std::vector<int> pick(N - n_far);
+    std::iota(pick.begin(), pick.end(), 0);
+    std::shuffle(pick.begin(), pick.end(), gen);  // centres in score order
+    std::vector<float> q(3 * M);
+    for (int c = 0; c < M; ++c)
+      for (int k = 0; k < 3; ++k) q[3 * c + k] = xyz[3 * pick[c] + k];
+    for (int order = 0; order < 2; ++order) {
+      if (order == 1) shuffle_rows(gen, xyz, B, N, 3);
+      float* dxyz = to_device(xyz);
+      float* dq = to_device(q);
+      int *di[2], *dc[2];
+      for (int v = 0; v < 2; ++v) {
+        CHECK(cudaMalloc(&di[v], (size_t)B * M * S * 4));
+        CHECK(cudaMalloc(&dc[v], (size_t)B * M * 4));
+      }
+      float2* dbounds;
+      CHECK(cudaMalloc(&dbounds, (size_t)B * n_chunks(N) * 8));
+      BallScales sc{};
+      sc.n = 1;
+      sc.r2[0] = r2;
+      sc.S[0] = S;
+      WrapOut o_old{}, o_new{};
+      o_old.idx[0] = di[0];
+      o_old.cnt[0] = dc[0];
+      o_new.idx[0] = di[1];
+      o_new.cnt[0] = dc[1];
+      const float t_old = time_ms([&] {
+        old_ball_query_wrap_kernel<<<B * M, 256, S * 4>>>(dxyz, dq, N, M, sc,
+                                                          o_old);
+        return (int)cudaGetLastError();
+      }, e0, e1);
+      const float t_new = time_ms([&] {
+        void* idx[1] = {di[1]};
+        void* cnt[1] = {dc[1]};
+        return ws3d_ball_query_wrap(dxyz, dq, B, N, M, 1, &r2, &S, idx, cnt,
+                                    dbounds, nullptr);
+      }, e0, e1);
+      std::vector<int> ai((size_t)B * M * S), bi(ai.size()), ac(B * M),
+          bc(B * M);
+      CHECK(cudaMemcpy(ai.data(), di[0], ai.size() * 4,
+                       cudaMemcpyDeviceToHost));
+      CHECK(cudaMemcpy(ac.data(), dc[0], ac.size() * 4,
+                       cudaMemcpyDeviceToHost));
+      auto same_as_old = [&] {
+        CHECK(cudaMemcpy(bi.data(), di[1], bi.size() * 4,
+                         cudaMemcpyDeviceToHost));
+        CHECK(cudaMemcpy(bc.data(), dc[1], bc.size() * 4,
+                         cudaMemcpyDeviceToHost));
+        return ai == bi && ac == bc;
+      };
+      bool same = same_as_old();
+      long long slab = 0, members = 0;
+      int over = 0;
+      for (int c = 0; c < M; ++c) {
+        for (int j = 0; j < N; ++j) {
+          const float dz = q[3 * c + 2] - xyz[3 * j + 2];
+          slab += dz * dz < r2;
+        }
+        members += ac[c];
+        over += ac[c] > S;
+      }
+      std::printf("kernel 6w database B%d N%d M%d r%.0f S%d %s (%.1f slab "
+                  "points and %.1f members a centre, %d centres over S): old "
+                  "%.4f ms, new %.4f ms (%.2fx",
+                  B, N, M, radius, S, order ? "shuffled" : "sorted",
+                  (double)slab / M, (double)members / M, over, t_old, t_new,
+                  t_old / t_new);
+      auto variant = [&](const char* name, auto launch) {
+        CHECK(cudaMemset(di[1], 0xff, bi.size() * 4));
+        CHECK(cudaMemset(dc[1], 0xff, bc.size() * 4));
+        const float tv = time_ms(launch, e0, e1);
+        const bool sv = same_as_old();
+        same = same && sv;
+        std::printf("; %s %.4f ms%s", name, tv, sv ? "" : " FAIL");
+      };
+      // the kept sizing against other sizes, and the staged ring design
+      // with one centre a block and with blocks of centres in z order
+      variant("8 warps", [&] {
+        return launch_ball_query_wrap<8, kWrapRound>(dxyz, dq, B, N, M, sc,
+                                                     o_new, S, dbounds,
+                                                     nullptr);
+      });
+      variant("32 warps", [&] {
+        return launch_ball_query_wrap<32, kWrapRound>(dxyz, dq, B, N, M, sc,
+                                                      o_new, S, dbounds,
+                                                      nullptr);
+      });
+      variant("2 chunks a warp a round", [&] {
+        return launch_ball_query_wrap<kWrapWarps, 2>(dxyz, dq, B, N, M, sc,
+                                                     o_new, S, dbounds,
+                                                     nullptr);
+      });
+      variant("8 chunks a warp a round", [&] {
+        return launch_ball_query_wrap<kWrapWarps, 8>(dxyz, dq, B, N, M, sc,
+                                                     o_new, S, dbounds,
+                                                     nullptr);
+      });
+      variant("staged ring, 1 centre a block", [&] {
+        return launch_ring_wrap<1>(dxyz, dq, B, N, M, sc, o_new, S, dbounds,
+                                   nullptr);
+      });
+      variant("staged ring, 2 centres in z order", [&] {
+        return launch_ring_wrap<2>(dxyz, dq, B, N, M, sc, o_new, S, dbounds,
+                                   nullptr);
+      });
+      variant("staged ring, 8 centres in z order", [&] {
+        return launch_ring_wrap<8>(dxyz, dq, B, N, M, sc, o_new, S, dbounds,
+                                   nullptr);
+      });
+      std::printf(")%s\n", same ? "" : " FAIL: new != old");
+      ok = ok && same;
+      for (int v = 0; v < 2; ++v) {
+        CHECK(cudaFree(di[v]));
+        CHECK(cudaFree(dc[v]));
+      }
+      for (void* p : {(void*)dxyz, (void*)dq, (void*)dbounds})
         CHECK(cudaFree(p));
     }
   }

@@ -51,8 +51,7 @@ static inline int ws3d_set_smem(const void* kernel, size_t bytes) {
                                    (int)bytes);
 }
 
-// ---- block rank scan: shared by crop_gather.cu (kernels 5, 10) and
-// ball_query.cu (kernel 6w) -------------------------------------------------
+// ---- block rank scan: crop_gather.cu (kernels 5, 10) ----------------------
 
 // All kThreads threads of a block scan the points [lo, hi) in ascending
 // index, kThreads at a time; member(i) says whether point i belongs. A warp
@@ -97,14 +96,14 @@ struct BallScales {
   int S[kMaxScales];     // samples per scale
 };
 
-// ---- 3-NN search: shared by three_nn.cu and interpolate.cu -----------------
+// ---- 3-NN search: the staged search of kernels 4 and 7 (search.cuh) and
+// kernel 8's window search (interpolate.cu) ---------------------------------
 
-constexpr int kNNThreads = 128;  // unknown points per block, one per thread
-constexpr int kNNTile = 1024;    // known points per shared-memory tile
+constexpr int kNNThreads = 128;  // threads a block of the 3-NN kernels
 
 // Insert candidate (v, j) into a running top-3 ordered by (d2, index): the
-// order of kernel 7's ascending-index scan with strict <, whatever order the
-// candidates come in. Empty slots hold (inf, -1).
+// order of an ascending-index scan with strict < (the TPU's three masked-min
+// passes), whatever order the candidates come in. Empty slots hold (inf, -1).
 __device__ __forceinline__ void top3_insert(float v, int j, float (&d)[3],
                                             int (&i)[3]) {
   auto before = [](float a, int ia, float b, int ib) {
@@ -139,56 +138,4 @@ __device__ __forceinline__ void top3_fill(float (&d)[3], int (&i)[3]) {
     d[2] = d[0];
     i[2] = i[0];
   }
-}
-
-// The three known points of `kb` ((x, y, z) rows, m of them) nearest to
-// (qx, qy, qz): d2 ascending, the lowest index first on ties, the nearest
-// repeated when m < 3. A running top-3 with strict < over ascending indices
-// gives the order of the TPU's three masked-min passes. Every thread of a
-// kNNThreads-thread block calls it (it synchronises the block); `tile` is
-// 3 * kNNTile floats of shared memory.
-__device__ __forceinline__ void block_three_nn(const float* __restrict__ kb,
-                                               int m, float qx, float qy,
-                                               float qz, float* tile,
-                                               float (&d)[3], int (&i)[3]) {
-  float* kx = tile;
-  float* ky = tile + kNNTile;
-  float* kz = tile + 2 * kNNTile;
-  const int tid = threadIdx.x;
-  const float inf = __int_as_float(0x7f800000);
-  d[0] = d[1] = d[2] = inf;
-  i[0] = i[1] = i[2] = -1;
-  for (int t0 = 0; t0 < m; t0 += kNNTile) {
-    const int cnt = min(kNNTile, m - t0);
-    __syncthreads();
-    for (int t = tid; t < cnt; t += kNNThreads) {
-      kx[t] = kb[3 * (t0 + t)];
-      ky[t] = kb[3 * (t0 + t) + 1];
-      kz[t] = kb[3 * (t0 + t) + 2];
-    }
-    __syncthreads();
-    for (int t = 0; t < cnt; ++t) {
-      const float v = sqdist3(qx - kx[t], qy - ky[t], qz - kz[t]);
-      const int j = t0 + t;
-      if (v < d[2]) {
-        if (v < d[1]) {
-          d[2] = d[1];
-          i[2] = i[1];
-          if (v < d[0]) {
-            d[1] = d[0];
-            i[1] = i[0];
-            d[0] = v;
-            i[0] = j;
-          } else {
-            d[1] = v;
-            i[1] = j;
-          }
-        } else {
-          d[2] = v;
-          i[2] = j;
-        }
-      }
-    }
-  }
-  top3_fill(d, i);
 }

@@ -16,23 +16,18 @@
 // within the z slab its third-best d2 spans: about 90 of FP0's 4096 known
 // points (kernel 8's visits).
 //
-// Design: the staged search of search.cuh (ring_stage and its loop) over the
-// known cloud's 32-point chunks, whose z ranges a pre-pass writes into the
-// workspace the wrapper allocates. A block of 128 threads takes 128 * kQPT
-// consecutive queries, kQPT a thread in registers, so one staged known
-// point (three broadcast shared loads) serves kQPT queries. The visit order
-// starts at the chunk nearest the block's query z range and steps outward,
-// alternating sides; warp 0 stages a chunk unless its z term from the
-// block's query z range is strictly greater than the largest third-best d2
-// of the block, and a warp skips a staged chunk whose z term from the
-// warp's query z range is strictly greater than the warp's largest
-// third-best d2 (strictly: an equal d2 can still win a tie towards a lower
-// index). Every point of a skipped chunk has a larger d2 than the final
-// third neighbour, so the result is the full search's on any input. Since
-// candidates come out of index order, the running top-3 is ordered by
-// (d2, index) (top3_insert), which is the order of the TPU's three
-// masked-min passes and of kernel 7's ascending scan. The weights and the
-// three-row sum are the arithmetic they were, so kernel 8 stays bit-equal.
+// Design: staged_three_nn (search.cuh), the staged search that kernel 7
+// (three_nn.cu) runs too, so the backward weights the very neighbours the
+// forward used: over the known cloud's 32-point chunks, whose z ranges a
+// pre-pass writes into the workspace the wrapper allocates, a block of 128
+// threads takes 128 * kQPT consecutive queries, kQPT a thread in
+// registers; the visit order starts at the chunk nearest the block's query
+// z range and steps outward, and a chunk is skipped where its z term is
+// strictly greater than the third-best d2 of every query it could serve, so
+// the result is the full search's on any input, with the top-3 in (d2,
+// index) order, the order of the TPU's three masked-min passes. The
+// weights and the three-row sum are the arithmetic they were, so kernel 8
+// stays bit-equal.
 // The library launches kQPT 1: csrc/bench/neighbour_search.cu measures 2
 // and 4 too, and more queries a thread lost at every main-path shape (the
 // pruned search leaves few pairs to share a load, and the registers cut
@@ -73,47 +68,6 @@ namespace {
 constexpr int kQ = kNNThreads;  // threads a block
 constexpr int kInterpMinBlocks = 8;  // kernel 4's launch bound: blocks an SM
 
-// Warp 0 stages kernel 4's next tile into `slot`: the next chunks of the
-// visit order outward from the home chunk st[0] (positions 0, 1, 2, ...
-// are home, home - 1, home + 1, home - 2, ...) whose z term from the
-// block's query z range zr is not above tb; st[1] is the cursor.
-__device__ __forceinline__ void interp_stage(const float* __restrict__ kb,
-                                             int m,
-                                             const float2* __restrict__ bb,
-                                             bool a16, const TileRing& ring,
-                                             int slot, float tb,
-                                             const float* zr, int* st) {
-  const int nch = n_chunks(m), home = st[0];
-  const float zlo = zr[0], zhi = zr[1];
-  int pos = st[1];
-  ring_stage(
-      kb, m, bb, a16, 2 * max(home, nch - 1 - home) + 1,
-      [=](int p) {
-        const int c = (p & 1) ? home - ((p + 1) >> 1) : home + (p >> 1);
-        return c >= 0 && c < nch ? c : -1;
-      },
-      [=](float2 b) { return !(zterm_hull(zlo, zhi, b) > tb); }, pos, ring,
-      slot);
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) st[1] = pos;
-}
-
-// One staged known point u (index j0 + u) against a thread's kQPT queries:
-// inserted where its d2 is not above the third-best (top3_insert breaks a
-// tie by index).
-template <int kQPT>
-__device__ __forceinline__ void interp_point(
-    const float* tp, int u, int j0, const float (&qx)[kQPT],
-    const float (&qy)[kQPT], const float (&qz)[kQPT], float (&d)[kQPT][3],
-    int (&nn)[kQPT][3]) {
-  const float px = tp[3 * u], py = tp[3 * u + 1], pz = tp[3 * u + 2];
-#pragma unroll
-  for (int i = 0; i < kQPT; ++i) {
-    const float v = sqdist3(qx[i] - px, qy[i] - py, qz[i] - pz);
-    if (v <= d[i][2]) top3_insert(v, j0 + u, d[i], nn[i]);
-  }
-}
-
 // Kernel 4: a block takes 128 * kQPT consecutive unknown points of one
 // batch row and channels [split * cg, split * cg + cg) of their output,
 // cg = ceil(C / csplit), split = blockIdx.x % csplit.
@@ -125,134 +79,22 @@ three_interp_kernel(const float* __restrict__ unknown,
                     const float* __restrict__ feats, int n, int m, int C,
                     int csplit, int a16, float* __restrict__ out) {
   constexpr int kBQ = kQ * kQPT;  // queries a block
-  constexpr int kW = kQ / 32;     // warps
-  __shared__ __align__(16) float sring[kRingFloats];
   __shared__ int s_idx[kBQ][3];
   __shared__ float s_w[kBQ][3];
-  __shared__ float s_zr[2][kW];
-  __shared__ float s_blk[2];  // the block's query z range
-  __shared__ unsigned s_tmin;
-  __shared__ int s_home[2];
-  __shared__ int s_st[2];     // warp 0's visit order: home, cursor
-  const TileRing ring = ring_at(sring);
   const int tiles = (n + kBQ - 1) / kBQ;
   const int split = blockIdx.x % csplit;
   const int b = blockIdx.x / csplit / tiles;
   const int u0 = (blockIdx.x / csplit % tiles) * kBQ;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* ub = unknown + (size_t)b * n * 3;
-  const float* kb = known + (size_t)b * m * 3;
-  const float2* bb = bounds + (size_t)b * n_chunks(m);
+  const int tid = threadIdx.x;
   const float* fb = feats + (size_t)b * m * C;
-  const float inf = __int_as_float(0x7f800000);
-  const int nch = n_chunks(m);
-
-  // kQPT consecutive queries a thread; past n, copies of the last query
-  float qx[kQPT], qy[kQPT], qz[kQPT], d[kQPT][3];
+  float d[kQPT][3];
   int nn[kQPT][3];
-  float wlo = inf, whi = -inf;
-#pragma unroll
-  for (int i = 0; i < kQPT; ++i) {
-    const int u = min(u0 + tid * kQPT + i, n - 1);
-    qx[i] = ub[3 * u];
-    qy[i] = ub[3 * u + 1];
-    qz[i] = ub[3 * u + 2];
-    d[i][0] = d[i][1] = d[i][2] = inf;
-    nn[i][0] = nn[i][1] = nn[i][2] = -1;
-    wlo = fminf(wlo, qz[i]);
-    whi = fmaxf(whi, qz[i]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    wlo = fminf(wlo, __shfl_xor_sync(0xffffffffu, wlo, o));
-    whi = fmaxf(whi, __shfl_xor_sync(0xffffffffu, whi, o));
-  }
-  if (lane == 0) {
-    s_zr[0][warp] = wlo;
-    s_zr[1][warp] = whi;
-    ring.warp_v[warp] = ring.warp_v[32 + warp] = inf;
-  }
-  if (tid == 0) {
-    s_tmin = __float_as_uint(inf);
-    s_home[0] = nch;
-    s_home[1] = -1;
-  }
-  __syncthreads();
-  if (tid == 0) {  // the block's query z range
-    float lo = inf, hi = -inf;
-    for (int w = 0; w < kW; ++w) {
-      lo = fminf(lo, s_zr[0][w]);
-      hi = fmaxf(hi, s_zr[1][w]);
-    }
-    s_blk[0] = lo;
-    s_blk[1] = hi;
-  }
-  __syncthreads();
-  // home: the middle of the chunks of least z term from the block's range
-  for (int c = tid; c < nch; c += kQ)
-    atomicMin(&s_tmin,
-              __float_as_uint(zterm_hull(s_blk[0], s_blk[1], bb[c])));
-  __syncthreads();
-  for (int c = tid; c < nch; c += kQ) {
-    if (__float_as_uint(zterm_hull(s_blk[0], s_blk[1], bb[c])) == s_tmin) {
-      atomicMin(&s_home[0], c);
-      atomicMax(&s_home[1], c);
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    s_st[0] = s_home[1] >= 0 ? (s_home[0] + s_home[1]) >> 1 : 0;
-    s_st[1] = 0;
-  }
-  __syncthreads();
-
-  // the staged loop of search.cuh; a warp's value is its largest
-  // third-best d2, and warp 0 keeps its picking state in shared memory
-  if (warp == 0)
-    for (int s = 0; s < kStages - 1; ++s)
-      interp_stage(kb, m, bb, a16 != 0, ring, s, inf, s_blk, s_st);
-  for (int t = 0;; ++t) {
-    if (warp == 0) ring_wait();
-    __syncthreads();
-    const int slot = t % kStages;
-    const int nc = ring.cnt[slot];
-    if (nc == 0) break;  // block-uniform
-    if (warp == 0)
-      interp_stage(kb, m, bb, a16 != 0, ring, (t + kStages - 1) % kStages,
-                   ring_max(ring, (t + 1) & 1, kW), s_blk, s_st);
-    for (int k = 0; k < nc; ++k) {
-      // skipped when its z term from the warp's query range is above every
-      // lane's third-best d2
-      const float2 zb = ring.zb[slot * kTileChunks + k];
-      float w3 = d[0][2];
-#pragma unroll
-      for (int i = 1; i < kQPT; ++i) w3 = fmaxf(w3, d[i][2]);
-      if (__all_sync(0xffffffffu, zterm_hull(wlo, whi, zb) > w3)) continue;
-      const int j0 = ring.cid[slot * kTileChunks + k] * kChunk;
-      const float* tp = ring.pts + (slot * kTileChunks + k) * 3 * kChunk;
-      if (m - j0 >= kChunk) {
-#pragma unroll 8
-        for (int u = 0; u < kChunk; ++u)
-          interp_point<kQPT>(tp, u, j0, qx, qy, qz, d, nn);
-      } else {
-        for (int u = 0; u < m - j0; ++u)
-          interp_point<kQPT>(tp, u, j0, qx, qy, qz, d, nn);
-      }
-    }
-    float w3 = d[0][2];
-#pragma unroll
-    for (int i = 1; i < kQPT; ++i) w3 = fmaxf(w3, d[i][2]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      w3 = fmaxf(w3, __shfl_xor_sync(0xffffffffu, w3, o));
-    if (lane == 0) ring.warp_v[32 * (t & 1) + warp] = w3;
-  }
-  if (warp == 0) ring_drain();
-  __syncthreads();
+  staged_three_nn<kQPT>(unknown + (size_t)b * n * 3, n, u0,
+                        known + (size_t)b * m * 3, m,
+                        bounds + (size_t)b * n_chunks(m), a16 != 0, d, nn);
 
 #pragma unroll
   for (int i = 0; i < kQPT; ++i) {
-    top3_fill(d[i], nn[i]);
     const float r0 = 1.0f / (d[i][0] + 1e-8f), r1 = 1.0f / (d[i][1] + 1e-8f),
                 r2 = 1.0f / (d[i][2] + 1e-8f);
     const float norm = __fadd_rn(__fadd_rn(r0, r1), r2);

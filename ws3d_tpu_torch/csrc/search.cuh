@@ -1,5 +1,6 @@
-// Staged, pruned neighbour search: shared by ball_query.cu (kernel 6),
-// interpolate.cu (kernel 4) and fused_sa.cu (kernels 2 and 3).
+// Staged, pruned neighbour search: shared by ball_query.cu (kernels 6 and
+// 6w), interpolate.cu (kernel 4), three_nn.cu (kernel 7) and fused_sa.cu
+// (kernels 2 and 3).
 //
 // A cloud is cut into chunks of kChunk consecutive points, and a pre-pass
 // (launch_chunk_bounds) writes each chunk's z range. A block of queries
@@ -336,4 +337,187 @@ __device__ __forceinline__ void block_ball_query(
     }
   }
   __syncwarp();
+}
+
+// ---- the staged 3-NN search: kernels 4 (interpolate.cu) and 7 (three_nn.cu)
+
+// Warp 0 stages the 3-NN search's next tile into `slot`: the next chunks of
+// the visit order outward from the home chunk st[0] (positions 0, 1, 2, ...
+// are home, home - 1, home + 1, home - 2, ...) whose z term from the
+// block's query z range zr is not above tb; st[1] is the cursor.
+__device__ __forceinline__ void nn3_stage(const float* __restrict__ kb, int m,
+                                          const float2* __restrict__ bb,
+                                          bool a16, const TileRing& ring,
+                                          int slot, float tb, const float* zr,
+                                          int* st) {
+  const int nch = n_chunks(m), home = st[0];
+  const float zlo = zr[0], zhi = zr[1];
+  int pos = st[1];
+  ring_stage(
+      kb, m, bb, a16, 2 * max(home, nch - 1 - home) + 1,
+      [=](int p) {
+        const int c = (p & 1) ? home - ((p + 1) >> 1) : home + (p >> 1);
+        return c >= 0 && c < nch ? c : -1;
+      },
+      [=](float2 b) { return !(zterm_hull(zlo, zhi, b) > tb); }, pos, ring,
+      slot);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) st[1] = pos;
+}
+
+// One staged known point u (index j0 + u) against a thread's kQPT queries:
+// inserted where its d2 is not above the third-best (top3_insert breaks a
+// tie by index).
+template <int kQPT>
+__device__ __forceinline__ void nn3_point(const float* tp, int u, int j0,
+                                          const float (&qx)[kQPT],
+                                          const float (&qy)[kQPT],
+                                          const float (&qz)[kQPT],
+                                          float (&d)[kQPT][3],
+                                          int (&nn)[kQPT][3]) {
+  const float px = tp[3 * u], py = tp[3 * u + 1], pz = tp[3 * u + 2];
+#pragma unroll
+  for (int i = 0; i < kQPT; ++i) {
+    const float v = sqdist3(qx[i] - px, qy[i] - py, qz[i] - pz);
+    if (v <= d[i][2]) top3_insert(v, j0 + u, d[i], nn[i]);
+  }
+}
+
+// The 3-NN search of a block of kNNThreads threads: for the unknown points
+// u0 + tid * kQPT + i (i < kQPT; past n, copies of the last) of ub (n
+// (x, y, z) rows), the three known points of kb (m rows; bb their chunk
+// bounds, launch_chunk_bounds) with the smallest d2 (sqdist3), the lowest
+// index first on ties, the nearest repeated when m < 3: what a full search
+// in ascending index with strict < gives, on any input.
+// Warp 0 stages the known chunks in a visit order that starts at the chunk
+// nearest the block's query z range and steps outward, alternating sides;
+// it stages a chunk unless its z term from the block's query z range is
+// strictly greater than the largest third-best d2 of the block, and a warp
+// skips a staged chunk whose z term from the warp's query z range is
+// strictly greater than the warp's largest third-best d2 (strictly: an
+// equal d2 can still win a tie towards a lower index). Every point of a
+// skipped chunk has a larger d2 than the final third neighbour. Candidates
+// come out of index order, so the running top-3 is ordered by (d2, index)
+// (top3_insert). One staged known point (three broadcast shared loads)
+// serves a thread's kQPT queries. All threads of the block call it (it
+// synchronises the block).
+template <int kQPT>
+__device__ __forceinline__ void staged_three_nn(
+    const float* __restrict__ ub, int n, int u0, const float* __restrict__ kb,
+    int m, const float2* __restrict__ bb, bool a16, float (&d)[kQPT][3],
+    int (&nn)[kQPT][3]) {
+  constexpr int kW = kNNThreads / 32;  // warps
+  __shared__ __align__(16) float sring[kRingFloats];
+  __shared__ float s_zr[2][kW];
+  __shared__ float s_blk[2];  // the block's query z range
+  __shared__ unsigned s_tmin;
+  __shared__ int s_home[2];
+  __shared__ int s_st[2];     // warp 0's visit order: home, cursor
+  const TileRing ring = ring_at(sring);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float inf = __int_as_float(0x7f800000);
+  const int nch = n_chunks(m);
+
+  float qx[kQPT], qy[kQPT], qz[kQPT];
+  float wlo = inf, whi = -inf;
+#pragma unroll
+  for (int i = 0; i < kQPT; ++i) {
+    const int u = min(u0 + tid * kQPT + i, n - 1);
+    qx[i] = ub[3 * u];
+    qy[i] = ub[3 * u + 1];
+    qz[i] = ub[3 * u + 2];
+    d[i][0] = d[i][1] = d[i][2] = inf;
+    nn[i][0] = nn[i][1] = nn[i][2] = -1;
+    wlo = fminf(wlo, qz[i]);
+    whi = fmaxf(whi, qz[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    wlo = fminf(wlo, __shfl_xor_sync(0xffffffffu, wlo, o));
+    whi = fmaxf(whi, __shfl_xor_sync(0xffffffffu, whi, o));
+  }
+  if (lane == 0) {
+    s_zr[0][warp] = wlo;
+    s_zr[1][warp] = whi;
+    ring.warp_v[warp] = ring.warp_v[32 + warp] = inf;
+  }
+  if (tid == 0) {
+    s_tmin = __float_as_uint(inf);
+    s_home[0] = nch;
+    s_home[1] = -1;
+  }
+  __syncthreads();
+  if (tid == 0) {  // the block's query z range
+    float lo = inf, hi = -inf;
+    for (int w = 0; w < kW; ++w) {
+      lo = fminf(lo, s_zr[0][w]);
+      hi = fmaxf(hi, s_zr[1][w]);
+    }
+    s_blk[0] = lo;
+    s_blk[1] = hi;
+  }
+  __syncthreads();
+  // home: the middle of the chunks of least z term from the block's range
+  for (int c = tid; c < nch; c += kNNThreads)
+    atomicMin(&s_tmin,
+              __float_as_uint(zterm_hull(s_blk[0], s_blk[1], bb[c])));
+  __syncthreads();
+  for (int c = tid; c < nch; c += kNNThreads) {
+    if (__float_as_uint(zterm_hull(s_blk[0], s_blk[1], bb[c])) == s_tmin) {
+      atomicMin(&s_home[0], c);
+      atomicMax(&s_home[1], c);
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    s_st[0] = s_home[1] >= 0 ? (s_home[0] + s_home[1]) >> 1 : 0;
+    s_st[1] = 0;
+  }
+  __syncthreads();
+
+  // the staged loop; a warp's value is its largest third-best d2, and warp
+  // 0 keeps its picking state in shared memory
+  if (warp == 0)
+    for (int s = 0; s < kStages - 1; ++s)
+      nn3_stage(kb, m, bb, a16, ring, s, inf, s_blk, s_st);
+  for (int t = 0;; ++t) {
+    if (warp == 0) ring_wait();
+    __syncthreads();
+    const int slot = t % kStages;
+    const int nc = ring.cnt[slot];
+    if (nc == 0) break;  // block-uniform
+    if (warp == 0)
+      nn3_stage(kb, m, bb, a16, ring, (t + kStages - 1) % kStages,
+                ring_max(ring, (t + 1) & 1, kW), s_blk, s_st);
+    for (int k = 0; k < nc; ++k) {
+      // skipped when its z term from the warp's query range is above every
+      // lane's third-best d2
+      const float2 zb = ring.zb[slot * kTileChunks + k];
+      float w3 = d[0][2];
+#pragma unroll
+      for (int i = 1; i < kQPT; ++i) w3 = fmaxf(w3, d[i][2]);
+      if (__all_sync(0xffffffffu, zterm_hull(wlo, whi, zb) > w3)) continue;
+      const int j0 = ring.cid[slot * kTileChunks + k] * kChunk;
+      const float* tp = ring.pts + (slot * kTileChunks + k) * 3 * kChunk;
+      if (m - j0 >= kChunk) {
+#pragma unroll 8
+        for (int u = 0; u < kChunk; ++u)
+          nn3_point<kQPT>(tp, u, j0, qx, qy, qz, d, nn);
+      } else {
+        for (int u = 0; u < m - j0; ++u)
+          nn3_point<kQPT>(tp, u, j0, qx, qy, qz, d, nn);
+      }
+    }
+    float w3 = d[0][2];
+#pragma unroll
+    for (int i = 1; i < kQPT; ++i) w3 = fmaxf(w3, d[i][2]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      w3 = fmaxf(w3, __shfl_xor_sync(0xffffffffu, w3, o));
+    if (lane == 0) ring.warp_v[32 * (t & 1) + warp] = w3;
+  }
+  if (warp == 0) ring_drain();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kQPT; ++i) top3_fill(d[i], nn[i]);
 }

@@ -102,7 +102,8 @@ def ball_query_wrap_cuda(radii: Sequence[float], nsamples: Sequence[int],
                          xyz: torch.Tensor, new_xyz: torch.Tensor):
     """Kernel 6w: (B, N, 3), (B, M, 3) f32 CUDA -> (per scale idx
     (B, M, S_i) int32, per scale counts (B, M) int32), all scales in one
-    launch."""
+    launch (after a pre-pass that writes the cloud's chunk z ranges into a
+    workspace)."""
     r2, ns = _scale_args(radii, nsamples, "ball_query_wrap")
     _kernels.check_cuda(xyz, "ball_query_wrap xyz", torch.float32,
                         (None, None, 3))
@@ -115,11 +116,12 @@ def ball_query_wrap_cuda(radii: Sequence[float], nsamples: Sequence[int],
     cnt = tuple(torch.empty((B, M), dtype=torch.int32, device=xyz.device)
                 for _ in nsamples)
     n = len(idx)
+    bounds = _kernels.chunk_bounds_workspace(xyz)
     rc = _kernels.library().ws3d_ball_query_wrap(
         xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, n, r2, ns,
         (ctypes.c_void_p * n)(*[o.data_ptr() for o in idx]),
         (ctypes.c_void_p * n)(*[o.data_ptr() for o in cnt]),
-        _kernels.stream_ptr(xyz))
+        bounds.data_ptr(), _kernels.stream_ptr(xyz))
     _kernels.raise_on_error(rc, "ball_query_wrap")
     _kernels.LAUNCHES["ball_query_wrap"] += 1
     return idx, cnt

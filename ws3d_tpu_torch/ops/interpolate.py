@@ -50,29 +50,48 @@ def three_nn_plain(unknown: torch.Tensor, known: torch.Tensor,
             torch.cat([p[1] for p in parts], dim=1).to(torch.int32))
 
 
-def three_nn_cuda(unknown: torch.Tensor, known: torch.Tensor):
+def _workspace(known: torch.Tensor, bounds, name: str) -> torch.Tensor:
+    """`bounds` checked as the chunk-bounds workspace of `known`
+    (_kernels.chunk_bounds_workspace's shape), or a fresh one if None."""
+    if bounds is None:
+        return _kernels.chunk_bounds_workspace(known)
+    B, m, _ = known.shape
+    _kernels.check_cuda(bounds, name, torch.float32,
+                        (B, (m + _kernels.CHUNK - 1) // _kernels.CHUNK, 2))
+    return bounds
+
+
+def three_nn_cuda(unknown: torch.Tensor, known: torch.Tensor,
+                  bounds: torch.Tensor | None = None):
     """Kernel 7: (B, n, 3), (B, m, 3) f32 CUDA -> (d2 (B, n, 3) f32,
-    idx (B, n, 3) int32)."""
+    idx (B, n, 3) int32). `bounds`, if given, holds the chunk z ranges a
+    pre-pass wrote for this very `known` (kernel 4's forward on it); else a
+    pre-pass writes them into a fresh workspace."""
     _kernels.check_cuda(unknown, "three_nn unknown", torch.float32,
                         (None, None, 3))
     B, n, _ = unknown.shape
     _kernels.check_cuda(known, "three_nn known", torch.float32, (B, None, 3))
     m = known.shape[1]
+    fill = bounds is None
+    bounds = _workspace(known, bounds, "three_nn bounds")
     d2 = torch.empty((B, n, 3), dtype=torch.float32, device=unknown.device)
     idx = torch.empty((B, n, 3), dtype=torch.int32, device=unknown.device)
     rc = _kernels.library().ws3d_three_nn(
         unknown.data_ptr(), known.data_ptr(), B, n, m, d2.data_ptr(),
-        idx.data_ptr(), _kernels.stream_ptr(unknown))
+        idx.data_ptr(), bounds.data_ptr(), int(fill),
+        _kernels.stream_ptr(unknown))
     _kernels.raise_on_error(rc, "three_nn")
     _kernels.LAUNCHES["three_nn"] += 1
     return d2, idx
 
 
-def three_nn(unknown: torch.Tensor, known: torch.Tensor):
+def three_nn(unknown: torch.Tensor, known: torch.Tensor,
+             bounds: torch.Tensor | None = None):
     """(d2 (B, n, 3), idx (B, n, 3) int32) of the three nearest known
-    points: kernel 7 on CUDA tensors, the plain version on CPU tensors."""
+    points: kernel 7 on CUDA tensors (with `bounds` as three_nn_cuda takes
+    them), the plain version on CPU tensors."""
     if unknown.is_cuda:
-        return three_nn_cuda(unknown, known)
+        return three_nn_cuda(unknown, known, bounds)
     return three_nn_plain(unknown, known)
 
 
@@ -181,10 +200,12 @@ def three_interpolate_window_plain(unknown: torch.Tensor, known: torch.Tensor,
 
 
 def three_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
-                           known_feats: torch.Tensor) -> torch.Tensor:
+                           known_feats: torch.Tensor,
+                           bounds: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel 4: (B, n, 3), (B, m, 3), (B, m, C) f32 CUDA -> (B, n, C)
     (after a pre-pass that writes the known cloud's chunk z ranges into a
-    workspace)."""
+    workspace: `bounds`, from _kernels.chunk_bounds_workspace(known), or a
+    fresh one)."""
     B, n, _ = unknown.shape
     m = known.shape[1]
     C = known_feats.shape[-1]
@@ -194,7 +215,7 @@ def three_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
     _kernels.check_cuda(known_feats, "interpolate feats", torch.float32,
                         (B, m, C))
     out = torch.empty((B, n, C), dtype=torch.float32, device=unknown.device)
-    bounds = _kernels.chunk_bounds_workspace(known)
+    bounds = _workspace(known, bounds, "interpolate bounds")
     rc = _kernels.library().ws3d_three_interpolate(
         unknown.data_ptr(), known.data_ptr(), known_feats.data_ptr(), B, n, m,
         C, out.data_ptr(), bounds.data_ptr(), _kernels.stream_ptr(unknown))
@@ -234,14 +255,16 @@ def three_interpolate_window_cuda(unknown: torch.Tensor, known: torch.Tensor,
 class _Interpolate(torch.autograd.Function):
     """Forward: kernel 4 (kernel 8 with sorted_z) on CUDA, its plain version
     on CPU. Backward (the counterpart of interpolate._interpolate_fused_bwd
-    for the features): the 3-NN search again (kernel 7 on CUDA),
+    for the features): the 3-NN search again (kernel 7 on CUDA, on the
+    chunk z ranges kernel 4's pre-pass wrote for the same known cloud),
     w = (1/(d2+1e-8)) / sum, and
     d known_feats[b, idx[b, i, k]] += w[b, i, k] * g[b, i]."""
 
     @staticmethod
     def forward(ctx, unknown, known, known_feats, sorted_z):
-        ctx.save_for_backward(unknown, known)
         ctx.m = known_feats.shape[1]
+        ctx.bounds = None
+        ctx.save_for_backward(unknown, known)
         if sorted_z:
             if unknown.is_cuda:
                 return three_interpolate_window_cuda(unknown, known,
@@ -249,13 +272,15 @@ class _Interpolate(torch.autograd.Function):
             return three_interpolate_window_plain(unknown, known,
                                                   known_feats)
         if unknown.is_cuda:
-            return three_interpolate_cuda(unknown, known, known_feats)
+            ctx.bounds = _kernels.chunk_bounds_workspace(known)
+            return three_interpolate_cuda(unknown, known, known_feats,
+                                          ctx.bounds)
         return three_interpolate_plain(unknown, known, known_feats)
 
     @staticmethod
     def backward(ctx, g):
         unknown, known = ctx.saved_tensors
-        d2, idx = three_nn(unknown, known)
+        d2, idx = three_nn(unknown, known, ctx.bounds)
         recip = 1.0 / (d2 + 1e-8)
         weight = recip / torch.sum(recip, dim=-1, keepdim=True)
         B, n, C = g.shape
