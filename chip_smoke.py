@@ -15,11 +15,14 @@ Phases (any failure exits non-zero; nothing is caught):
      exact, floats within the stated tolerance), with CUDA-event times, the
      plain version's time and a roofline bound (the fused SA's: 3x its MLP
      FLOPs at the TF32 tensor-core peak; kernel 4's: the pairs inside each
-     query's z window on z-sorted clouds, with the dense bound beside it);
+     query's z window on z-sorted clouds, with the dense bound beside it;
+     kernel 5's: the points of each centre's z slab, with the dense bound
+     and its device time queued behind a sleep kernel beside it);
      print the time and the launch layout (gather, Q, Sp, KC, warps, shared
      memory) of each launch of kernels 2 and 3, the time of each launch of
-     kernel 4, kernel 4 on FP0's inputs shuffled (nothing to prune; held
-     against its plain version) and FPS's time per row class;
+     kernel 4, kernel 4 on FP0's inputs shuffled and kernel 5 on the first
+     scene's points shuffled (nothing to prune; each held against its plain
+     version, kernel 5 exactly) and FPS's time per row class;
   3. the inference path: 16 synthetic scenes at full width with the fitted
      weights (ws3d_tpu/data/bench_weights.npz) through make_two_stage_fn,
      one warm-up and timed batches closed by torch.cuda.synchronize();
@@ -71,8 +74,9 @@ Phases (any failure exits non-zero; nothing is caught):
  12. kernels 10 (the z-window crop-gather) and 8 (the windowed 3-NN
      interpolation) on the inputs phase 2 recorded from the inference batch:
      kernel 10 at z_window 32, 1 and every tile against kernel 5 and its plain
-     version (bit-equal), kernel 8 on the four FP calls against kernel 4
-     (bit-equal), kernel 7 (indices and d2 exact) and its plain version;
+     version (bit-equal; device time and slab bound as kernel 5's), kernel 8
+     on the four FP calls against kernel 4 (bit-equal), kernel 7 (indices
+     and d2 exact) and its plain version;
      then each through its entry point, with its launches counted:
      crop_gather(z_window=32, center_z=...) and the backbone's FP modules
      with sorted_points=True;
@@ -360,19 +364,35 @@ def compare_call(name, args, kw):
                                  f"differ by {err}")
         ms = cuda_ms(lambda: crop_gather.crop_gather_cuda(*cargs, z_window),
                      5)
+        dev = device_ms(lambda: crop_gather.crop_gather_cuda(*cargs,
+                                                             z_window), 5)
         plain = cuda_ms(plain_fn, 1)
         B, N, _ = xyz.shape
         Cc, M = ch.shape[1], centers.shape[1]
-        nbytes = 4 * (B * N * 3 + B * Cc * N + B * M * 2 + Cc * B * M * k
-                      + B * M)
+        lo = hi = None
         scanned = B * M * N
         if z_window is not None:
             lo, hi, fits = _crop_windows(xyz, centers, radius, z_window)
-            scanned = int(torch.where(fits, hi - lo, N).sum())
-        ops = scanned * 6
+            lo, hi = torch.where(fits, lo, 0), torch.where(fits, hi, N)
+            scanned = int((hi - lo).sum())
+        # every point's xyz, the channels of the points some crop gathers
+        # (each read once), the output and the counts
+        gathered = _gathered_points(xyz, centers, radius, k, lo, hi)
+        nbytes = 4 * (B * N * 3 + Cc * gathered + B * M * 2 + Cc * B * M * k
+                      + B * M)
+        # the points each centre must test, 6 operations each (2 sub, 2 mul,
+        # 1 add, 1 compare): those of its z slab (z term below r2; kernel
+        # 10: inside its range); every point (of its range) for the dense
+        # bound
+        slab = _slab_points(xyz, centers[..., 1], radius, lo, hi)
+        ops = 6 * slab
         return ("crop_gather" if z_window is None else "crop_gather_window",
                 err, ms, plain, nbytes, ops,
-                f"B{B} N{N} M{M} k{k} W{z_window}")
+                f"B{B} N{N} M{M} k{k} W{z_window} (device {dev:.4f} ms "
+                f"queued; dense bound {_bound_ms(nbytes, 6 * scanned):.4f} "
+                f"ms; {slab / (B * M):.1f} slab points a centre; "
+                f"{float(cnt.float().mean()):.1f} members a centre; "
+                f"{gathered / B:.1f} of {N} points gathered a scene)")
 
     if name == "ball_query_wrap_cuda":
         radii, nsamples, xyz, new_xyz = args
@@ -393,7 +413,7 @@ def compare_call(name, args, kw):
                       + B * M * len(nsamples))
         # the points of each centre's z slab (z term below r2), each scale:
         # 3 sub, 3 mul, 2 add, 1 compare; every point for the dense bound
-        slab = sum(_slab_points(xyz, new_xyz, r) for r in radii)
+        slab = sum(_slab_points(xyz, new_xyz[..., 2], r) for r in radii)
         ops = 9 * slab
         dense = 9 * B * M * N * len(radii)
         return ("ball_query_wrap", 0.0, ms, plain, nbytes, ops,
@@ -562,16 +582,42 @@ def _z_sorted(pts) -> bool:
     return bool((z[:, 1:] >= z[:, :-1]).all())
 
 
-def _slab_points(xyz, new_xyz, radius) -> int:
+def _slab_points(xyz, qz, radius, lo=None, hi=None) -> int:
     """Points of each query's z slab, z term fl(fl(qz - z)^2) below r2,
-    summed over the queries."""
+    inside its range [lo, hi) where given, summed over the queries (qz
+    (B, M))."""
+    import torch
     from ws3d_tpu_torch.ops.grouping import radius_sq
     r2 = radius_sq(radius, xyz.device)
+    pos = torch.arange(xyz.shape[1], device=xyz.device)
     total = 0
-    for m0 in range(0, new_xyz.shape[1], 256):
-        dz = new_xyz[:, m0:m0 + 256, 2, None] - xyz[:, None, :, 2]
-        total += int((dz * dz < r2).sum())
+    for m0 in range(0, qz.shape[1], 256):
+        dz = qz[:, m0:m0 + 256, None] - xyz[:, None, :, 2]
+        near = dz * dz < r2
+        if lo is not None:
+            near &= ((pos >= lo[:, m0:m0 + 256, None])
+                     & (pos < hi[:, m0:m0 + 256, None]))
+        total += int(near.sum())
     return total
+
+
+def _gathered_points(xyz, centers, radius, k, lo=None, hi=None) -> int:
+    """Points whose channels a crop gathers, summed over the scenes: the
+    union of each scene's centres' first min(cnt, k) members (BEV d2 below
+    r2, inside the range [lo, hi) where given)."""
+    import torch
+    from ws3d_tpu_torch.ops import crop_gather
+    from ws3d_tpu_torch.ops.grouping import radius_sq
+    r2 = radius_sq(radius, xyz.device)
+    pos = torch.arange(xyz.shape[1], device=xyz.device)
+    taken = torch.zeros(xyz.shape[:2], dtype=torch.bool, device=xyz.device)
+    for m0 in range(0, centers.shape[1], 256):
+        member = crop_gather._bev_member(xyz, centers[:, m0:m0 + 256], r2)
+        if lo is not None:
+            member &= ((pos >= lo[:, m0:m0 + 256, None])
+                       & (pos < hi[:, m0:m0 + 256, None]))
+        taken |= (member & (member.cumsum(-1) <= k)).any(1)
+    return int(taken.sum())
 
 
 def _tested_points(radii, nsamples, xyz, new_xyz):
@@ -745,6 +791,8 @@ def main() -> int:
                 if n == "three_interpolate_cuda"]
     print(f"# phase 2: kernel 4 on FP0's inputs shuffled: "
           f"{_shuffled('three_interpolate_cuda', fp_calls)}", flush=True)
+    print(f"# phase 2: kernel 5 on the first scene's points shuffled: "
+          f"{_shuffled('crop_gather_cuda', [crop_call])}", flush=True)
     for key in INFERENCE_KERNELS:
         if per_kernel[key]["ms"] == 0.0:
             raise AssertionError(f"kernel {key} was never called on the "
@@ -872,15 +920,17 @@ def _compare_calls(calls, per_kernel, path: str) -> list:
 
 
 def _shuffled(name, calls) -> str:
-    """Kernel 6, 4, 7 or 6w on the largest of its recorded calls with each
-    cloud's points in a random order (the known points with their feature
-    rows; kernel 6w's centres keep theirs), where no chunk can be skipped:
-    held against its plain version on the same shuffled inputs (indices
-    and d2 exact; the interpolation within its gate); returns the shape
-    and CUDA-event times of the kernel on the shuffled and on the recorded
-    inputs."""
+    """Kernel 6, 4, 7 or 6w on the largest of its recorded calls, or kernel
+    5 on its first scene, with each cloud's points in a random order (the
+    known points with their feature rows, the crop's points with their
+    channels; kernel 6w's and the crop's centres keep theirs), where no
+    chunk can be skipped: held against its plain version on the same
+    shuffled inputs (indices, d2 and the crop exact; the interpolation
+    within its gate); returns the shape and CUDA-event times of the kernel
+    on the shuffled and on the recorded inputs (kernel 5: device times
+    too)."""
     import torch
-    from ws3d_tpu_torch.ops import ball_query, interpolate
+    from ws3d_tpu_torch.ops import ball_query, crop_gather, interpolate
     gen = torch.Generator(device="cuda").manual_seed(11)
 
     def shuffle(*ts):
@@ -912,6 +962,27 @@ def _shuffled(name, calls) -> str:
         shape = f"B{xyz.shape[0]} N{xyz.shape[1]} M{new_xyz.shape[1]}"
         ms = cuda_ms(lambda: run(radii, ks, sxyz, snew), 5)
         ms0 = cuda_ms(lambda: run(radii, ks, xyz, new_xyz), 5)
+    elif name == "crop_gather_cuda":
+        xyz, ch, centers, radius, k, grouped = calls[0][:6]
+        xyz, ch, centers = xyz[:1], ch[:1], centers[:1].contiguous()
+        perm = torch.randperm(xyz.shape[1], device="cuda", generator=gen)
+        sxyz = xyz[:, perm].contiguous()
+        sch = ch[:, :, perm].contiguous()
+        xyz, ch = xyz.contiguous(), ch.contiguous()
+        run = crop_gather.crop_gather_cuda
+        same(run(sxyz, sch, centers, radius, k, grouped),
+             crop_gather.crop_gather_plain(sxyz, sch, centers, radius, k,
+                                           grouped), "crop_gather")
+        shape = f"B1 N{xyz.shape[1]} M{centers.shape[1]} k{k}"
+        ms = cuda_ms(lambda: run(sxyz, sch, centers, radius, k, grouped), 5)
+        ms0 = cuda_ms(lambda: run(xyz, ch, centers, radius, k, grouped), 5)
+        dev = device_ms(lambda: run(sxyz, sch, centers, radius, k, grouped),
+                        5)
+        dev0 = device_ms(lambda: run(xyz, ch, centers, radius, k, grouped),
+                         5)
+        return (f"{shape}: {ms:.4f} ms shuffled, {ms0:.4f} ms as recorded "
+                f"(device {dev:.4f} / {dev0:.4f} ms queued; the plain "
+                f"version agrees)")
     elif name == "three_nn_cuda":
         unknown, known = max(calls, key=lambda a: a[0].shape[1])[:2]
         su, = shuffle(unknown)

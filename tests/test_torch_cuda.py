@@ -531,6 +531,52 @@ def test_ball_query_wrap_pruned(dev, rng, kind):
         assert int(cnt.max()) > 2048
 
 
+@pytest.mark.parametrize("kind", SEARCH_KINDS)
+def test_crop_gather_pruned(dev, rng, kind):
+    """Kernel 5's listed search at the inference launch (16 scenes of
+    16,384 points, 64 centres in score order, r 4 m, k 512, grouped, 5
+    channels), with an empty crop and an overfull one (cnt > k), equals
+    crop_gather_plain bit for bit on sorted, shuffled, single-z and
+    radius-boundary clouds, and kernel 10 at z_window 32 and 1 equals
+    crop_gather_window_plain, the shuffled cloud included (its ranges are
+    then those of torch.searchsorted on unsorted z), and kernel 5 where the
+    cloud is sorted. With points of NaN z (which unsort the cloud) and a
+    centre of NaN z, both still equal their plain versions."""
+    from ws3d_tpu_torch.ops.crop_gather import (crop_gather_cuda,
+                                                crop_gather_plain,
+                                                crop_gather_window_plain)
+    B, N, M = 16, 16384, 64
+    xyz = _search_cloud(rng, B, N, kind)
+    ch = np.concatenate([xyz.transpose(0, 2, 1),
+                         rng.rand(B, 2, N).astype(np.float32)], axis=1)
+    pick = np.stack([rng.permutation(N)[:M] for _ in range(B)])
+    centers = xyz[np.arange(B)[:, None], pick][..., [0, 2]]
+    centers[:, 0] = (500.0, 500.0)                     # an empty crop
+    centers[:, 1] = xyz[:, 0, [0, 2]]                  # overfull
+    if kind in ("sorted", "shuffled"):
+        centers[:, 1] = (0.0, 4.0)                     # the densest depth
+
+    def check(xyz, centers, sorted_z):
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (xyz, ch, centers)]
+        vals, cnt = crop_gather_cuda(*args, 4.0, 512, True)
+        rv, rc = crop_gather_plain(*args, 4.0, 512, True)
+        assert torch.equal(cnt, rc) and torch.equal(vals, rv)
+        assert int(cnt[:, 0].max()) == 0
+        assert bool((cnt[:, 1] > 512).all())
+        for W in (32, 1):
+            wv, wc = crop_gather_cuda(*args, 4.0, 512, True, W)
+            pv, pc = crop_gather_window_plain(*args, 4.0, 512, True, W)
+            assert torch.equal(wc, pc) and torch.equal(wv, pv)
+            if sorted_z:
+                assert torch.equal(wc, cnt) and torch.equal(wv, vals)
+        return cnt
+    check(xyz, centers, kind != "shuffled")
+    xyz[:, 5000:5040:3, 2] = np.nan
+    centers[:, 2, 1] = np.nan
+    assert int(check(xyz, centers, False)[:, 2].max()) == 0
+
+
 def test_fused_sa_full_shuffled(dev, rng):
     """Kernel 3's search is kernel 6's: on a shuffled cloud (nothing to
     skip) at backbone SA1's width it holds the gate 1e-3 + 1e-4 max|ref|
@@ -558,9 +604,10 @@ def test_fused_sa_full_shuffled(dev, rng):
 
 def test_neighbour_search_bench(dev, tmp_path):
     """csrc/bench/neighbour_search.cu builds and passes its own checks:
-    kernels 6, 4, 7 and 6w give the outputs of the searches they replaced
-    bit for bit at every main-path launch shape, sorted and shuffled, and
-    kernel 6's first row matches a host ball query."""
+    kernels 6, 4, 7, 6w, 5 and 10 give the outputs of the searches they
+    replaced bit for bit at every main-path launch shape, sorted and
+    shuffled, in every sizing tried, kernel 6's first row matches a host
+    ball query and kernel 5's first row's counts the host's."""
     import subprocess
     from ws3d_tpu_torch.ops import _kernels
     src = _kernels.CSRC / "bench" / "neighbour_search.cu"

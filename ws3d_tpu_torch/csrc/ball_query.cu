@@ -58,7 +58,8 @@
 // one to a warp, so a block of 16 warps takes one centre: it lists the
 // centre's chunks, then its warps test them in rounds, 4 consecutive
 // chunks a warp with the points read straight from global memory (L2), a
-// count a warp and a block prefix ranking the members.
+// count a warp and a block prefix ranking the members (listed_rank_search
+// in search.cuh; the crop-gather, kernels 5 and 10, runs it too).
 // csrc/bench/neighbour_search.cu measures the alternatives: 8 or 32 warps,
 // 2 or 8 chunks a warp a round, and the staged ring of search.cuh (one
 // centre a block, or 2-8 centres taken in z order), which lost: every tile
@@ -157,96 +158,39 @@ struct WrapOut {
   int* cnt[kMaxScales];  // per scale (B, M) int32
 };
 
-// Kernel 6w: a block of kWarps warps takes one centre. For each scale and
-// each window of kWarps * 32 chunks, the block lists the chunks whose z term
-// from the centre is below r2 in ascending index (ballot, warp counts and a
-// prefix), then tests them in rounds of kWarps * kU, kU consecutive list
-// entries a warp with the points read straight from global memory: each
-// warp ballots its chunks' members and publishes its count, and after a
-// barrier ranks each member by the centre's running count, the counts of
-// the round's earlier warps and its own earlier chunks: the ranks of an
-// ascending scan. The first min(cnt, S) members stay in shared memory
-// (max_s ints) and the S slots, members[s % cnt], go out coalesced.
+// Kernel 6w: a block of kWarps warps takes one centre. For each scale it
+// runs listed_rank_search (search.cuh, shared with kernels 5 and 10) over
+// the chunks whose z term from the centre is below r2, kU chunks a warp a
+// round; the first min(cnt, S) members stay in shared memory (max_s ints)
+// and the S slots, members[s % cnt], go out coalesced.
 template <int kWarps, int kU>
 __global__ void __launch_bounds__(kWarps * 32)
 ball_query_wrap_kernel(const float* __restrict__ xyz,
                        const float* __restrict__ new_xyz,
                        const float2* __restrict__ bounds, int N, int M,
                        BallScales sc, WrapOut o) {
-  constexpr int kT = kWarps * 32;
   extern __shared__ int members[];  // max_s
-  __shared__ int s_list[kT];        // the window's chunks to test
-  __shared__ int s_wc[3][kWarps];   // warp counts: the list, rounds by parity
-  const int q = blockIdx.x;         // (b, m) flattened
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
+  __shared__ ListedScratch<kWarps> s_scratch;
+  const int q = blockIdx.x;  // (b, m) flattened
   const int nch = n_chunks(N);
   const float* pb = xyz + (size_t)(q / M) * N * 3;
   const float2* bb = bounds + (size_t)(q / M) * nch;
   const float qx = new_xyz[3 * (size_t)q], qy = new_xyz[3 * (size_t)q + 1],
               qz = new_xyz[3 * (size_t)q + 2];
-  // the counts of warps before this one, and of all, in row w of s_wc
-  const auto prefix = [&](int w, int& before, int& total) {
-    before = total = 0;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
-      const int v = s_wc[w][k];
-      before += k < warp ? v : 0;
-      total += v;
-    }
-  };
   for (int s = 0; s < sc.n; ++s) {
     const float r2 = sc.r2[s];
     const int S = sc.S[s];
-    int running = 0;  // the centre's members so far
-    int round = 0;
-    for (int w0 = 0; w0 < nch; w0 += kT) {
-      const int c = w0 + threadIdx.x;
-      const bool need = c < nch && zterm(qz, bb[c]) < r2;
-      const unsigned m = __ballot_sync(0xffffffffu, need);
-      if (lane == 0) s_wc[0][warp] = __popc(m);
-      __syncthreads();
-      int before, L;
-      prefix(0, before, L);
-      if (need) s_list[before + __popc(m & below)] = c;
-      __syncthreads();
-      for (int e0 = 0; e0 < L; e0 += kWarps * kU, ++round) {
-        unsigned hit[kU];
-        int mine = 0;
-#pragma unroll
-        for (int u = 0; u < kU; ++u) {
-          const int e = e0 + warp * kU + u;
-          hit[u] = 0u;
-          if (e < L) {  // warp-uniform
-            const int j = s_list[e] * kChunk + lane;
-            const float* p = pb + 3 * (size_t)j;
-            hit[u] = __ballot_sync(
-                0xffffffffu,
-                j < N && sqdist3(qx - p[0], qy - p[1], qz - p[2]) < r2);
-            mine += __popc(hit[u]);
-          }
-        }
-        const int par = 1 + (round & 1);
-        if (lane == 0) s_wc[par][warp] = mine;
-        __syncthreads();
-        int rank, total;
-        prefix(par, rank, total);
-        rank += running;
-#pragma unroll
-        for (int u = 0; u < kU; ++u) {
-          const int r = rank + __popc(hit[u] & below);
-          if ((hit[u] >> lane & 1u) && r < S)
-            members[r] = s_list[e0 + warp * kU + u] * kChunk + lane;
-          rank += __popc(hit[u]);
-        }
-        running += total;
-      }
-      __syncthreads();  // the next window rewrites the list
-    }
+    const int cnt = listed_rank_search<kWarps, kU>(
+        0, nch, [&](int c) { return zterm(qz, bb[c]) < r2; },
+        [&](int j) {
+          const float* p = pb + 3 * (size_t)j;
+          return j < N && sqdist3(qx - p[0], qy - p[1], qz - p[2]) < r2;
+        },
+        S, members, s_scratch);
     int* dst = o.idx[s] + (size_t)q * S;
-    for (int k = threadIdx.x; k < S; k += kT)
-      dst[k] = running > 0 ? members[k % running] : 0;
-    if (threadIdx.x == 0) o.cnt[s][q] = running;
+    for (int k = threadIdx.x; k < S; k += kWarps * 32)
+      dst[k] = cnt > 0 ? members[k % cnt] : 0;
+    if (threadIdx.x == 0) o.cnt[s][q] = cnt;
     __syncthreads();  // the next scale reuses `members`
   }
 }
@@ -259,13 +203,9 @@ int launch_ball_query_wrap(const float* xyz, const float* new_xyz, int B,
                            const WrapOut& o, int max_s, float2* bounds,
                            cudaStream_t st) {
   const size_t smem = sizeof(int) * (size_t)max_s;
-  // the opt-in counts the kernel's static shared memory too
-  const size_t stat = sizeof(int) * (kWarps * 32 + 3 * kWarps);
-  int err = smem + stat > 48 * 1024
-                ? ws3d_set_smem(
-                      (const void*)ball_query_wrap_kernel<kWarps, kU>, smem)
-                : 0;
-  if (!err) err = launch_chunk_bounds(xyz, B, N, bounds, st);
+  const int err = prepare_listed_launch(
+      (const void*)ball_query_wrap_kernel<kWarps, kU>, smem,
+      sizeof(ListedScratch<kWarps>), xyz, B, N, bounds, st);
   if (err) return err;
   ball_query_wrap_kernel<kWarps, kU>
       <<<(unsigned)((long long)B * M), kWarps * 32, smem, st>>>(

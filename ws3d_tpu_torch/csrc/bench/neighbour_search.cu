@@ -1,48 +1,54 @@
 // The measurement behind the staged, pruned searches of kernels 6
-// (csrc/ball_query.cu), 4 (csrc/interpolate.cu), 7 (csrc/three_nn.cu) and
-// 6w (csrc/ball_query.cu, wrap-pad mode): each against the search it
-// replaced, at every launch shape of the main path, on z-sorted clouds and
-// on the same clouds shuffled.
+// (csrc/ball_query.cu), 4 (csrc/interpolate.cu), 7 (csrc/three_nn.cu), 6w
+// (csrc/ball_query.cu, wrap-pad mode) and 5 and 10 (csrc/crop_gather.cu):
+// each against the search it replaced, at every launch shape of the main
+// path, on z-sorted clouds and on the same clouds shuffled.
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -Xcompiler -ffp-contract=off -o neighbour_search \
 //       ws3d_tpu_torch/csrc/bench/neighbour_search.cu && ./neighbour_search
 //
-// Shapes: kernel 6 at the stage-1 train step's four SA stages (16 scenes)
-// and the RCNN step's three backward stages (800 crops); kernel 4 at the
-// inference batch's four FP stages (16 scenes) and the database's FP0
-// (one scene); kernel 7 at the stage-1 step's four FP stages (16 scenes:
-// n 256 / 1,024 / 4,096 / 16,384 over m 64 / 256 / 1,024 / 4,096); kernel
-// 6w at the proposal database's launch (one scene of 16,384 points with y
-// zeroed and its last 3,000 moved to x = z = 1e6 as invalid points, 64
-// centres picked at random among the valid points, in that order, r 4 m,
-// S 2,048). Clouds are seeded and LiDAR-like (scenes: depth z in [0, 70]
-// m biased to the near range, a ground layer and objects above it; crops:
-// a 4 m disc of the same), sorted by z; the queries (kernel 6) and the
+// Shapes: kernel 6 at the stage-1 train step's four SA stages (16 scenes) and
+// the RCNN step's three backward stages (800 crops); kernel 4 at the
+// inference batch's four FP stages (16 scenes) and the database's FP0 (one
+// scene); kernel 7 at the stage-1 step's four FP stages (16 scenes: n 256 /
+// 1,024 / 4,096 / 16,384 over m 64 / 256 / 1,024 / 4,096); kernel 6w at the
+// proposal database's launch (one scene of 16,384 points with y zeroed and
+// its last 3,000 moved to x = z = 1e6 as invalid points, 64 centres picked at
+// random among the valid points, in that order, r 4 m, S 2,048); kernels 5
+// and 10 at the inference batch's crop (16 scenes of 16,384 points, 64
+// centres a scene taken among the points in a random order, the first far
+// off, r 4 m, k 512, 5 channels, grouped slots; kernel 10 at the JAX default
+// z_window of 32 tiles). Clouds are seeded and LiDAR-like (scenes: depth z in
+// [0, 70] m biased to the near range, a ground layer and objects above it;
+// crops: a 4 m disc of the same), sorted by z; the queries (kernel 6) and the
 // known points (kernels 4 and 7) are every (N / M)-th point, so they stay
-// sorted too. "shuffled" is the same points, queries and known points in
-// a random order, where the z ranges of the chunks span the cloud and
-// nothing is skipped (kernel 6w's centres keep their order). The old
-// searches: kernel 6 as one warp a query over all points in ascending
-// index (warp_ball_query), kernels 4 and 7 as one thread a query over
-// every known point through shared-memory tiles (block_three_nn), kernel
-// 6w as one block a centre ranking all N points (block_rank_scan). Each
-// prints the CUDA-event time of both (mean of 5 launches after one
-// warm-up; the new one with its pre-pass), the new one as the library
-// launches it and with the other sizes it could take: kernel 6 with 1 and
-// 4 queries a warp where it keeps 2; kernels 4 and 7 with launch bounds
-// for 4 and 12 blocks an SM where they keep 8, and with 2 and 4 queries a
-// thread where they keep 1; kernel 7 also on the chunk bounds a pre-pass
-// already wrote (the interpolation backward reuses its forward's); kernel
-// 6w with 8 and 32 warps a centre where it keeps 16, with 2 and 8 chunks
-// a warp a round where it keeps 4, and on the staged ring of search.cuh
-// with one centre a block and with 2 and 8 centres a block taken in z
-// order.
+// sorted too. "shuffled" is the same points, queries and known points in a
+// random order, where the z ranges of the chunks span the cloud and nothing
+// is skipped (kernel 6w's and the crop's centres keep their order). The old
+// searches: kernel 6 as one warp a query over all points in ascending index
+// (warp_ball_query), kernels 4 and 7 as one thread a query over every known
+// point through shared-memory tiles (block_three_nn), kernels 6w, 5 and 10 as
+// one block a centre ranking all N points (block_rank_scan; kernel 10 over
+// the z window thread 0 finds by serial binary searches). Each prints the
+// CUDA-event time of both (mean of 5 launches after one warm-up; the new one
+// with its pre-pass), the new one as the library launches it and with the
+// other sizes it could take: kernel 6 with 1 and 4 queries a warp where it
+// keeps 2; kernels 4 and 7 with launch bounds for 4 and 12 blocks an SM where
+// they keep 8, and with 2 and 4 queries a thread where they keep 1; kernel 7
+// also on the chunk bounds a pre-pass already wrote (the interpolation
+// backward reuses its forward's); kernel 6w with 8 and 32 warps a centre
+// where it keeps 16, with 2 and 8 chunks a warp a round where it keeps 4, and
+// on the staged ring of search.cuh with one centre a block and with 2 and 8
+// centres a block taken in z order; kernels 5 and 10 with 4, 8 and 16 warps a
+// centre and 2, 4 and 8 chunks a warp a round.
 // It exits 1 if any output differs from the old one by a bit, or if
-// kernel 6's first row differs from a host ball query.
+// kernel 6's first row differs from a host ball query or kernel 5's first
+// row's counts from the host's.
 //
 // Not part of the kernel library (csrc/*.cu only): it compiles
-// ball_query.cu, interpolate.cu and three_nn.cu into itself.
+// ball_query.cu, crop_gather.cu, interpolate.cu and three_nn.cu into
+// itself.
 #include <algorithm>
 #include <array>
 #include <cmath>
@@ -54,6 +60,7 @@
 #include <vector>
 
 #include "../ball_query.cu"
+#include "../crop_gather.cu"
 #include "../interpolate.cu"
 #include "../three_nn.cu"
 
@@ -221,6 +228,120 @@ old_three_nn_kernel(const float* __restrict__ unknown,
       dist[o + k] = d[k];
       idx[o + k] = nn[k];
     }
+  }
+}
+
+// The block rank scan of kernels 6w, 5 and 10 before: all kThreads
+// threads of a block scan the points [lo, hi) in ascending index, kThreads
+// at a time; member(i) says whether point i belongs. A warp ballot plus
+// per-warp counts in shared memory (`warp_cnt`, kThreads / 32 ints) rank
+// each member, and the first k members' indices land in members[0, k).
+// Returns, in every thread, the number of members in [lo, hi): the scan
+// never stops early, since callers need the count.
+template <int kThreads, class Member>
+__device__ __forceinline__ int block_rank_scan(int lo, int hi, Member member,
+                                               int k, int* members,
+                                               int* warp_cnt) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int running = 0;
+  for (int base = lo; base < hi; base += kThreads) {
+    const int i = base + tid;
+    const bool in = i < hi && member(i);
+    const unsigned m = __ballot_sync(0xffffffffu, in);
+    if (lane == 0) warp_cnt[warp] = __popc(m);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      const int wc = warp_cnt[w];
+      before += w < warp ? wc : 0;
+      total += wc;
+    }
+    const int rank = running + before + __popc(m & ((1u << lane) - 1u));
+    if (in && rank < k) members[rank] = i;
+    running += total;
+    __syncthreads();
+  }
+  return running;
+}
+
+// kernels 5 and 10 before: one block of 256 threads a centre ranks all N
+// points (kernel 10: the points of the z window thread 0 found by serial
+// binary searches)
+__global__ void __launch_bounds__(256)
+old_crop_gather_kernel(const float* __restrict__ xyz,
+                       const float* __restrict__ ch,
+                       const float* __restrict__ centers, int B, int N,
+                       int Cc, int M, int k, float r2, int grouped,
+                       int z_window, float* __restrict__ out,
+                       int* __restrict__ cnt_out) {
+  extern __shared__ int members[];  // k ints
+  __shared__ int warp_cnt[8];
+  __shared__ int s_range[2];
+  const int b = blockIdx.x / M, c = blockIdx.x % M;
+  const int tid = threadIdx.x;
+  const float* pb = xyz + (size_t)b * N * 3;
+  const float cx = centers[((size_t)b * M + c) * 2];
+  const float cz = centers[((size_t)b * M + c) * 2 + 1];
+  int lo = 0, hi = N;
+  if (z_window > 0) {
+    if (tid == 0) {
+      auto near_z = [&](int j) {
+        const float dz = cz - pb[3 * j + 2];
+        return __fmul_rn(dz, dz) < r2;
+      };
+      int a = 0, e = N;
+      while (a < e) {
+        const int mid = (a + e) >> 1;
+        if (pb[3 * mid + 2] < cz) a = mid + 1;
+        else e = mid;
+      }
+      const int home = a;
+      a = 0;
+      e = home;
+      while (a < e) {
+        const int mid = (a + e) >> 1;
+        if (near_z(mid)) e = mid;
+        else a = mid + 1;
+      }
+      const int wlo = a;
+      a = home;
+      e = N;
+      while (a < e) {
+        const int mid = (a + e) >> 1;
+        if (near_z(mid)) a = mid + 1;
+        else e = mid;
+      }
+      const int whi = a;
+      const int tiles = whi > wlo ? (whi - 1) / 128 - wlo / 128 + 1 : 0;
+      s_range[0] = tiles <= z_window ? wlo : 0;
+      s_range[1] = tiles <= z_window ? whi : N;
+    }
+    __syncthreads();
+    lo = s_range[0];
+    hi = s_range[1];
+  }
+  const int cnt = block_rank_scan<256>(
+      lo, hi,
+      [&](int i) { return sqdist2(cx - pb[3 * i], cz - pb[3 * i + 2]) < r2; },
+      k, members, warp_cnt);
+  if (tid == 0) cnt_out[(size_t)b * M + c] = cnt;
+  const int Q = cnt > 0 ? k / cnt : 0, R = cnt > 0 ? k % cnt : 0;
+  const int thresh = R * (Q + 1);
+  const size_t plane = (size_t)B * M * k;
+  float* ob = out + ((size_t)b * M + c) * k;
+  for (int s = tid; s < k; s += 256) {
+    if (cnt == 0) {
+      for (int cc = 0; cc < Cc; ++cc) ob[cc * plane + s] = 0.f;
+      continue;
+    }
+    int j;
+    if (cnt >= k) j = s;
+    else if (grouped) j = s < thresh ? s / (Q + 1) : R + (s - thresh) / Q;
+    else j = s % cnt;
+    const int p = members[j];
+    for (int cc = 0; cc < Cc; ++cc)
+      ob[cc * plane + s] = ch[((size_t)b * Cc + cc) * N + p];
   }
 }
 
@@ -461,6 +582,32 @@ old_three_interp_kernel(const float* __restrict__ unknown,
     out[((size_t)b * n + u0 + q) * C + c] = v;
   }
 }
+
+// the crop-gather's arguments, and each sizing the bench tries
+struct CropArgs {
+  const float *xyz, *ch, *centers;
+  int B, N, C, M, k;
+  float r2;
+  float2* bounds;
+};
+
+template <int kW, int kU>
+int crop_sizing(const CropArgs& a, int z_window, float* out, int* cnt) {
+  return launch_crop_gather<kW, kU>(a.xyz, a.ch, a.centers, a.B, a.N, a.C,
+                                    a.M, a.k, a.r2, 1, z_window, out, cnt,
+                                    a.bounds, nullptr);
+}
+
+const struct {
+  const char* name;
+  int (*launch)(const CropArgs&, int, float*, int*);
+} kCropSizings[] = {
+    {"4w 2c", crop_sizing<4, 2>},   {"4w 4c", crop_sizing<4, 4>},
+    {"4w 8c", crop_sizing<4, 8>},   {"8w 2c", crop_sizing<8, 2>},
+    {"8w 4c", crop_sizing<8, 4>},   {"8w 8c", crop_sizing<8, 8>},
+    {"16w 2c", crop_sizing<16, 2>}, {"16w 4c", crop_sizing<16, 4>},
+    {"16w 8c", crop_sizing<16, 8>},
+};
 
 struct BQShape {
   const char* name;
@@ -988,6 +1135,131 @@ int main() {
         CHECK(cudaFree(dc[v]));
       }
       for (void* p : {(void*)dxyz, (void*)dq, (void*)dbounds})
+        CHECK(cudaFree(p));
+    }
+  }
+  {  // kernels 5 and 10 at the inference launch: 16 scenes
+    CropArgs a{};
+    a.B = 16;
+    a.N = 16384;
+    a.C = 5;
+    a.M = 64;
+    a.k = 512;
+    const float radius = 4.f;
+    a.r2 = (float)((double)radius * radius);
+    std::vector<float> xyz = cloud(gen, a.B, a.N, false);
+    // centres: (x, z) of 64 points of each scene in a random order (the
+    // proposals' score order); the first far off (an empty crop)
+    std::vector<float> cen((size_t)a.B * a.M * 2);
+    std::uniform_int_distribution<int> pick(0, a.N - 1);
+    std::uniform_real_distribution<float> u(0.f, 1.f);
+    for (int b = 0; b < a.B; ++b)
+      for (int m = 0; m < a.M; ++m) {
+        const size_t j = (size_t)b * a.N + pick(gen);
+        cen[((size_t)b * a.M + m) * 2] = m == 0 ? 500.f : xyz[3 * j];
+        cen[((size_t)b * a.M + m) * 2 + 1] = m == 0 ? 500.f : xyz[3 * j + 2];
+      }
+    const size_t n_out = (size_t)a.C * a.B * a.M * a.k, n_cnt = a.B * a.M;
+    for (int order = 0; order < 2; ++order) {
+      if (order == 1) shuffle_rows(gen, xyz, a.B, a.N, 3);
+      // channels x, y, z and two random ones
+      std::vector<float> ch((size_t)a.B * a.C * a.N);
+      for (int b = 0; b < a.B; ++b)
+        for (int c = 0; c < a.C; ++c)
+          for (int j = 0; j < a.N; ++j)
+            ch[((size_t)b * a.C + c) * a.N + j] =
+                c < 3 ? xyz[((size_t)b * a.N + j) * 3 + c] : u(gen);
+      float* dxyz = to_device(xyz);
+      float* dch = to_device(ch);
+      float* dcen = to_device(cen);
+      float *dv[2];
+      int *dc[2];
+      for (int v = 0; v < 2; ++v) {
+        CHECK(cudaMalloc(&dv[v], n_out * 4));
+        CHECK(cudaMalloc(&dc[v], n_cnt * 4));
+      }
+      CHECK(cudaMalloc(&a.bounds, (size_t)a.B * n_chunks(a.N) * 8));
+      a.xyz = dxyz;
+      a.ch = dch;
+      a.centers = dcen;
+      long long slab = 0, members = 0;
+      int over = 0;
+      for (int b = 0; b < a.B; ++b)
+        for (int m = 0; m < a.M; ++m) {
+          const float cx = cen[((size_t)b * a.M + m) * 2];
+          const float cz = cen[((size_t)b * a.M + m) * 2 + 1];
+          int cnt = 0;
+          for (int j = 0; j < a.N; ++j) {
+            const float* p = &xyz[((size_t)b * a.N + j) * 3];
+            const float dz = cz - p[2], dx = cx - p[0];
+            slab += dz * dz < a.r2;
+            cnt += dx * dx + dz * dz < a.r2;
+          }
+          members += cnt;
+          over += cnt > a.k;
+        }
+      // kernel 5 (z_window 0), then kernel 10 at the JAX default, 32 tiles
+      for (int W : {0, 32}) {
+        const float t_old = time_ms([&] {
+          old_crop_gather_kernel<<<a.B * a.M, 256, a.k * 4>>>(
+              dxyz, dch, dcen, a.B, a.N, a.C, a.M, a.k, a.r2, 1, W, dv[0],
+              dc[0]);
+          return (int)cudaGetLastError();
+        }, e0, e1);
+        const float t_new = time_ms([&] {
+          return ws3d_crop_gather(dxyz, dch, dcen, a.B, a.N, a.C, a.M, a.k,
+                                  a.r2, 1, W, dv[1], dc[1], a.bounds,
+                                  nullptr);
+        }, e0, e1);
+        std::vector<float> av(n_out), bv(n_out);
+        std::vector<int> ac(n_cnt), bc(n_cnt);
+        CHECK(cudaMemcpy(av.data(), dv[0], n_out * 4,
+                         cudaMemcpyDeviceToHost));
+        CHECK(cudaMemcpy(ac.data(), dc[0], n_cnt * 4,
+                         cudaMemcpyDeviceToHost));
+        auto same_as_old = [&] {
+          CHECK(cudaMemcpy(bv.data(), dv[1], n_out * 4,
+                           cudaMemcpyDeviceToHost));
+          CHECK(cudaMemcpy(bc.data(), dc[1], n_cnt * 4,
+                           cudaMemcpyDeviceToHost));
+          return std::memcmp(av.data(), bv.data(), n_out * 4) == 0 && ac == bc;
+        };
+        bool same = same_as_old();
+        // kernel 5's counts of row 0 against the host's
+        for (int m = 0; W == 0 && m < a.M && same; ++m) {
+          int cnt = 0;
+          for (int j = 0; j < a.N; ++j) {
+            const float dx = cen[2 * m] - xyz[3 * j];
+            const float dz = cen[2 * m + 1] - xyz[3 * j + 2];
+            cnt += dx * dx + dz * dz < a.r2;
+          }
+          same = bc[m] == cnt;
+        }
+        std::printf("kernel %d inference B%d N%d M%d r%.0f k%d C%d W%d %s "
+                    "(%.1f slab points and %.1f members a centre, %d "
+                    "centres over k): old %.4f ms, new %.4f ms (%.2fx",
+                    W ? 10 : 5, a.B, a.N, a.M, radius, a.k, a.C, W,
+                    order ? "shuffled" : "sorted",
+                    (double)slab / (a.B * a.M),
+                    (double)members / (a.B * a.M), over, t_old, t_new,
+                    t_old / t_new);
+        for (const auto& z : kCropSizings) {
+          CHECK(cudaMemset(dv[1], 0xff, n_out * 4));
+          CHECK(cudaMemset(dc[1], 0xff, n_cnt * 4));
+          const float tv =
+              time_ms([&] { return z.launch(a, W, dv[1], dc[1]); }, e0, e1);
+          const bool sv = same_as_old();
+          same = same && sv;
+          std::printf("; %s %.4f ms%s", z.name, tv, sv ? "" : " FAIL");
+        }
+        std::printf(")%s\n", same ? "" : " FAIL: new != old or host");
+        ok = ok && same;
+      }
+      for (int v = 0; v < 2; ++v) {
+        CHECK(cudaFree(dv[v]));
+        CHECK(cudaFree(dc[v]));
+      }
+      for (void* p : {(void*)dxyz, (void*)dch, (void*)dcen, (void*)a.bounds})
         CHECK(cudaFree(p));
     }
   }

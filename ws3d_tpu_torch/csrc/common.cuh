@@ -51,41 +51,6 @@ static inline int ws3d_set_smem(const void* kernel, size_t bytes) {
                                    (int)bytes);
 }
 
-// ---- block rank scan: crop_gather.cu (kernels 5, 10) ----------------------
-
-// All kThreads threads of a block scan the points [lo, hi) in ascending
-// index, kThreads at a time; member(i) says whether point i belongs. A warp
-// ballot plus per-warp counts in shared memory (`warp_cnt`, kThreads / 32
-// ints) rank each member, and the first k members' indices land in
-// members[0, k). Returns, in every thread, the number of members in
-// [lo, hi): the scan never stops early, since callers need the count.
-template <int kThreads, class Member>
-__device__ __forceinline__ int block_rank_scan(int lo, int hi, Member member,
-                                               int k, int* members,
-                                               int* warp_cnt) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int running = 0;
-  for (int base = lo; base < hi; base += kThreads) {
-    const int i = base + tid;
-    const bool in = i < hi && member(i);
-    const unsigned m = __ballot_sync(0xffffffffu, in);
-    if (lane == 0) warp_cnt[warp] = __popc(m);
-    __syncthreads();
-    int before = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) {
-      const int wc = warp_cnt[w];
-      before += w < warp ? wc : 0;
-      total += wc;
-    }
-    const int rank = running + before + __popc(m & ((1u << lane) - 1u));
-    if (in && rank < k) members[rank] = i;
-    running += total;
-    __syncthreads();
-  }
-  return running;
-}
-
 // ---- ball query scales: ball_query.cu (kernels 6, 6w) and fused_sa.cu ------
 
 constexpr int kMaxScales = 4;

@@ -1,6 +1,6 @@
 // Staged, pruned neighbour search: shared by ball_query.cu (kernels 6 and
-// 6w), interpolate.cu (kernel 4), three_nn.cu (kernel 7) and fused_sa.cu
-// (kernels 2 and 3).
+// 6w), interpolate.cu (kernel 4), three_nn.cu (kernel 7), fused_sa.cu
+// (kernels 2 and 3) and crop_gather.cu (kernels 5 and 10).
 //
 // A cloud is cut into chunks of kChunk consecutive points, and a pre-pass
 // (launch_chunk_bounds) writes each chunk's z range. A block of queries
@@ -520,4 +520,104 @@ __device__ __forceinline__ void staged_three_nn(
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < kQPT; ++i) top3_fill(d[i], nn[i]);
+}
+
+// ---- the listed rank search: kernels 6w (ball_query.cu), 5 and 10
+// (crop_gather.cu)
+
+// The shared scratch of listed_rank_search: a window's chunks to test and
+// the warp counts (row 0 the list's, rows 1 and 2 the rounds' by parity).
+// A kernel declares one `__shared__ ListedScratch<kWarps>`.
+template <int kWarps>
+struct ListedScratch {
+  int list[kWarps * 32];
+  int wc[3][kWarps];
+};
+
+// Before a launch of a listed-search kernel: the opt-in to `smem` bytes of
+// dynamic shared memory where they and the kernel's `stat` static bytes
+// pass 48 KB, then the chunk pre-pass into `bounds`; returns a cudaError_t.
+static inline int prepare_listed_launch(const void* kernel, size_t smem,
+                                        size_t stat, const float* pts, int R,
+                                        int n, float2* bounds,
+                                        cudaStream_t stream) {
+  const int err = smem + stat > 48 * 1024 ? ws3d_set_smem(kernel, smem) : 0;
+  return err ? err : launch_chunk_bounds(pts, R, n, bounds, stream);
+}
+
+// A block of kWarps warps ranks, in ascending index, the members among the
+// points of the chunks in [c0, c1) that need(c) lists. For each window of
+// kWarps * 32 chunks it lists those chunks in sc.list (ballot, warp counts
+// in sc.wc[0], a prefix), then tests them in rounds, kU consecutive list
+// entries a warp, member(j) for the 32 points j of each chunk (j may pass
+// the cloud's end: member must be false there), the points read straight
+// from global memory (L2). Each warp ballots its chunks' members and
+// publishes its count in sc.wc[1 + round parity]; after a barrier it ranks
+// each member by the running count, the counts of the round's earlier
+// warps and its own earlier chunks: the ranks of an ascending scan over
+// the listed chunks. The first `cap` members' indices land in
+// members[0, cap). Returns, in every thread, the number of members:
+// nothing stops early. Each window ends at a barrier, so `members` is
+// complete on return.
+template <int kWarps, int kU, class Need, class Member>
+__device__ __forceinline__ int listed_rank_search(int c0, int c1, Need need,
+                                                  Member member, int cap,
+                                                  int* members,
+                                                  ListedScratch<kWarps>& sc) {
+  constexpr int kT = kWarps * 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  // the counts of warps before this one, and of all, in row w of sc.wc
+  const auto prefix = [&](int w, int& before, int& total) {
+    before = total = 0;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      const int v = sc.wc[w][k];
+      before += k < warp ? v : 0;
+      total += v;
+    }
+  };
+  int running = 0;  // members so far
+  int round = 0;
+  for (int w0 = c0; w0 < c1; w0 += kT) {
+    const int c = w0 + threadIdx.x;
+    const bool listed = c < c1 && need(c);
+    const unsigned m = __ballot_sync(0xffffffffu, listed);
+    if (lane == 0) sc.wc[0][warp] = __popc(m);
+    __syncthreads();
+    int before, L;
+    prefix(0, before, L);
+    if (listed) sc.list[before + __popc(m & below)] = c;
+    __syncthreads();
+    for (int e0 = 0; e0 < L; e0 += kWarps * kU, ++round) {
+      unsigned hit[kU];
+      int mine = 0;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int e = e0 + warp * kU + u;
+        hit[u] = 0u;
+        if (e < L) {  // warp-uniform
+          hit[u] = __ballot_sync(0xffffffffu,
+                                 member(sc.list[e] * kChunk + lane));
+          mine += __popc(hit[u]);
+        }
+      }
+      const int par = 1 + (round & 1);
+      if (lane == 0) sc.wc[par][warp] = mine;
+      __syncthreads();
+      int rank, total;
+      prefix(par, rank, total);
+      rank += running;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int r = rank + __popc(hit[u] & below);
+        if ((hit[u] >> lane & 1u) && r < cap)
+          members[r] = sc.list[e0 + warp * kU + u] * kChunk + lane;
+        rank += __popc(hit[u]);
+      }
+      running += total;
+    }
+    __syncthreads();  // the next window rewrites the list
+  }
+  return running;
 }

@@ -52,7 +52,7 @@ _SIGNATURES = {
     "ws3d_three_interpolate_window": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                       _P],
     "ws3d_crop_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P,
-                         _P],
+                         _P, _P],
     "ws3d_ball_query": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "ws3d_ball_query_wrap": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "ws3d_three_nn": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],

@@ -3,12 +3,13 @@
 Port of ws3d_tpu/ops/ball_query_pallas.py:crop_gather_pallas: BEV (x, z)
 membership at radius r, the first min(cnt, k) members in index order, the
 slot -> member map (grouped duplicates or `s % cnt`), and an exact gather of
-the channels. Empty crops give zeros. Kernel 5 scans all N points for every
-centre. Kernel 10 (its z-window mode, for clouds sorted ascending by z)
-scans only the contiguous range of points whose own z term
+the channels. Empty crops give zeros. Kernel 5 tests, for every centre,
+the 32-point chunks whose z range lies within r of it (exact: no member
+lies elsewhere). Kernel 10 (its z-window mode, for clouds sorted ascending
+by z) searches only the contiguous range of points whose own z term
 fl((cz - pz)^2) is below r^2, which holds every member; a centre whose
-range spans more than `z_window` 128-point tiles scans all N. The output is
-the same either way.
+range spans more than `z_window` 128-point tiles searches all N. The output
+is the same either way.
 """
 from __future__ import annotations
 
@@ -122,7 +123,9 @@ def crop_gather_cuda(xyz: torch.Tensor, channels: torch.Tensor,
                      centers_xz: torch.Tensor, radius: float, k: int,
                      grouped: bool = True, z_window: int | None = None):
     """Kernel 5 (z_window None) or kernel 10 (z_window W >= 1) on CUDA
-    tensors; the contract of crop_gather_plain."""
+    tensors; the contract of crop_gather_plain (crop_gather_window_plain
+    for kernel 10). One launch after a pre-pass that writes the cloud's
+    chunk z ranges into a workspace."""
     B, N, _ = xyz.shape
     M = centers_xz.shape[1]
     C = channels.shape[1]
@@ -133,12 +136,13 @@ def crop_gather_cuda(xyz: torch.Tensor, channels: torch.Tensor,
     _kernels.check_cuda(centers_xz, "crop centers", torch.float32, (B, M, 2))
     vals = torch.empty((C, B, M, k), dtype=torch.float32, device=xyz.device)
     cnt = torch.empty((B, M), dtype=torch.int32, device=xyz.device)
+    bounds = _kernels.chunk_bounds_workspace(xyz)
     r = float(radius)
     rc = _kernels.library().ws3d_crop_gather(
         xyz.data_ptr(), channels.data_ptr(), centers_xz.data_ptr(), B, N, C,
         M, int(k), r * r, int(bool(grouped)),
         0 if z_window is None else int(z_window), vals.data_ptr(),
-        cnt.data_ptr(), _kernels.stream_ptr(xyz))
+        cnt.data_ptr(), bounds.data_ptr(), _kernels.stream_ptr(xyz))
     key = "crop_gather" if z_window is None else "crop_gather_window"
     _kernels.raise_on_error(rc, key)
     _kernels.LAUNCHES[key] += 1
