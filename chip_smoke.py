@@ -76,7 +76,8 @@ Phases (any failure exits non-zero; nothing is caught):
      kernel 10 at z_window 32, 1 and every tile against kernel 5 and its plain
      version (bit-equal; device time and slab bound as kernel 5's), kernel 8
      on the four FP calls against kernel 4 (bit-equal), kernel 7 (indices
-     and d2 exact) and its plain version;
+     and d2 exact) and its plain version, and its CUDA-event and queued
+     device times beside kernel 4's on the same inputs, in turns;
      then each through its entry point, with its launches counted:
      crop_gather(z_window=32, center_z=...) and the backbone's FP modules
      with sorted_points=True;
@@ -92,7 +93,19 @@ Phases (any failure exits non-zero; nothing is caught):
      the same records, floats within 1e-5; then one RCNN train step at the
      stage-2 CLI's default batch of 64 crops from the generated database,
      with a finite loss;
- 15. print the kernel table, the card's name and power limit, and the
+ 15. the auto-annotator (ws3d_tpu_torch.tools.eval_auto.run_eval) on 16
+     scenes of the inference path (the EVAL loader, 16,384 points, K = 64,
+     f32, the fitted npz) at batch 16, once to warm up and once timed:
+     KITTI txt files into a temporary directory, the recall tally and the
+     official AP; every inference kernel launched, at least one detection,
+     the AP of the native library's path and of the NumPy path within 1e-6
+     of each other, and the first scene's txt file equal to the same scene
+     run on the CPU (the plain versions): every detection matched within
+     1e-3 in centre and score unless its score lies within 0.02 of the
+     threshold; prints the detections, the recall lines, the Car 3D AP and
+     the seconds spent in inference, in the txt files and in the AP
+     harness;
+ 16. print the kernel table, the card's name and power limit, and the
      result line.
 
 Prints nothing of the result and exits 2 without a CUDA device or outside
@@ -164,6 +177,7 @@ DB_MAX_CROP = 2048
 DB_KERNELS = ("fps", "fused_sa_window", "fused_sa_full", "three_interpolate",
               "ball_query_wrap")
 CASCADE_CLI_BATCH = 64      # tools/train_cascade.py's default --batch
+EVAL_SCENES = 16            # the auto-annotator's scenes (phase 15)
 
 
 def card_line() -> str:
@@ -424,6 +438,8 @@ def compare_call(name, args, kw):
                 f"members a centre)")
 
     if name == "three_interpolate_window_cuda":
+        # the forward's workspace, if it passed one, is left out
+        args = args[:3]
         unknown, known, feats = args
         out, d2, idx = interpolate.three_interpolate_window_cuda(
             *args, with_nn=True)
@@ -458,15 +474,13 @@ def compare_call(name, args, kw):
         B, n, _ = unknown.shape
         m, C = feats.shape[1], feats.shape[2]
         nbytes = 4 * (B * n * 3 + B * m * 3 + B * m * C + B * n * C)
-        # the candidates inside the windows (~10 operations each), two per
-        # binary-search step, and the weighted three-row sum
-        ops = (10 * int(visits.sum()) + 2 * B * n * max(m, 1).bit_length()
-               + 5 * B * n * C)
-        print(f"#   kernel 8 n{n} m{m}: {float(visits.float().mean()):.1f} "
-              f"candidates a query on average, {int(visits.max())} at most; "
-              f"max|diff| vs kernel 4 {err4:.3g}", flush=True)
+        # kernel 4's work (the timed calls write no neighbours): the pairs
+        # inside each query's z window (~10 operations each) and the
+        # weighted three-row sum
+        ops = 10 * int(visits.sum()) + 5 * B * n * C
         return ("three_interpolate_window", err, ms, plain, nbytes, ops,
-                f"B{B} n{n} m{m} C{C}")
+                f"B{B} n{n} m{m} C{C} ({float(visits.float().mean()):.1f} "
+                f"window pairs a query)")
 
     if name == "ball_query_multi_cuda":
         radii, nsamples, xyz, new_xyz = args
@@ -868,7 +882,10 @@ def main() -> int:
     # ---- 13.-14. the proposal-database path
     launches["proposal_db"] = _db_phases(card, per_kernel)
 
-    # ---- 15. report
+    # ---- 15. the auto-annotator
+    launches["eval_auto"] = _eval_phase(card)
+
+    # ---- 16. report
     table = []
     for key, (source, replaces) in KERNELS.items():
         agg = per_kernel[key]
@@ -1461,7 +1478,7 @@ def _window_phases(model, pts, crop_call, fp_calls, per_kernel) -> dict:
     inputs, then through their entry points; returns the launch counts of
     those entry-point runs."""
     import torch
-    from ws3d_tpu_torch.ops import _kernels, crop_gather
+    from ws3d_tpu_torch.ops import _kernels, crop_gather, interpolate
     t0 = time.perf_counter()
     xyz, ch, centers, radius, k, grouped = crop_call[:6]
     B, N, _ = xyz.shape
@@ -1482,8 +1499,25 @@ def _window_phases(model, pts, crop_call, fp_calls, per_kernel) -> dict:
                        per_kernel if W == 32
                        else {"crop_gather_window": _fresh()},
                        "inference_inputs")
-    _compare_calls([("three_interpolate_window_cuda", list(a), {})
-                    for a in fp_calls], per_kernel, "inference_inputs")
+    rows = _compare_calls([("three_interpolate_window_cuda", list(a), {})
+                           for a in fp_calls], per_kernel, "inference_inputs")
+    # kernel 8 beside kernel 4 on the same inputs, in turns: CUDA events and
+    # the device time queued behind a sleep kernel
+    t8 = [0.0, 0.0]
+    t4 = [0.0, 0.0]
+    for a in fp_calls:
+        for kern, acc in (
+                (lambda: interpolate.three_interpolate_window_cuda(*a), t8),
+                (lambda: interpolate.three_interpolate_cuda(*a), t4),
+                (lambda: interpolate.three_interpolate_cuda(*a), t4),
+                (lambda: interpolate.three_interpolate_window_cuda(*a), t8)):
+            acc[0] += cuda_ms(kern, 5) / 2
+            acc[1] += device_ms(kern, 5) / 2
+    print(f"#   kernel 8 over the {len(fp_calls)} FP calls: events "
+          f"{sum(r[2] for r in rows):.4f} ms (replayed {t8[0]:.4f}), device "
+          f"{t8[1]:.4f} ms queued; kernel 4 on the same inputs: events "
+          f"{t4[0]:.4f} ms, device {t4[1]:.4f} ms queued; bound "
+          f"{sum(r[3] for r in rows):.4f} ms", flush=True)
 
     # each through its entry point
     _kernels.reset_launch_counts()
@@ -1661,6 +1695,167 @@ def _db_phases(card, per_kernel) -> dict:
     return launches
 
 
+def _eval_phase(card) -> dict:
+    """Phase 15: run_eval of the port's eval_auto on EVAL_SCENES scenes of
+    the inference path at batch BATCH (a warm-up run, then the timed one),
+    its gates, and the first scene again on the CPU; returns the timed
+    run's launch counts."""
+    import logging
+    import tempfile
+    import torch
+    from ws3d_tpu_torch import native
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.datasets import RPNDataset, SyntheticKitti
+    from ws3d_tpu_torch.eval.kitti_ap import get_official_eval_result
+    from ws3d_tpu_torch.models import build_model
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.tools.eval_auto import run_eval
+    from ws3d_tpu_torch.weights import load_npz
+
+    t0 = time.perf_counter()
+    cfg = load_config()
+    cfg.RCNN.ENABLED = True
+    cfg.IOUN.ENABLED = True
+    model = build_model(cfg)
+    load_npz(model, WEIGHTS)
+    src = SyntheticKitti(num_scenes=EVAL_SCENES, points_per_scene=20000,
+                         seed=3)
+    ds = RPNDataset(src, cfg, mode="EVAL", seed=0)
+    quiet = logging.getLogger("chip_smoke.eval_auto.quiet")
+    quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    log = logging.getLogger("chip_smoke.eval_auto")
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(_CommentFormatter())
+    log.addHandler(handler)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_eval(model, cfg, src, ds, quiet, scenes=EVAL_SCENES, batch=BATCH,
+                 output_dir=os.path.join(tmp, "warm"), no_ap=True)
+        torch.cuda.synchronize()
+        print(f"# phase 15: {card}: the auto-annotator on {EVAL_SCENES} "
+              f"scenes at batch {BATCH} (warm-up run in "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        stats = {}
+        _kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            ret = run_eval(model, cfg, src, ds, log, scenes=EVAL_SCENES,
+                           batch=BATCH, output_dir=os.path.join(tmp, "gpu"),
+                           stats=stats)
+            torch.cuda.synchronize()
+        finally:
+            log.removeHandler(handler)
+        wall = time.perf_counter() - t1
+        launches = dict(_kernels.LAUNCHES)
+        missing = [k for k in INFERENCE_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"eval_auto launched no {missing}")
+        if stats["detections"] == 0:
+            raise AssertionError("eval_auto: no scene has a detection")
+        sec = stats["seconds"]
+        print(f"# phase 15: {card}: {stats['detections']} detections over "
+              f"{stats['scenes']} scenes; Car 3D AP e/m/h "
+              f"{ret['Car_3d_easy']:.4f} / {ret['Car_3d_moderate']:.4f} / "
+              f"{ret['Car_3d_hard']:.4f}; seconds: inference "
+              f"{sec['inference']:.3f}, txt files {sec['txt']:.4f}, AP "
+              f"harness {sec['ap']:.3f}, the whole run {wall:.3f} (loading "
+              f"the scenes the rest); launches {launches}", flush=True)
+
+        # the AP through the native library and through NumPy
+        if not native.available():
+            raise AssertionError("the host library csrc/libws3d_host.so "
+                                 "cannot be built or loaded")
+        gt, dt = stats["annos"]
+        t1 = time.perf_counter()
+        ap_native = get_official_eval_result(gt, dt, cfg.CLASSES,
+                                             native=True)[1]
+        t_native = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ap_numpy = get_official_eval_result(gt, dt, cfg.CLASSES,
+                                            native=False)[1]
+        t_numpy = time.perf_counter() - t1
+        diff = max(abs(float(ap_native[k]) - float(ap_numpy[k]))
+                   for k in ap_native)
+        if ap_native.keys() != ap_numpy.keys() or not diff <= 1e-6:
+            raise AssertionError(f"AP native vs NumPy differ by {diff}")
+        print(f"# phase 15: AP native vs NumPy: max|diff| {diff:.3g} over "
+              f"{len(ap_native)} entries (native {t_native:.3f} s, NumPy "
+              f"{t_numpy:.3f} s)", flush=True)
+
+        # the first scene on the CPU
+        t1 = time.perf_counter()
+        cpu_model = build_model(cfg, device="cpu")
+        load_npz(cpu_model, WEIGHTS)
+        run_eval(cpu_model, cfg, src, ds, quiet, scenes=1, batch=1,
+                 output_dir=os.path.join(tmp, "cpu"), no_ap=True)
+        name = sorted(os.listdir(os.path.join(tmp, "cpu", "final_result",
+                                              "data")))[0]
+        rows = [_txt_rows(os.path.join(tmp, side, "final_result", "data",
+                                       name)) for side in ("gpu", "cpu")]
+        _check_txt(*rows, float(cfg.IOUN.SCORE_THRESH))
+        print(f"# phase 15: first scene GPU vs CPU plain: {len(rows[0])} vs "
+              f"{len(rows[1])} detections in {name} agree "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    return launches
+
+
+class _CommentFormatter:
+    """Log records as comment lines ("#   " before each line)."""
+
+    def format(self, record) -> str:
+        return "\n".join("#   " + line
+                         for line in record.getMessage().splitlines())
+
+
+def _txt_rows(path):
+    """(N, 12) rows of a KITTI result file: bbox (4), h w l, x y z, ry,
+    score (tools/diff_detections.py's columns)."""
+    import numpy as np
+    with open(path) as f:
+        rows = [[float(v) for v in line.split()[4:]] for line in f
+                if line.split()]
+    return np.array(rows, np.float64).reshape(len(rows), 12)
+
+
+def _match(a, b, tol: float = 2.0):
+    """tools/diff_detections.py's match: greedy global-argmin pairing of
+    the centres (columns 7:10) within `tol` metres."""
+    import numpy as np
+    if not len(a) or not len(b):
+        return []
+    d = np.linalg.norm(a[:, None, 7:10] - b[None, :, 7:10], axis=-1)
+    pairs = []
+    for _ in range(min(len(a), len(b))):
+        i, j = np.unravel_index(np.argmin(d), d.shape)
+        if d[i, j] > tol:
+            break
+        pairs.append((int(i), int(j)))
+        d[i, :] = np.inf
+        d[:, j] = np.inf
+    return pairs
+
+
+def _check_txt(a, b, score_thresh: float, tol: float = 1e-3) -> None:
+    """_check_detections's rule on two result files' rows: every detection
+    matched (_match) within `tol` in centre and score, unless its score lies
+    within 0.02 of the threshold."""
+    import numpy as np
+    pairs = _match(a, b)
+    for i, j in pairs:
+        dc = float(np.linalg.norm(a[i, 7:10] - b[j, 7:10]))
+        ds = abs(float(a[i, 11] - b[j, 11]))
+        if not (dc <= tol and ds <= tol):
+            raise AssertionError(f"detection {a[i].tolist()} vs "
+                                 f"{b[j].tolist()}: centre {dc}, score {ds}")
+    for rows, done in ((a, {i for i, _ in pairs}), (b, {j for _, j in pairs})):
+        for k in range(len(rows)):
+            if k not in done and abs(rows[k, 11] - score_thresh) >= 0.02:
+                raise AssertionError(f"detection {rows[k].tolist()} has no "
+                                     f"match")
+
+
 def _check_records(a, b) -> None:
     """The same records: keys, types, dtypes, shapes and integers equal,
     floats within 1e-5."""
@@ -1713,7 +1908,7 @@ def _profile(run, ms: float, label: str, unit: str) -> None:
     ours = ("fps_warp_kernel", "fps_cluster_kernel", "fused_sa_tc_kernel",
             "three_interp_kernel", "chunk_bounds_kernel",
             "crop_gather_kernel", "ball_query_kernel", "three_nn_kernel",
-            "ball_query_wrap_kernel", "three_interp_window_kernel")
+            "ball_query_wrap_kernel")
     rows.sort(key=lambda r: -r[1])
     for o in ours:
         mine = [r for r in rows if o in r[0]]

@@ -44,7 +44,8 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, ws3d_tpu_torch.pipeline, ws3d_tpu_torch.datasets, "
             "ws3d_tpu_torch.weights, ws3d_tpu_torch.training, "
             "ws3d_tpu_torch.losses, ws3d_tpu_torch.ops.ball_query, "
-            "ws3d_tpu_torch.tools.train_rpn; "
+            "ws3d_tpu_torch.tools.train_rpn, ws3d_tpu_torch.tools.eval_auto, "
+            "ws3d_tpu_torch.eval, ws3d_tpu_torch.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'ws3d_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

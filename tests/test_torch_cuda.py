@@ -188,12 +188,21 @@ def test_ball_query_wrap_kernel(dev, rng):
 
 
 def test_interpolate_window_kernel(dev, rng):
+    """Kernel 8 against its plain version (neighbours exact), kernel 7 and
+    kernel 4 (bit-equal) on sorted clouds with a tie, with equal z (every
+    known z rounded to 0.5 m) and m < 3, and at FP3's shape, where the
+    channels are split over blocks and only the first split writes the
+    neighbours."""
     from ws3d_tpu_torch.ops.interpolate import (
         three_interpolate_cuda, three_interpolate_window_cuda,
         three_interpolate_window_plain, three_nn_cuda, three_nn_window_plain)
-    for n, m in ((4096, 1024), (700, 64), (50, 2), (40, 1)):
+    for n, m, C, equal_z in ((4096, 1024, 24, False), (700, 64, 24, False),
+                             (700, 64, 24, True), (256, 64, 512, False),
+                             (50, 2, 24, False), (40, 1, 24, False)):
         u, _ = sorted_cloud(rng, 2, n, 1, spread=4.0)
-        k, f = sorted_cloud(rng, 2, m, 24, spread=4.0)
+        k, f = sorted_cloud(rng, 2, m, C, spread=4.0)
+        if equal_z:
+            k[..., 2] = np.round(k[..., 2] * 2.0) * 0.5
         if m > 3:
             k[:, 1] = k[:, 0]                    # a tie
         u, k, f = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -207,6 +216,37 @@ def test_interpolate_window_kernel(dev, rng):
         torch.testing.assert_close(out,
                                    three_interpolate_window_plain(u, k, f),
                                    atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n_u,m,C", [(16384, 4096, 128), (1000, 250, 64)])
+def test_interpolate_window_unsorted(dev, rng, n_u, m, C):
+    """Where the known points are not sorted by z, kernel 8's chunk ends
+    bound nothing: each query still gets three distinct known points in
+    (d2, index) order with their exact d2, each no nearer than the true
+    neighbour of its rank (kernel 7), and kernel 4's weights on them, but
+    not always the true ones (tests/test_torch_interpolate_window.py
+    emulates this search on the CPU)."""
+    from ws3d_tpu_torch.ops.interpolate import (
+        _weighted_rows, three_interpolate_window_cuda, three_nn_cuda)
+    unknown = _search_cloud(rng, 2, n_u, "sorted")
+    known = np.ascontiguousarray(unknown[:, ::n_u // m][:, :m]
+                                 [:, rng.permutation(m)])
+    feats = rng.randn(2, m, C).astype(np.float32)
+    u, k, f = (torch.from_numpy(a).to(dev) for a in (unknown, known, feats))
+    out, d2, idx = three_interpolate_window_cuda(u, k, f, with_nn=True)
+    rd2, ridx = three_nn_cuda(u, k)
+    pts = torch.gather(k, 1, idx.long().reshape(2, -1, 1).expand(
+        -1, -1, 3)).reshape(2, n_u, 3, 3)
+    dd = u[:, :, None] - pts
+    assert torch.equal(d2, (dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1])
+                       + dd[..., 2] * dd[..., 2])
+    assert bool(((d2[..., :2] < d2[..., 1:])
+                 | ((d2[..., :2] == d2[..., 1:])
+                    & (idx[..., :2] < idx[..., 1:]))).all())
+    assert bool((d2 >= rd2).all())
+    assert not torch.equal(idx, ridx)
+    torch.testing.assert_close(out, _weighted_rows(f, d2, idx), atol=1e-5,
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("z_window", [1, 4, 16])

@@ -1,9 +1,13 @@
 """Kernel 8 (the windowed 3-NN interpolation for z-sorted clouds) on the
-CPU: the port's plain version, which runs the kernel's window search and
-stop rule, against three_interpolate_window_pallas in interpret mode (2e-2:
-the TPU kernel multiplies in bf16), against the JAX XLA composition (1e-5)
-and the port's full 3-NN (indices equal); PointnetFPModule with
-sorted_points against the JAX module (1e-5)."""
+CPU: the port's plain version, which runs a window search with its own stop
+rule, against three_interpolate_window_pallas in interpret mode (2e-2: the
+TPU kernel multiplies in bf16), against the JAX XLA composition (1e-5) and
+the port's full 3-NN (indices equal); the kernel's own search, kernel 4's
+staged search emulated rule for rule (tests/test_torch_pruned_search.py) on
+each chunk's first and last z as kernel 8 reads them, against the plain
+version's on sorted clouds with ties, equal z and m < 3, and what it
+returns on unsorted clouds; PointnetFPModule with sorted_points against
+the JAX module (1e-5)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +15,7 @@ import pytest
 import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
 
+from test_torch_pruned_search import chunk_bounds, emulate_three_nn
 from torch_port_helpers import n, t
 from ws3d_tpu.models.pointnet2 import PointnetFPModule as JaxFP
 from ws3d_tpu.ops.interpolate import _interpolate_xla
@@ -64,6 +69,81 @@ def test_window_plain_matches_jax(rng, case):
     assert torch.equal(idx, ridx) and torch.equal(d2, rd2)
     assert torch.equal(torch.from_numpy(got), three_interpolate_plain(
         t(unknown), t(known), t(feats)))
+
+
+def chunk_ends(known):
+    """(lo, hi), each (B, chunks): each 32-point chunk's first and last z,
+    the chunk bounds kernel 8 reads in place."""
+    B, m, _ = known.shape
+    nch = -(-m // 32)
+    first = torch.arange(nch) * 32
+    last = torch.clamp(first + 31, max=m - 1)
+    return known[:, first, 2], known[:, last, 2]
+
+
+@pytest.mark.parametrize("case", ["unclustered", "clustered", "far",
+                                  "tie", "equal_z"])
+def test_kernel_search_matches_window_search(rng, case):
+    """Kernel 8 runs kernel 4's staged search (one query a thread, as the
+    library launches it) on each chunk's first and last z: on sorted clouds
+    those are the pre-pass's bounds, and its neighbours are the plain
+    version's window search's, d2 and indices exactly, with an exact tie
+    across chunks and with duplicate z (every z rounded to 0.5)."""
+    if case in ("tie", "equal_z"):
+        unknown, known, _ = _sorted_pair(rng, 2, 300, 200, 1)
+        if case == "tie":
+            known[:, 150] = known[:, 10]
+            known[:, 149] = known[:, 10]
+            known = known[np.arange(2)[:, None],
+                          np.argsort(known[..., 2], axis=1, kind="stable")]
+        else:
+            known[..., 2] = np.round(known[..., 2] * 2.0) * 0.5
+            unknown[..., 2] = np.round(unknown[..., 2] * 2.0) * 0.5
+    else:
+        unknown, known, _ = _cases(rng)[case]
+    ends = chunk_ends(t(known))
+    for a, b in zip(ends, chunk_bounds(t(known))):
+        assert torch.equal(a, b)
+    d2, idx, _ = emulate_three_nn(t(unknown), t(known), 1, bounds=ends)
+    wd2, widx = three_nn_window_plain(t(unknown), t(known))
+    assert torch.equal(idx, widx) and torch.equal(d2, wd2)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_kernel_search_few_known_points(rng, m):
+    """m < 3: the kernel's search repeats the nearest as the window search
+    does; m = 3 with two equal points ties by index."""
+    unknown, known, _ = _sorted_pair(rng, 2, 200, m, 1)
+    if m == 3:
+        known[:, 1] = known[:, 0]
+    d2, idx, _ = emulate_three_nn(t(unknown), t(known), 1,
+                                  bounds=chunk_ends(t(known)))
+    wd2, widx = three_nn_window_plain(t(unknown), t(known))
+    assert torch.equal(idx, widx) and torch.equal(d2, wd2)
+
+
+def test_kernel_search_on_unsorted_clouds(rng):
+    """What kernel 8 returns where the known points are not sorted by z:
+    the first and last z of a chunk bound nothing, so the search skips
+    chunks that hold neighbours. Each query still gets three distinct known
+    points in (d2, index) order with their exact d2, each no nearer than
+    the true neighbour of its rank (three_nn_plain), and on this cloud not
+    always the true ones."""
+    unknown, known, _ = _sorted_pair(rng, 2, 256, 512, 1)
+    known = np.ascontiguousarray(known[:, rng.permutation(512)])
+    u, k = t(unknown), t(known)
+    d2, idx, _ = emulate_three_nn(u, k, 1, bounds=chunk_ends(k))
+    rd2, ridx = three_nn_plain(u, k)
+    pts = torch.gather(k, 1, idx.long().reshape(2, -1, 1).expand(
+        -1, -1, 3)).reshape(2, 256, 3, 3)
+    dd = u[:, :, None] - pts
+    assert torch.equal(d2, (dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1])
+                       + dd[..., 2] * dd[..., 2])
+    assert bool(((d2[..., :2] < d2[..., 1:])
+                 | ((d2[..., :2] == d2[..., 1:])
+                    & (idx[..., :2] < idx[..., 1:]))).all())
+    assert bool((d2 >= rd2).all())
+    assert not torch.equal(idx, ridx)
 
 
 def test_window_visits_fewer_than_all(rng):

@@ -138,13 +138,15 @@ def _merge(d, i, v, j):
     return torch.gather(dd, -1, o), torch.gather(ii, -1, o)
 
 
-def emulate_three_nn(unknown, known, qpt):
+def emulate_three_nn(unknown, known, qpt, bounds=None):
     """Kernel 4's pruned search with qpt queries a thread: -> (d2 (B, n, 3),
-    idx (B, n, 3) int32, pairs tested). Asserts that every chunk a warp
-    tests is one its block stages."""
+    idx (B, n, 3) int32, pairs tested), on the chunk bounds of the pre-pass
+    (chunk_bounds) or on `bounds`, a (lo, hi) pair of (B, chunks) rows as
+    kernel 8 reads them. Asserts that every chunk a warp tests is one its
+    block stages."""
     B, nu, _ = unknown.shape
     m = known.shape[1]
-    lo, hi = chunk_bounds(known)
+    lo, hi = chunk_bounds(known) if bounds is None else bounds
     nch = lo.shape[1]
     d2 = _padded_d2(unknown, known, nch)
     bq, wq = 128 * qpt, 32 * qpt

@@ -1,15 +1,16 @@
 // The measurement behind the staged, pruned searches of kernels 6
-// (csrc/ball_query.cu), 4 (csrc/interpolate.cu), 7 (csrc/three_nn.cu), 6w
-// (csrc/ball_query.cu, wrap-pad mode) and 5 and 10 (csrc/crop_gather.cu):
+// (csrc/ball_query.cu), 4 and 8 (csrc/interpolate.cu), 7 (csrc/three_nn.cu),
+// 6w (csrc/ball_query.cu, wrap-pad mode) and 5 and 10 (csrc/crop_gather.cu):
 // each against the search it replaced, at every launch shape of the main
-// path, on z-sorted clouds and on the same clouds shuffled.
+// path, on z-sorted clouds and on the same clouds shuffled (kernel 8, whose
+// old search holds only on sorted clouds, sorted only).
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -Xcompiler -ffp-contract=off -o neighbour_search \
 //       ws3d_tpu_torch/csrc/bench/neighbour_search.cu && ./neighbour_search
 //
 // Shapes: kernel 6 at the stage-1 train step's four SA stages (16 scenes) and
-// the RCNN step's three backward stages (800 crops); kernel 4 at the
+// the RCNN step's three backward stages (800 crops); kernels 4 and 8 at the
 // inference batch's four FP stages (16 scenes) and the database's FP0 (one
 // scene); kernel 7 at the stage-1 step's four FP stages (16 scenes: n 256 /
 // 1,024 / 4,096 / 16,384 over m 64 / 256 / 1,024 / 4,096); kernel 6w at the
@@ -28,20 +29,24 @@
 // is skipped (kernel 6w's and the crop's centres keep their order). The old
 // searches: kernel 6 as one warp a query over all points in ascending index
 // (warp_ball_query), kernels 4 and 7 as one thread a query over every known
-// point through shared-memory tiles (block_three_nn), kernels 6w, 5 and 10 as
-// one block a centre ranking all N points (block_rank_scan; kernel 10 over
-// the z window thread 0 finds by serial binary searches). Each prints the
+// point through shared-memory tiles (block_three_nn), kernel 8 as one thread
+// a query walking outward from the home a serial binary search finds (the
+// ring walk), kernels 6w, 5 and 10 as one block a centre ranking all N
+// points (block_rank_scan; kernel 10 over the z window thread 0 finds by
+// serial binary searches). Each prints the
 // CUDA-event time of both (mean of 5 launches after one warm-up; the new one
 // with its pre-pass), the new one as the library launches it and with the
 // other sizes it could take: kernel 6 with 1 and 4 queries a warp where it
 // keeps 2; kernels 4 and 7 with launch bounds for 4 and 12 blocks an SM where
 // they keep 8, and with 2 and 4 queries a thread where they keep 1; kernel 7
 // also on the chunk bounds a pre-pass already wrote (the interpolation
-// backward reuses its forward's); kernel 6w with 8 and 32 warps a centre
-// where it keeps 16, with 2 and 8 chunks a warp a round where it keeps 4, and
-// on the staged ring of search.cuh with one centre a block and with 2 and 8
-// centres a block taken in z order; kernels 5 and 10 with 4, 8 and 16 warps a
-// centre and 2, 4 and 8 chunks a warp a round.
+// backward reuses its forward's); kernel 8 on each chunk's first and last z
+// read in place, against kernel 4's launch with its pre-pass and without it
+// on bounds written once, four rounds of each in turns; kernel 6w with 8 and 32
+// warps a centre where it keeps 16, with 2 and 8 chunks a warp a round where
+// it keeps 4, and on the staged ring of search.cuh with one centre a block
+// and with 2 and 8 centres a block taken in z order; kernels 5 and 10 with
+// 4, 8 and 16 warps a centre and 2, 4 and 8 chunks a warp a round.
 // It exits 1 if any output differs from the old one by a bit, or if
 // kernel 6's first row differs from a host ball query or kernel 5's first
 // row's counts from the host's.
@@ -55,6 +60,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <numeric>
 #include <random>
 #include <vector>
@@ -583,6 +589,94 @@ old_three_interp_kernel(const float* __restrict__ unknown,
   }
 }
 
+// kernel 8 before: one thread a query, a serial binary search for the
+// query's home in the known z, then a walk outward to the side whose next
+// point is nearer in z, until both sides' next z term exceeds the
+// third-best d2 (exact on z-sorted clouds)
+__global__ void __launch_bounds__(kNNThreads)
+old_three_interp_window_kernel(const float* __restrict__ unknown,
+                               const float* __restrict__ known,
+                               const float* __restrict__ feats, int n, int m,
+                               int C, float* __restrict__ out,
+                               int* __restrict__ idx_out,
+                               float* __restrict__ d2_out) {
+  __shared__ int s_idx[kNNThreads][3];
+  __shared__ float s_w[kNNThreads][3];
+  const int tiles = (n + kNNThreads - 1) / kNNThreads;
+  const int b = blockIdx.x / tiles;
+  const int u0 = (blockIdx.x % tiles) * kNNThreads;
+  const int tid = threadIdx.x;
+  const int u = u0 + tid;
+  const float* kb = known + (size_t)b * m * 3;
+  const float* fb = feats + (size_t)b * m * C;
+  const float inf = __int_as_float(0x7f800000);
+  float d[3] = {inf, inf, inf};
+  int nn[3] = {-1, -1, -1};
+  if (u < n) {
+    const float* q = unknown + ((size_t)b * n + u) * 3;
+    const float qx = q[0], qy = q[1], qz = q[2];
+    int a = 0, e = m;  // home: the first known point with z >= qz
+    while (a < e) {
+      const int mid = (a + e) >> 1;
+      if (kb[3 * mid + 2] < qz) a = mid + 1;
+      else e = mid;
+    }
+    int l = a - 1, r = a;
+    float tl = 0.f, tr = 0.f;  // the z term of the next point of each side
+    if (l >= 0) {
+      const float dz = qz - kb[3 * l + 2];
+      tl = __fmul_rn(dz, dz);
+    }
+    if (r < m) {
+      const float dz = qz - kb[3 * r + 2];
+      tr = __fmul_rn(dz, dz);
+    }
+    while (true) {
+      const bool go_l = l >= 0 && !(tl > d[2]);
+      const bool go_r = r < m && !(tr > d[2]);
+      if (!go_l && !go_r) break;
+      const int j = go_l && (!go_r || tl <= tr) ? l : r;
+      top3_insert(sqdist3(qx - kb[3 * j], qy - kb[3 * j + 1],
+                          qz - kb[3 * j + 2]),
+                  j, d, nn);
+      if (j == l) {
+        if (--l >= 0) {
+          const float dz = qz - kb[3 * l + 2];
+          tl = __fmul_rn(dz, dz);
+        }
+      } else if (++r < m) {
+        const float dz = qz - kb[3 * r + 2];
+        tr = __fmul_rn(dz, dz);
+      }
+    }
+    top3_fill(d, nn);
+    const size_t o = ((size_t)b * n + u) * 3;
+    for (int t = 0; t < 3; ++t) {
+      idx_out[o + t] = nn[t];
+      d2_out[o + t] = d[t];
+    }
+  }
+  const float r0 = 1.0f / (d[0] + 1e-8f), r1 = 1.0f / (d[1] + 1e-8f),
+              r2 = 1.0f / (d[2] + 1e-8f);
+  const float norm = __fadd_rn(__fadd_rn(r0, r1), r2);
+  s_idx[tid][0] = nn[0];
+  s_idx[tid][1] = nn[1];
+  s_idx[tid][2] = nn[2];
+  s_w[tid][0] = r0 / norm;
+  s_w[tid][1] = r1 / norm;
+  s_w[tid][2] = r2 / norm;
+  __syncthreads();
+  const int nu = min(kNNThreads, n - u0);
+  for (int t = tid; t < nu * C; t += kNNThreads) {
+    const int q = t / C, c = t - q * C;
+    const float v = __fadd_rn(
+        __fadd_rn(__fmul_rn(fb[(size_t)s_idx[q][0] * C + c], s_w[q][0]),
+                  __fmul_rn(fb[(size_t)s_idx[q][1] * C + c], s_w[q][1])),
+        __fmul_rn(fb[(size_t)s_idx[q][2] * C + c], s_w[q][2]));
+    out[((size_t)b * n + u0 + q) * C + c] = v;
+  }
+}
+
 // the crop-gather's arguments, and each sizing the bench tries
 struct CropArgs {
   const float *xyz, *ch, *centers;
@@ -930,6 +1024,104 @@ int main() {
                       (void*)dnew, (void*)dbounds})
         CHECK(cudaFree(p));
     }
+  }
+  // kernel 8 on the sorted FP shapes: the ring walk it was against its
+  // launch as the library makes it, (b) on each sorted chunk's first and
+  // last z read in place (SortedChunkEnds: no pre-pass, no workspace), and
+  // against kernel 4's launch with the neighbours written out, (a) with
+  // kernel 4's pre-pass, and (b0) without it on chunk bounds written once
+  // (what (b) would take if its in-place reads cost nothing). Four rounds
+  // of each, in turns, give each its spread; every round's output must
+  // equal the old one.
+  for (const FPShape& s : kFPShapes) {
+    std::vector<float> un = cloud(gen, s.B, s.n, false);
+    std::vector<float> kn = every(un, s.B, s.n, s.m);
+    std::uniform_real_distribution<float> u(-1.f, 1.f);
+    std::vector<float> feat((size_t)s.B * s.m * s.C);
+    for (float& v : feat) v = u(gen);
+    float* du = to_device(un);
+    float* dk = to_device(kn);
+    float* df = to_device(feat);
+    const size_t n_out = (size_t)s.B * s.n * s.C, n_nn = (size_t)s.B * s.n * 3;
+    float *dout[2], *dd2[2];
+    int* didx[2];
+    for (int v = 0; v < 2; ++v) {
+      CHECK(cudaMalloc(&dout[v], n_out * 4));
+      CHECK(cudaMalloc(&dd2[v], n_nn * 4));
+      CHECK(cudaMalloc(&didx[v], n_nn * 4));
+    }
+    float2* dbounds;
+    CHECK(cudaMalloc(&dbounds, (size_t)s.B * n_chunks(s.m) * 8));
+    const int cs = three_interp_splits(1, s.B, s.n, s.m, s.C,
+                                       prop.multiProcessorCount);
+    const int a16 = s.m % 4 == 0 ? 1 : 0;  // cudaMalloc aligns
+    const unsigned grid =
+        (unsigned)((long long)s.B * ((s.n + kQ - 1) / kQ) * cs);
+    const float t_old = time_ms([&] {
+      old_three_interp_window_kernel<<<s.B * ((s.n + kNNThreads - 1) /
+                                              kNNThreads),
+                                       kNNThreads>>>(du, dk, df, s.n, s.m,
+                                                     s.C, dout[0], didx[0],
+                                                     dd2[0]);
+      return (int)cudaGetLastError();
+    }, e0, e1);
+    auto with_prepass = [&] {
+      return launch_three_interp<1, kInterpMinBlocks>(
+          cs, du, dk, df, s.B, s.n, s.m, s.C, dout[1], dbounds, nullptr,
+          didx[1], dd2[1]);
+    };
+    auto without_prepass = [&] {
+      three_interp_kernel<1, kInterpMinBlocks><<<grid, kQ>>>(
+          du, dk, dbounds, df, s.n, s.m, s.C, cs, a16, dout[1], didx[1],
+          dd2[1]);
+      return (int)cudaGetLastError();
+    };
+    auto sorted_ends = [&] {
+      return ws3d_three_interpolate_window(du, dk, df, s.B, s.n, s.m, s.C,
+                                           dout[1], didx[1], dd2[1], nullptr);
+    };
+    auto same_as_old = [&] {
+      std::vector<float> a(n_out), b(n_out), ad(n_nn), bd(n_nn);
+      std::vector<int> ai(n_nn), bi(n_nn);
+      CHECK(cudaMemcpy(a.data(), dout[0], n_out * 4, cudaMemcpyDeviceToHost));
+      CHECK(cudaMemcpy(b.data(), dout[1], n_out * 4, cudaMemcpyDeviceToHost));
+      CHECK(cudaMemcpy(ad.data(), dd2[0], n_nn * 4, cudaMemcpyDeviceToHost));
+      CHECK(cudaMemcpy(bd.data(), dd2[1], n_nn * 4, cudaMemcpyDeviceToHost));
+      CHECK(cudaMemcpy(ai.data(), didx[0], n_nn * 4, cudaMemcpyDeviceToHost));
+      CHECK(cudaMemcpy(bi.data(), didx[1], n_nn * 4, cudaMemcpyDeviceToHost));
+      return std::memcmp(a.data(), b.data(), n_out * 4) == 0 &&
+             std::memcmp(ad.data(), bd.data(), n_nn * 4) == 0 && ai == bi;
+    };
+    // (a), (b), (b0) in turns: a b b0 b0 b a, twice
+    float t[3][4];
+    bool same = true;
+    for (int r = 0; r < 2; ++r) {
+      int k = 0;
+      for (int v : {0, 1, 2, 2, 1, 0}) {
+        CHECK(cudaMemset(dout[1], 0xff, n_out * 4));
+        t[v][2 * r + (k++ >= 3)] =
+            time_ms(v == 0 ? std::function<int()>(with_prepass)
+                    : v == 1 ? std::function<int()>(sorted_ends)
+                             : std::function<int()>(without_prepass),
+                    e0, e1);
+        same = same && same_as_old();
+      }
+    }
+    std::printf("kernel 8 %s B%d n%d m%d C%d sorted: old %.4f ms; new (b, "
+                "each chunk's first and last z) %.4f %.4f %.4f %.4f ms "
+                "(%.2fx); kernel 4's launch (a, its pre-pass) %.4f %.4f %.4f "
+                "%.4f ms, (b0, bounds written once) %.4f %.4f %.4f %.4f "
+                "ms%s\n",
+                s.name, s.B, s.n, s.m, s.C, t_old, t[1][0], t[1][1], t[1][2],
+                t[1][3], t_old / *std::min_element(t[1], t[1] + 4), t[0][0],
+                t[0][1], t[0][2], t[0][3], t[2][0], t[2][1], t[2][2], t[2][3],
+                same ? "" : " FAIL: new != old");
+    ok = ok && same;
+    for (int v = 0; v < 2; ++v)
+      for (void* p : {(void*)dout[v], (void*)dd2[v], (void*)didx[v]})
+        CHECK(cudaFree(p));
+    for (void* p : {(void*)du, (void*)dk, (void*)df, (void*)dbounds})
+      CHECK(cudaFree(p));
   }
   for (const NNShape& s : kNNShapes) {
     std::vector<float> un = cloud(gen, s.B, s.n, false);

@@ -61,8 +61,7 @@ struct BallScales {
   int S[kMaxScales];     // samples per scale
 };
 
-// ---- 3-NN search: the staged search of kernels 4 and 7 (search.cuh) and
-// kernel 8's window search (interpolate.cu) ---------------------------------
+// ---- 3-NN search: the staged search of kernels 4, 7 and 8 (search.cuh) ----
 
 constexpr int kNNThreads = 128;  // threads a block of the 3-NN kernels
 

@@ -14,7 +14,7 @@
 // by the operations at FP0; at FP2/FP3 the bytes bound it. But on the main
 // path both clouds are sorted by z, and a query's three neighbours lie
 // within the z slab its third-best d2 spans: about 90 of FP0's 4096 known
-// points (kernel 8's visits).
+// points (the visits of the plain windowed search, ops/interpolate.py).
 //
 // Design: staged_three_nn (search.cuh), the staged search that kernel 7
 // (three_nn.cu) runs too, so the backward weights the very neighbours the
@@ -25,9 +25,7 @@
 // z range and steps outward, and a chunk is skipped where its z term is
 // strictly greater than the third-best d2 of every query it could serve, so
 // the result is the full search's on any input, with the top-3 in (d2,
-// index) order, the order of the TPU's three masked-min passes. The
-// weights and the three-row sum are the arithmetic they were, so kernel 8
-// stays bit-equal.
+// index) order, the order of the TPU's three masked-min passes.
 // The library launches kQPT 1: csrc/bench/neighbour_search.cu measures 2
 // and 4 too, and more queries a thread lost at every main-path shape (the
 // pruned search leaves few pairs to share a load, and the registers cut
@@ -40,23 +38,23 @@
 // each block searching its queries again. The block writes the output rows
 // with threads across channels (coalesced).
 //
-// Kernel 8 (three_interp_window_kernel) replaces the TPU kernel
-// three_nn_pallas.py:_window_interp_kernel (wrapper
-// three_interpolate_window_pallas, interpolate_features(sorted_z=True)): the
-// same function for clouds sorted ascending by z, with a search that visits
-// only the known points near each query in z. One thread per query (queries
-// are z-sorted too, so a warp's searches overlap): a binary search finds the
-// query's home in the known z, then the search steps outward, always to the
-// side whose next point is nearer in z, and keeps a running top-3 ordered
-// by (d2, index) (top3_insert). A side stops once its next point's own z
-// term fl(dz)^2 is greater than the current third-best d2: d2 is at least
-// that term (term-rounded sqdist3, each sum rounds upwards of its terms) and
-// the term only grows along the side, so nothing beyond can enter. Strictly
-// greater: an equal d2 can still win a tie towards a lower index. The result
-// is kernel 7's neighbours exactly, and the weights and the gather below are
-// kernel 4's arithmetic, so the output is bit-equal to kernel 4. What bounds
-// it: the candidates inside the windows (about 10 operations each), against
-// the same feature bytes as kernel 4.
+// Kernel 8 replaces the TPU kernel three_nn_pallas.py:_window_interp_kernel
+// (wrapper three_interpolate_window_pallas, interpolate_features(
+// sorted_z=True)): the same function for clouds sorted ascending by z, with
+// the neighbours' indices and d2 written out on request. It runs kernel 4's
+// kernel, the staged search, with those two outputs and with the chunk
+// bounds read in place: on a known cloud sorted by z each chunk's first and
+// last z are its z range, so kernel 8 needs no pre-pass and no workspace,
+// and its result equals kernel 4's (and kernel 7's neighbours) bit for bit.
+// On a known cloud that is not sorted, the first and last z bound nothing
+// and the search may skip a chunk that holds a neighbour: kernel 8 then
+// returns three known points and their d2, not always the nearest (the
+// TPU kernel too assumes sorted clouds). The ring walk it replaces (a
+// thread a query, a serial binary search, then a two-sided walk of
+// dependent global loads) took 0.646 ms on an H100 over the inference
+// batch's four FP launches against kernel 4's 0.369 (PERF.md);
+// csrc/bench/neighbour_search.cu measures it against this launch and
+// against kernel 4's, the pre-pass included.
 #include <stdint.h>
 
 #include <algorithm>
@@ -68,16 +66,21 @@ namespace {
 constexpr int kQ = kNNThreads;  // threads a block
 constexpr int kInterpMinBlocks = 8;  // kernel 4's launch bound: blocks an SM
 
-// Kernel 4: a block takes 128 * kQPT consecutive unknown points of one
-// batch row and channels [split * cg, split * cg + cg) of their output,
-// cg = ceil(C / csplit), split = blockIdx.x % csplit.
-template <int kQPT, int kMinBlocks>
+// Kernels 4 and 8: a block takes 128 * kQPT consecutive unknown points of
+// one batch row and channels [split * cg, split * cg + cg) of their output,
+// cg = ceil(C / csplit), split = blockIdx.x % csplit; the blocks of split 0
+// write the neighbours' indices and d2 to idx_out and d2_out where those are
+// not null (kernel 8). kSortedEnds (kernel 8): the chunk bounds are each
+// chunk's first and last z, read in place (SortedChunkEnds; `bounds` is not
+// read), which bound the chunks only on known clouds sorted by z.
+template <int kQPT, int kMinBlocks, bool kSortedEnds = false>
 __global__ void __launch_bounds__(kQ, kMinBlocks)
 three_interp_kernel(const float* __restrict__ unknown,
                     const float* __restrict__ known,
                     const float2* __restrict__ bounds,
                     const float* __restrict__ feats, int n, int m, int C,
-                    int csplit, int a16, float* __restrict__ out) {
+                    int csplit, int a16, float* __restrict__ out,
+                    int* __restrict__ idx_out, float* __restrict__ d2_out) {
   constexpr int kBQ = kQ * kQPT;  // queries a block
   __shared__ int s_idx[kBQ][3];
   __shared__ float s_w[kBQ][3];
@@ -89,9 +92,13 @@ three_interp_kernel(const float* __restrict__ unknown,
   const float* fb = feats + (size_t)b * m * C;
   float d[kQPT][3];
   int nn[kQPT][3];
-  staged_three_nn<kQPT>(unknown + (size_t)b * n * 3, n, u0,
-                        known + (size_t)b * m * 3, m,
-                        bounds + (size_t)b * n_chunks(m), a16 != 0, d, nn);
+  const float* kb = known + (size_t)b * m * 3;
+  if constexpr (kSortedEnds)
+    staged_three_nn<kQPT>(unknown + (size_t)b * n * 3, n, u0, kb, m,
+                          SortedChunkEnds{kb, m}, a16 != 0, d, nn);
+  else
+    staged_three_nn<kQPT>(unknown + (size_t)b * n * 3, n, u0, kb, m,
+                          bounds + (size_t)b * n_chunks(m), a16 != 0, d, nn);
 
 #pragma unroll
   for (int i = 0; i < kQPT; ++i) {
@@ -99,6 +106,14 @@ three_interp_kernel(const float* __restrict__ unknown,
                 r2 = 1.0f / (d[i][2] + 1e-8f);
     const float norm = __fadd_rn(__fadd_rn(r0, r1), r2);
     const int q = tid * kQPT + i;
+    if (idx_out != nullptr && split == 0 && u0 + q < n) {
+      const size_t o = ((size_t)b * n + u0 + q) * 3;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        idx_out[o + k] = nn[i][k];
+        d2_out[o + k] = d[i][k];
+      }
+    }
     s_idx[q][0] = nn[i][0];
     s_idx[q][1] = nn[i][1];
     s_idx[q][2] = nn[i][2];
@@ -121,21 +136,26 @@ three_interp_kernel(const float* __restrict__ unknown,
   }
 }
 
-// Launches kernel 4 with kQPT queries a thread, registers for kMinBlocks
-// blocks an SM and csplit channel groups after the pre-pass; returns a
+// Launches kernel 4 (kernel 8: kSortedEnds, idx_out and d2_out) with kQPT
+// queries a thread, registers for kMinBlocks blocks an SM and csplit
+// channel groups, after the pre-pass unless kSortedEnds; returns a
 // cudaError_t.
-template <int kQPT, int kMinBlocks>
+template <int kQPT, int kMinBlocks, bool kSortedEnds = false>
 int launch_three_interp(int csplit, const float* unknown, const float* known,
                         const float* feats, int B, int n, int m, int C,
-                        float* out, float2* bounds, cudaStream_t st) {
-  const int err = launch_chunk_bounds(known, B, m, bounds, st);
-  if (err) return err;
+                        float* out, float2* bounds, cudaStream_t st,
+                        int* idx_out = nullptr, float* d2_out = nullptr) {
+  if constexpr (!kSortedEnds) {
+    const int err = launch_chunk_bounds(known, B, m, bounds, st);
+    if (err) return err;
+  }
   const int a16 =
       (reinterpret_cast<uintptr_t>(known) & 15) == 0 && m % 4 == 0 ? 1 : 0;
   const long long blocks = (long long)B * ((n + kQ * kQPT - 1) / (kQ * kQPT));
-  three_interp_kernel<kQPT, kMinBlocks>
+  three_interp_kernel<kQPT, kMinBlocks, kSortedEnds>
       <<<(unsigned)(blocks * csplit), kQ, 0, st>>>(
-          unknown, known, bounds, feats, n, m, C, csplit, a16, out);
+          unknown, known, bounds, feats, n, m, C, csplit, a16, out, idx_out,
+          d2_out);
   return (int)cudaGetLastError();
 }
 
@@ -151,92 +171,17 @@ int three_interp_splits(int kqpt, int B, int n, int m, int C, int sms) {
       std::max<long long>((2LL * sms + nb - 1) / nb, 1), (C + 31) / 32);
 }
 
-__global__ void __launch_bounds__(kQ)
-three_interp_window_kernel(const float* __restrict__ unknown,
-                           const float* __restrict__ known,
-                           const float* __restrict__ feats, int n, int m,
-                           int C, float* __restrict__ out,
-                           int* __restrict__ idx_out,
-                           float* __restrict__ d2_out) {
-  __shared__ int s_idx[kQ][3];
-  __shared__ float s_w[kQ][3];
-  const int tiles = (n + kQ - 1) / kQ;
-  const int b = blockIdx.x / tiles;
-  const int u0 = (blockIdx.x % tiles) * kQ;
-  const int tid = threadIdx.x;
-  const int u = u0 + tid;
-  const float* kb = known + (size_t)b * m * 3;
-  const float* fb = feats + (size_t)b * m * C;
-  const float inf = __int_as_float(0x7f800000);
-  float d[3] = {inf, inf, inf};
-  int nn[3] = {-1, -1, -1};
-  if (u < n) {
-    const float* q = unknown + ((size_t)b * n + u) * 3;
-    const float qx = q[0], qy = q[1], qz = q[2];
-    int a = 0, e = m;  // home: the first known point with z >= qz
-    while (a < e) {
-      const int mid = (a + e) >> 1;
-      if (kb[3 * mid + 2] < qz) a = mid + 1;
-      else e = mid;
-    }
-    int l = a - 1, r = a;
-    float tl = 0.f, tr = 0.f;  // the z term of the next point of each side
-    if (l >= 0) {
-      const float dz = qz - kb[3 * l + 2];
-      tl = __fmul_rn(dz, dz);
-    }
-    if (r < m) {
-      const float dz = qz - kb[3 * r + 2];
-      tr = __fmul_rn(dz, dz);
-    }
-    while (true) {
-      const bool go_l = l >= 0 && !(tl > d[2]);
-      const bool go_r = r < m && !(tr > d[2]);
-      if (!go_l && !go_r) break;
-      const int j = go_l && (!go_r || tl <= tr) ? l : r;
-      top3_insert(sqdist3(qx - kb[3 * j], qy - kb[3 * j + 1],
-                          qz - kb[3 * j + 2]),
-                  j, d, nn);
-      if (j == l) {
-        if (--l >= 0) {
-          const float dz = qz - kb[3 * l + 2];
-          tl = __fmul_rn(dz, dz);
-        }
-      } else if (++r < m) {
-        const float dz = qz - kb[3 * r + 2];
-        tr = __fmul_rn(dz, dz);
-      }
-    }
-    top3_fill(d, nn);
-    if (idx_out != nullptr) {
-      const size_t o = ((size_t)b * n + u) * 3;
-#pragma unroll
-      for (int t = 0; t < 3; ++t) {
-        idx_out[o + t] = nn[t];
-        d2_out[o + t] = d[t];
-      }
-    }
-  }
-  const float r0 = 1.0f / (d[0] + 1e-8f), r1 = 1.0f / (d[1] + 1e-8f),
-              r2 = 1.0f / (d[2] + 1e-8f);
-  const float norm = __fadd_rn(__fadd_rn(r0, r1), r2);
-  s_idx[tid][0] = nn[0];
-  s_idx[tid][1] = nn[1];
-  s_idx[tid][2] = nn[2];
-  s_w[tid][0] = r0 / norm;
-  s_w[tid][1] = r1 / norm;
-  s_w[tid][2] = r2 / norm;
-  __syncthreads();
-
-  const int nu = min(kQ, n - u0);
-  for (int t = tid; t < nu * C; t += kQ) {
-    const int q = t / C, c = t - q * C;
-    const float v = __fadd_rn(
-        __fadd_rn(__fmul_rn(fb[(size_t)s_idx[q][0] * C + c], s_w[q][0]),
-                  __fmul_rn(fb[(size_t)s_idx[q][1] * C + c], s_w[q][1])),
-        __fmul_rn(fb[(size_t)s_idx[q][2] * C + c], s_w[q][2]));
-    out[((size_t)b * n + u0 + q) * C + c] = v;
-  }
+// The library's channel groups for kernels 4 and 8 on the current device
+// (three_interp_splits with one query a thread) into *csplit; returns a
+// cudaError_t.
+int library_splits(int B, int n, int m, int C, int* csplit) {
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (!err) *csplit = three_interp_splits(1, B, n, m, C, sms);
+  return err;
 }
 
 }  // namespace
@@ -248,32 +193,30 @@ WS3D_EXPORT int ws3d_three_interpolate(const float* unknown, const float* known,
                                        int C, float* out, void* bounds,
                                        void* stream) {
   if (B <= 0 || n <= 0 || m <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (!err)
-    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev);
+  int csplit = 1;
+  const int err = library_splits(B, n, m, C, &csplit);
   if (err) return err;
   return launch_three_interp<1, kInterpMinBlocks>(
-                                three_interp_splits(1, B, n, m, C, sms),
-                                unknown, known, feats, B, n, m, C, out,
-                                (float2*)bounds, (cudaStream_t)stream);
+      csplit, unknown, known, feats, B, n, m, C, out, (float2*)bounds,
+      (cudaStream_t)stream);
 }
 
-// Kernel 8: the same contract for unknown and known sorted ascending by z;
-// idx_out and d2_out ((B, n, 3) int32 / f32, or both null) receive the
-// neighbours and their d2.
+// Kernel 8: the same contract for known points sorted ascending by z (see
+// above for any other cloud), no workspace; idx_out and d2_out ((B, n, 3)
+// int32 / f32, or both null) receive the neighbours and their d2.
 WS3D_EXPORT int ws3d_three_interpolate_window(const float* unknown,
                                               const float* known,
                                               const float* feats, int B, int n,
                                               int m, int C, float* out,
                                               int* idx_out, float* d2_out,
                                               void* stream) {
-  if (B <= 0 || n <= 0 || m <= 0 || C <= 0 || (idx_out == nullptr) !=
-                                                  (d2_out == nullptr))
+  if (B <= 0 || n <= 0 || m <= 0 || C <= 0 ||
+      (idx_out == nullptr) != (d2_out == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int grid = B * ((n + kQ - 1) / kQ);
-  three_interp_window_kernel<<<grid, kQ, 0, (cudaStream_t)stream>>>(
-      unknown, known, feats, n, m, C, out, idx_out, d2_out);
-  return (int)cudaGetLastError();
+  int csplit = 1;
+  const int err = library_splits(B, n, m, C, &csplit);
+  if (err) return err;
+  return launch_three_interp<1, kInterpMinBlocks, true>(
+      csplit, unknown, known, feats, B, n, m, C, out, nullptr,
+      (cudaStream_t)stream, idx_out, d2_out);
 }

@@ -80,6 +80,19 @@ __device__ __forceinline__ float zterm_hull(float lo, float hi, float2 b) {
   return __fmul_rn(dz, dz);
 }
 
+// The chunk bounds of a cloud sorted ascending by z, read in place: each
+// chunk's first and last z, with no pre-pass and no workspace. On a cloud
+// that is not sorted by z they are not the chunks' z ranges, and a search
+// that prunes on them is no longer exact.
+struct SortedChunkEnds {
+  const float* pts;  // (n, 3)
+  int n;
+  __device__ __forceinline__ float2 operator[](int c) const {
+    const int j = c * kChunk;
+    return make_float2(pts[3 * j + 2], pts[3 * min(j + kChunk - 1, n - 1) + 2]);
+  }
+};
+
 // The ring in shared memory (kRingFloats floats, a multiple of 4, at a
 // 16-byte aligned address): each tile's points (3 * kChunk floats a chunk,
 // as in global memory), each chunk's bounds and index, each tile's chunk
@@ -121,9 +134,11 @@ __device__ __forceinline__ float ring_max(const TileRing& ring, int par,
 // pb 16-byte aligned and n % 4 == 0, else 4) and commit one cp.async group.
 // `pos` moves past the last chunk taken. Four ballots of bounds are loaded
 // at once, so the walk over skipped chunks waits on few round trips.
-template <class Order, class Need>
+// bounds[c] is chunk c's (min z, max z): a pre-pass's workspace
+// (launch_chunk_bounds) or SortedChunkEnds.
+template <class Order, class Need, class Bounds>
 __device__ __forceinline__ void ring_stage(const float* __restrict__ pb, int n,
-                                           const float2* __restrict__ bounds,
+                                           Bounds bounds,
                                            bool a16, int npos, Order order,
                                            Need need, int& pos,
                                            const TileRing& ring, int slot) {
@@ -345,8 +360,9 @@ __device__ __forceinline__ void block_ball_query(
 // the visit order outward from the home chunk st[0] (positions 0, 1, 2, ...
 // are home, home - 1, home + 1, home - 2, ...) whose z term from the
 // block's query z range zr is not above tb; st[1] is the cursor.
+template <class Bounds>
 __device__ __forceinline__ void nn3_stage(const float* __restrict__ kb, int m,
-                                          const float2* __restrict__ bb,
+                                          Bounds bb,
                                           bool a16, const TileRing& ring,
                                           int slot, float tb, const float* zr,
                                           int* st) {
@@ -386,9 +402,10 @@ __device__ __forceinline__ void nn3_point(const float* tp, int u, int j0,
 // The 3-NN search of a block of kNNThreads threads: for the unknown points
 // u0 + tid * kQPT + i (i < kQPT; past n, copies of the last) of ub (n
 // (x, y, z) rows), the three known points of kb (m rows; bb their chunk
-// bounds, launch_chunk_bounds) with the smallest d2 (sqdist3), the lowest
-// index first on ties, the nearest repeated when m < 3: what a full search
-// in ascending index with strict < gives, on any input.
+// bounds, launch_chunk_bounds' or SortedChunkEnds) with the smallest d2
+// (sqdist3), the lowest index first on ties, the nearest repeated when
+// m < 3: what a full search in ascending index with strict < gives, on any
+// input with a pre-pass's bounds.
 // Warp 0 stages the known chunks in a visit order that starts at the chunk
 // nearest the block's query z range and steps outward, alternating sides;
 // it stages a chunk unless its z term from the block's query z range is
@@ -401,10 +418,10 @@ __device__ __forceinline__ void nn3_point(const float* tp, int u, int j0,
 // (top3_insert). One staged known point (three broadcast shared loads)
 // serves a thread's kQPT queries. All threads of the block call it (it
 // synchronises the block).
-template <int kQPT>
+template <int kQPT, class Bounds>
 __device__ __forceinline__ void staged_three_nn(
     const float* __restrict__ ub, int n, int u0, const float* __restrict__ kb,
-    int m, const float2* __restrict__ bb, bool a16, float (&d)[kQPT][3],
+    int m, Bounds bb, bool a16, float (&d)[kQPT][3],
     int (&nn)[kQPT][3]) {
   constexpr int kW = kNNThreads / 32;  // warps
   __shared__ __align__(16) float sring[kRingFloats];

@@ -13,8 +13,9 @@
 // operations each (FP-0 of one scene is 16384 x 4096), against 12 bytes a
 // point in and 24 bytes a query out. On the stage-1 step both clouds are
 // sorted by z (the FP levels of the backbone), and a query's three
-// neighbours lie within the z slab its third-best d2 spans: the pairs kernel
-// 8's window search visits, about 90 a query at FP-0.
+// neighbours lie within the z slab its third-best d2 spans: the pairs the
+// plain windowed search (ops/interpolate.py:window_search) visits, about 90
+// a query at FP-0.
 //
 // Design: staged_three_nn (search.cuh), the search of kernel 4's forward
 // (interpolate.cu), so the backward weights the very neighbours the forward

@@ -123,9 +123,10 @@ def _before(a, ia, b, ib):
 
 
 def window_search(unknown: torch.Tensor, known: torch.Tensor):
-    """Kernel 8's search for clouds sorted ascending by z, written out for
-    all queries at once: -> (d2 (B, n, 3) f32, idx (B, n, 3) int64, visits
-    (B, n) int64, the candidates each query tested).
+    """The windowed search of kernel 8's plain version for clouds sorted
+    ascending by z, written out for all queries at once: -> (d2 (B, n, 3)
+    f32, idx (B, n, 3) int64, visits (B, n) int64, the candidates each
+    query tested).
 
     From each query's home (the first known z >= its own, a binary search)
     the search steps outward, always to the side whose next point has the
@@ -229,7 +230,15 @@ def three_interpolate_window_cuda(unknown: torch.Tensor, known: torch.Tensor,
                                   with_nn: bool = False):
     """Kernel 8: (B, n, 3), (B, m, 3) sorted ascending by z, (B, m, C) f32
     CUDA -> (B, n, C); with `with_nn` also its neighbours (d2 (B, n, 3) f32,
-    idx (B, n, 3) int32)."""
+    idx (B, n, 3) int32).
+
+    Kernel 4's staged search with each known chunk's first and last z as its
+    z range, read in place (no pre-pass, no workspace): on a known cloud
+    sorted by z the result is window_search's and kernel 4's, bit for bit.
+    On a known cloud that is not sorted those ends bound nothing, and kernel
+    8 returns three known points with their d2 and weights that are not
+    always the nearest (its plain version, window_search, is defined for
+    sorted clouds only)."""
     B, n, _ = unknown.shape
     m = known.shape[1]
     C = known_feats.shape[-1]

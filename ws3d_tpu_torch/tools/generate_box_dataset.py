@@ -21,7 +21,7 @@ Stage-1 weights: --ckpt (a port train state such as rpn_ckpt.pt, or an
 npz of flat weights) and/or --bench_weights (the fitted
 ws3d_tpu/data/bench_weights.npz); with neither the RPN keeps its seeded
 init. Runs on CUDA unless --device cpu. Scenes come from the synthetic
-generator (KITTI loading is not ported).
+generator, or with --data_root from a KITTI tree.
 """
 from __future__ import annotations
 

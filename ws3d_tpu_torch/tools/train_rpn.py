@@ -8,9 +8,10 @@ with OneCycle Adam, gradient clip 1.0 and the BN-momentum decay, writes
 resume checkpoints every --ckpt_every steps, re-estimates the BatchNorm
 statistics at the final weights and saves OUTPUT_DIR/rpn_ckpt.pt (the train
 state) and OUTPUT_DIR/rpn_weights.npz (the JAX package's flat keys). Runs on
-CUDA unless --device cpu. In-training validation, TensorBoard output, the
-data-parallel mesh and the GT-database augmentation are not ported; scenes
-come from the synthetic generator.
+CUDA unless --device cpu. Scenes come from the synthetic generator, or with
+--data_root from a KITTI tree (its ImageSets/train.txt, the weak labels in
+label_noise/). In-training validation, TensorBoard output, the
+data-parallel mesh and the GT-database augmentation are not ported.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--set", dest="set_cfgs", nargs="*", default=None,
                    help="key=value config overrides")
     p.add_argument("--data_root", type=str, default=None,
-                   help="KITTI root dir (not ported: use --synthetic)")
+                   help="KITTI root dir (object/, ImageSets/)")
     p.add_argument("--synthetic", action="store_true",
                    help="run on the synthetic scene generator (no KITTI)")
     p.add_argument("--output_dir", type=str, default="output")
@@ -63,12 +64,15 @@ def close_log(log: logging.Logger) -> None:
 
 
 def make_scene_source(args, num_scenes: int = 64, points: int = 18000):
-    if args.data_root and not args.synthetic:
-        raise SystemExit("KITTI loading is not ported yet; run with "
-                         "--synthetic")
-    from ws3d_tpu_torch.datasets import SyntheticKitti
-    return SyntheticKitti(num_scenes=num_scenes, points_per_scene=points,
-                          seed=args.seed)
+    """The synthetic generator, unless --data_root names a KITTI tree and
+    --synthetic is not given: then the tree's `args.split` (train by
+    default) through KittiRaw."""
+    if args.synthetic or not args.data_root:
+        from ws3d_tpu_torch.datasets import SyntheticKitti
+        return SyntheticKitti(num_scenes=num_scenes, points_per_scene=points,
+                              seed=args.seed)
+    from ws3d_tpu_torch.datasets import KittiRaw
+    return KittiRaw(args.data_root, split=getattr(args, "split", "train"))
 
 
 def main(argv=None) -> int:
