@@ -105,7 +105,25 @@ Phases (any failure exits non-zero; nothing is caught):
      threshold; prints the detections, the recall lines, the Car 3D AP and
      the seconds spent in inference, in the txt files and in the AP
      harness;
- 16. print the kernel table, the card's name and power limit, and the
+ 16. training with in-training validation at full width: a GT database
+     from 16 scenes of SyntheticKitti(seed=3), then Trainer.train_steps
+     for 1 + 4 stage-1 steps at batch 16 and 16,384 points on
+     RPNDataset(TRAIN, gt_database=...) with a val_fn over 8 EVAL scenes
+     every 2 steps (and after the last); then 1 + 2 RCNN steps at 800
+     crops with a val_fn over a held-out tenth of phase 8's database. The
+     kernel calls of one validation forward of each are held against their
+     plain versions; gates: finite losses, a checkpoint per eval and the
+     best one in a temporary directory, and the trainer's generator state
+     and every parameter and BN buffer bit-equal just before and just
+     after each validation. Prints the validation's seconds and share of
+     the loop, the metrics, the pasted instances a scene, the stage-1
+     step time on augmented and plain batches, a profile of the host's
+     augmented and plain TRAIN batches by function, and the step time of
+     a stage-1 loop whose loader builds the batches as it goes, one
+     batch ahead on its prefetch thread, with and without the
+     augmentation. The validation forwards' kernel times go to the
+     kernels line under ms_by_path only;
+ 17. print the kernel table, the card's name and power limit, and the
      result line.
 
 Prints nothing of the result and exits 2 without a CUDA device or outside
@@ -178,6 +196,16 @@ DB_KERNELS = ("fps", "fused_sa_window", "fused_sa_full", "three_interpolate",
               "ball_query_wrap")
 CASCADE_CLI_BATCH = 64      # tools/train_cascade.py's default --batch
 EVAL_SCENES = 16            # the auto-annotator's scenes (phase 15)
+# phase 16: training with validation (the tools' validation sets: 8
+# synthetic scenes, a tenth of the database)
+RPN_VAL_STEPS = 4           # stage-1 steps after the first
+RCNN_VAL_STEPS = 2
+VAL_EVERY = 2
+VAL_SCENES = 8
+PREFETCH_STEPS = 6          # stage-1 steps a loop with the loader prefetching
+HOST_PROFILE = ("get_sample", "apply_gt_aug", "greedy_furthest_point_sample",
+                "gaussian_weak_labels", "sample_npoints", "valid_point_mask",
+                "augment_scene")
 
 
 def card_line() -> str:
@@ -885,7 +913,10 @@ def main() -> int:
     # ---- 15. the auto-annotator
     launches["eval_auto"] = _eval_phase(card)
 
-    # ---- 16. report
+    # ---- 16. training with validation
+    launches.update(_train_val_phase(card, per_kernel))
+
+    # ---- 17. report
     table = []
     for key, (source, replaces) in KERNELS.items():
         agg = per_kernel[key]
@@ -1798,6 +1829,282 @@ def _eval_phase(card) -> dict:
         print(f"# phase 15: first scene GPU vs CPU plain: {len(rows[0])} vs "
               f"{len(rows[1])} detections in {name} agree "
               f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    return launches
+
+
+def _snapshot(trainer) -> list:
+    """The trainer's generator state, then a copy of every parameter and
+    buffer of its model."""
+    return ([trainer.generator.get_state()]
+            + [v.detach().clone() for v in trainer.model.state_dict().values()])
+
+
+def _gated_val_fn(trainer, inner, rec, stats: dict):
+    """val_fn for Trainer.train_steps: runs `inner`, the first time under
+    the Recorder `rec`; times each call (device synchronised before and
+    after), counts its launches, and requires the trainer's generator
+    state and every parameter and buffer bit-equal before and after it."""
+    import torch
+    from ws3d_tpu_torch.ops import _kernels
+
+    def val_fn(model):
+        before = _snapshot(trainer)
+        counts = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not stats["seconds"]:
+            with rec:
+                metrics = inner(model)
+        else:
+            metrics = inner(model)
+        torch.cuda.synchronize()
+        stats["seconds"].append(time.perf_counter() - t0)
+        stats["launches"] = {k: v - counts[k]
+                             for k, v in _kernels.LAUNCHES.items()
+                             if v - counts[k]}
+        after = _snapshot(trainer)
+        if not (len(before) == len(after)
+                and all(torch.equal(a, b) for a, b in zip(before, after))):
+            raise AssertionError(f"validation changed the {trainer.stage} "
+                                 f"trainer's generator, weights or BN "
+                                 f"statistics")
+        return metrics
+    return val_fn
+
+
+def _train_loop(phase: str, trainer, host, total_steps: int, val_fn,
+                val_stats, per_kernel, path: str, card) -> dict:
+    """Trainer.train_steps over `host` with `val_fn` every VAL_EVERY steps
+    into a temporary directory, then its gates (finite losses, a checkpoint
+    per eval and the best one) and the validation forward's kernel calls
+    against their plain versions; returns the loop's launch counts."""
+    import tempfile
+    import torch
+    from ws3d_tpu_torch.ops import _kernels
+    rec = Recorder()
+    gated = _gated_val_fn(trainer, val_fn, rec, val_stats)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = trainer.train_steps(host, total_steps=total_steps,
+                                   log_every=1, prefetch_size=0,
+                                   ckpt_dir=tmp, val_fn=gated,
+                                   val_every=VAL_EVERY)
+        torch.cuda.synchronize()
+        loop = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        files = sorted(f for f in os.listdir(tmp)
+                       if f.startswith(f"{trainer.stage}_ckpt_"))
+    losses = [h["loss"] for h in hist]
+    if len(losses) != total_steps or not all(math.isfinite(v)
+                                             for v in losses):
+        raise AssertionError(f"{phase}: losses {losses}")
+    n_eval = len(val_stats["seconds"])
+    want = [f"{trainer.stage}_ckpt_best.pt"] + [
+        f"{trainer.stage}_ckpt_e{k}.pt" for k in range(1, n_eval + 1)]
+    if n_eval == 0 or files != sorted(want):
+        raise AssertionError(f"{phase}: checkpoints {files}, not {want}")
+    val_s = sum(val_stats["seconds"])
+    print(f"# phase 16: {card}: {phase}: {total_steps} steps and {n_eval} "
+          f"evals in {loop:.3f} s; validation {val_s:.3f} s "
+          f"({[round(v, 3) for v in val_stats['seconds']]}), "
+          f"{100 * val_s / loop:.1f} % of the loop; best "
+          f"{trainer.best_val}; losses {[round(v, 5) for v in losses]}; "
+          f"one validation forward launches {val_stats['launches']}; the "
+          f"loop's launches {({k: v for k, v in launches.items() if v})}; "
+          f"{files}; generator, weights and "
+          f"BN statistics bit-equal across every eval", flush=True)
+    # the eval shapes' times stay out of the line's totals (ms, plain_ms,
+    # bound_ms cover the earlier phases' calls); errors and ms_by_path
+    # take them
+    evals = {k: _fresh() for k in per_kernel}
+    _compare_calls(rec.calls, evals, path)
+    for key, agg in evals.items():
+        per_kernel[key]["err"] = max(per_kernel[key]["err"], agg["err"])
+        per_kernel[key]["ms_by_path"].update(agg["ms_by_path"])
+    names = {n for n, _, _ in rec.calls}
+    print(f"# phase 16: {phase}: the {len(rec.calls)} kernel calls of one "
+          f"validation forward ({sorted(names)}) held against their plain "
+          f"versions", flush=True)
+    return launches
+
+
+def _host_profile(src, cfg, database) -> None:
+    """cProfile of two augmented and two plain stage-1 TRAIN batches of
+    BATCH scenes, built on the host as a run's loader builds them; prints
+    each HOST_PROFILE function's cumulative (own) ms a batch."""
+    import cProfile
+    import pstats
+    from ws3d_tpu_torch.datasets import RPNDataset
+    parts = []
+    for name, kw in (("augmented", {"gt_database": database}), ("plain", {})):
+        ds = RPNDataset(src, cfg, mode="TRAIN", seed=2, **kw)
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        list(ds.batches(BATCH, steps=2, shuffle=True))
+        prof.disable()
+        wall = (time.perf_counter() - t0) / 2
+        times = {}
+        for (_, _, fn), (_, _, own, cum, _) in pstats.Stats(
+                prof).stats.items():
+            if fn in HOST_PROFILE:
+                own0, cum0 = times.get(fn, (0.0, 0.0))
+                times[fn] = (own0 + own / 2, cum0 + cum / 2)
+        parts.append(f"{name} {1e3 * wall:.1f} ms a batch: " + ", ".join(
+            f"{fn} {1e3 * times[fn][1]:.1f} ({1e3 * times[fn][0]:.1f})"
+            for fn in HOST_PROFILE if fn in times))
+    print(f"# phase 16: host profile of a stage-1 TRAIN batch of {BATCH} "
+          f"(cProfile, cumulative ms a batch, own ms in parentheses): "
+          + "; ".join(parts), flush=True)
+
+
+def _prefetch_loop(card, name: str, trainer, batches) -> None:
+    """PREFETCH_STEPS steps of `trainer` on `batches`, built as the loop
+    goes one batch ahead on the prefetch thread (Trainer.train_steps's
+    default), prints the time between the loop's pulls of successive
+    batches after the first (the step time the loop sustains)."""
+    import torch
+    from ws3d_tpu_torch.utils.prefetch import prefetch
+    pulls = []
+
+    def timed(it):
+        for batch in it:
+            pulls.append(time.perf_counter())
+            yield batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.train_steps(timed(prefetch(batches, size=2)),
+                               total_steps=PREFETCH_STEPS,
+                               log_every=PREFETCH_STEPS, prefetch_size=0)
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - t0
+    if not all(math.isfinite(v) for h in hist for v in h.values()):
+        raise AssertionError(f"prefetch loop ({name}): {hist}")
+    gaps = [1e3 * (b - a) for a, b in zip(pulls[1:], pulls[2:])]
+    print(f"# phase 16: {card}: stage-1 loop on {name} batches with the "
+          f"loader prefetching: {sum(gaps) / len(gaps):.1f} ms a step "
+          f"(between pulls after the first: {[round(g, 1) for g in gaps]} "
+          f"ms); {PREFETCH_STEPS} steps in {loop:.3f} s, the first pull "
+          f"{1e3 * (pulls[0] - t0):.1f} ms in", flush=True)
+
+
+def _train_val_phase(card, per_kernel) -> dict:
+    """Phase 16: stage-1 training with the GT-database augmentation and
+    validation, then RCNN training with validation, both at full width;
+    returns the two loops' launch counts."""
+    import numpy as np
+    import torch
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.datasets import (BoxPlaceDataset, RPNDataset,
+                                         SyntheticKitti,
+                                         synthetic_proposal_database)
+    from ws3d_tpu_torch.datasets import rpn_dataset
+    from ws3d_tpu_torch.datasets.gt_database import build_gt_database
+    from ws3d_tpu_torch.tools.train_cascade import split_database
+    from ws3d_tpu_torch.training import Trainer, make_val_fn
+    from ws3d_tpu_torch.training.trainer import batch_to_device
+
+    launches = {}
+    t0 = time.perf_counter()
+    cfg = load_config()                       # stage 1, DP_RATIO 0.5
+    src = SyntheticKitti(num_scenes=BATCH, points_per_scene=20000, seed=3)
+    database = build_gt_database(src, src.sample_ids)
+    t_db = time.perf_counter() - t0
+    pasted = []
+    aug = rpn_dataset.apply_gt_aug
+
+    def counting_aug(*args, **kw):
+        out = aug(*args, **kw)
+        pasted.append(out[2].shape[0])
+        return out
+    rpn_dataset.apply_gt_aug = counting_aug
+    try:
+        t1 = time.perf_counter()
+        ds = RPNDataset(src, cfg, mode="TRAIN", seed=0, gt_database=database)
+        host = list(ds.batches(BATCH, steps=1 + RPN_VAL_STEPS, shuffle=True))
+        t_aug = (time.perf_counter() - t1) / len(host)
+    finally:
+        rpn_dataset.apply_gt_aug = aug
+    t1 = time.perf_counter()
+    plain_host = list(RPNDataset(src, cfg, mode="TRAIN", seed=1).batches(
+        BATCH, steps=2, shuffle=True))
+    t_plain = (time.perf_counter() - t1) / len(plain_host)
+    print(f"# phase 16: GT database of {BATCH} scenes: {len(database[0])} "
+          f"easy and {len(database[1])} hard instances in {t_db:.2f} s; "
+          f"{len(pasted)} augmented scenes, {np.mean(pasted):.2f} pasted "
+          f"instances a scene (min {min(pasted)}, max {max(pasted)}); host "
+          f"{1e3 * t_aug:.1f} ms a TRAIN batch of {BATCH} with the "
+          f"augmentation, {1e3 * t_plain:.1f} ms without", flush=True)
+
+    model = _rpn_model(cfg, "cuda")
+    trainer = Trainer(model, cfg, total_steps=1000, seed=0,
+                      log_fn=lambda msg: print("#   " + msg, flush=True))
+    val_src = SyntheticKitti(num_scenes=VAL_SCENES, points_per_scene=18000,
+                             seed=1000)
+    val_ds = RPNDataset(val_src, cfg, mode="EVAL", seed=0)
+    val_fn = make_val_fn(cfg, "rpn", lambda: val_ds.batches(VAL_SCENES))
+    val_stats = {"seconds": []}
+    launches["rpn_train_val"] = _train_loop(
+        "stage 1 with the augmentation", trainer, host, 1 + RPN_VAL_STEPS,
+        val_fn, val_stats, per_kernel, "rpn_val", card)
+    for key in ("fps", "three_interpolate"):
+        if not val_stats["launches"].get(key):
+            raise AssertionError(f"the stage-1 validation forward launched "
+                                 f"no {key}")
+
+    # step time with and without the augmentation, in turns
+    aug_b = [batch_to_device(b, "cuda") for b in host[-2:]]
+    plain_b = [batch_to_device(b, "cuda") for b in plain_host]
+    step_times = []
+    for a, p in zip(aug_b, plain_b):
+        for b in (a, p):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.step_fn(b, trainer.generator, trainer.bn_sched(0))
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter() - t1)
+    t_a = 1e3 * np.mean(step_times[0::2])
+    t_p = 1e3 * np.mean(step_times[1::2])
+    print(f"# phase 16: {card}: stage-1 step {t_a:.1f} ms on augmented "
+          f"batches, {t_p:.1f} ms on plain ones (two each, in turns: "
+          f"{[round(1e3 * v, 1) for v in step_times]} ms)", flush=True)
+    del aug_b, plain_b
+    _host_profile(src, cfg, database)
+    for name, kw in (("augmented", {"gt_database": database}), ("plain", {})):
+        ds = RPNDataset(src, cfg, mode="TRAIN", seed=4, **kw)
+        _prefetch_loop(card, name, trainer,
+                       ds.batches(BATCH, steps=PREFETCH_STEPS, shuffle=True))
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # RCNN with a held-out tenth of phase 8's database
+    cfg = _stage2_cfg("rcnn")
+    db = synthetic_proposal_database(num=STAGE2_BATCH // 2, seed=0,
+                                     crop_points=STAGE2_POINTS)
+    train_db, val_db = split_database(db, 0.1)
+    host = list(BoxPlaceDataset(train_db, cfg, mode="TRAIN",
+                                npoints=STAGE2_POINTS, seed=0).batches(
+        STAGE2_BATCH, steps=1 + RCNN_VAL_STEPS))
+    val_ds = BoxPlaceDataset(val_db, cfg, mode="EVAL", npoints=STAGE2_POINTS,
+                             seed=0)
+    val_fn = make_val_fn(cfg, "rcnn", lambda: val_ds.batches(
+        len(val_ds), steps=1, shuffle=False))
+    model = _stage2_model(cfg, "cuda")
+    trainer = Trainer(model, cfg, total_steps=1000, stage="rcnn", seed=0,
+                      log_fn=lambda msg: print("#   " + msg, flush=True))
+    val_stats = {"seconds": []}
+    print(f"# phase 16: RCNN: {len(train_db)} training and {len(val_db)} "
+          f"held-out records", flush=True)
+    launches["rcnn_train_val"] = _train_loop(
+        "RCNN", trainer, host, 1 + RCNN_VAL_STEPS, val_fn, val_stats,
+        per_kernel, "rcnn_val", card)
+    for key in ("fps", "fused_sa_window", "fused_sa_full"):
+        if not val_stats["launches"].get(key):
+            raise AssertionError(f"the RCNN validation forward launched no "
+                                 f"{key}")
+    print(f"# phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 

@@ -36,6 +36,9 @@ def test_batches_stack_in_sample_order():
     assert len(batches) == 2
     assert batches[1]["sample_id"].tolist() == [2, 3]
     assert batches[0]["pts_input"].shape == (2, 1024, 4)
-    with pytest.raises(NotImplementedError):
-        RPNDataset(ds.source, load_config(), mode="TRAIN",
-                   gt_database=([], []))
+    # a GT database only augments TRAIN scenes: EVAL batches are the same
+    with_db = RPNDataset(ds.source, load_config(), npoints=1024,
+                         gt_database=([], []))
+    for a, b in zip(batches, with_db.batches(batch_size=2)):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)

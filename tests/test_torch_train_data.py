@@ -52,8 +52,17 @@ def test_augmentation_and_labels_match(rng):
 
 
 def test_gt_database_is_refused():
+    """A GT database is taken now (it was refused before the augmentation
+    was ported): an empty one pastes nothing, but the apply-probability
+    draw still consumes the stream, as in the JAX loader; a batch larger
+    than the scene count is refused."""
     src = SyntheticKitti(num_scenes=2, points_per_scene=3000, seed=1)
-    with pytest.raises(NotImplementedError):
-        RPNDataset(src, load_config(), mode="TRAIN", gt_database=([], []))
+    jsrc = JaxSynthetic(num_scenes=2, points_per_scene=3000, seed=1)
+    got = next(RPNDataset(src, load_config(), mode="TRAIN", npoints=1024,
+                          gt_database=([], [])).batches(2, shuffle=True))
+    ref = next(JaxRPNDataset(jsrc, jax_config(), mode="TRAIN", npoints=1024,
+                             gt_database=([], [])).batches(2))
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     with pytest.raises(ValueError):
         next(RPNDataset(src, load_config(), mode="TRAIN").batches(3))

@@ -6,14 +6,19 @@ EVAL draws each scene's sample from an RNG of its own. TRAIN draws the
 sample, the global augmentation (rotation, scaling, x-flip) and the
 shuffle from one stream, `self.rng`, in the JAX package's order, so both
 packages give the same batches for the same seed; its labels are Gaussian
-soft labels around the noisy weak-label centres. The GT-database copy-paste
-augmentation is not ported."""
+soft labels around the noisy weak-label centres. With a GT database (the
+(easy, hard) pair of datasets.gt_database.build_gt_database) and
+cfg.GT_AUG_ENABLED, a TRAIN scene first draws GT_AUG_APPLY_PROB from the
+stream and, if taken, gets the copy-paste augmentation before the crop;
+the pasted boxes join its labels. A scene with more than MAX_GT boxes keeps
+every box for its labels and the first MAX_GT in gt_boxes3d / gt_centers."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
+from ws3d_tpu_torch.datasets.gt_database import apply_gt_aug
 from ws3d_tpu_torch.datasets.kitti_io import objs_to_boxes3d
 
 MAX_GT = 32
@@ -140,7 +145,8 @@ class RPNDataset:
     and .get_scene(i, with_noise), e.g. SyntheticKitti).
 
     TRAIN with `weakly_num` keeps the first weakly_num scenes that have
-    weak labels. A `gt_database` (copy-paste augmentation) is refused."""
+    weak labels; `gt_database` (easy_db, hard_db) turns on the copy-paste
+    augmentation of TRAIN scenes."""
 
     def __init__(self, source, cfg, mode: str = "EVAL",
                  npoints: Optional[int] = None,
@@ -148,9 +154,6 @@ class RPNDataset:
                  gt_database=None):
         if mode not in ("TRAIN", "EVAL"):
             raise ValueError(f"mode {mode!r}: TRAIN or EVAL")
-        if gt_database is not None:
-            raise NotImplementedError("GT-database augmentation is not "
-                                      "ported")
         self.source = source
         self.cfg = cfg
         self.mode = mode
@@ -158,6 +161,7 @@ class RPNDataset:
         self.seed = seed
         self.rng = np.random.RandomState(seed)
         self.sort_z = bool(cfg.TPU.get("SORT_POINTS_Z", True))
+        self.gt_database = gt_database
         ids = list(source.sample_ids)
         if weakly_num is not None and mode == "TRAIN":
             kept = []
@@ -243,13 +247,22 @@ class RPNDataset:
         pts_lidar = scene.pts_lidar[order]
         pts_rect = scene.calib.lidar_to_rect(pts_lidar[:, 0:3])
         intensity = pts_lidar[:, 3]
+        train = self.mode == "TRAIN"
+
+        extra_boxes = np.zeros((0, 7), np.float32)
+        if (train and cfg.GT_AUG_ENABLED and self.gt_database is not None
+                and self.rng.rand() < cfg.GT_AUG_APPLY_PROB):
+            noise_boxes = objs_to_boxes3d([o for o in scene.noise_labels
+                                           if o.cls_type in ("Car", "Van")])
+            pts_rect, intensity, extra_boxes = apply_gt_aug(
+                pts_rect, intensity, noise_boxes, self.gt_database[0],
+                self.gt_database[1], self.rng)
 
         pts_img, depth = scene.calib.rect_to_img(pts_rect)
         ok = valid_point_mask(pts_rect, pts_img, depth, scene.image_shape,
                               cfg.PC_AREA_SCOPE if cfg.PC_REDUCE_BY_RANGE
                               else None)
         pts_rect, intensity, depth = pts_rect[ok], intensity[ok], depth[ok]
-        train = self.mode == "TRAIN"
         rng = self.rng if train else self._eval_rng(index)
         choice = sample_npoints(len(pts_rect), self.npoints, depth, rng)
         pts_rect = pts_rect[choice]
@@ -263,6 +276,9 @@ class RPNDataset:
         gt_objs = scene.noise_labels if train else scene.labels
         gt = objs_to_boxes3d([o for o in gt_objs
                               if o.cls_type in ("Car", "Van")])
+        if extra_boxes.shape[0]:
+            gt = np.concatenate([gt, extra_boxes]) if gt.shape[0] \
+                else extra_boxes
         if train and cfg.AUG_DATA:
             aug_pts, gt, _ = augment_scene(
                 pts_input[:, :3], gt.reshape(-1, 7), self.rng,

@@ -46,3 +46,36 @@ def boxes3d_to_corners3d(boxes3d: torch.Tensor) -> torch.Tensor:
     corners = torch.stack([c * x_c + s * z_c, y_c, -s * x_c + c * z_c],
                           dim=-1)
     return corners + boxes3d[..., None, 0:3]
+
+
+def rotation_matrix_y(angle: torch.Tensor) -> torch.Tensor:
+    """(...,) -> (..., 3, 3) rotation about +y: [[c, 0, s], [0, 1, 0],
+    [-s, 0, c]]."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    zeros, ones = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, zeros, s], dim=-1),
+                        torch.stack([zeros, ones, zeros], dim=-1),
+                        torch.stack([-s, zeros, c], dim=-1)], dim=-2)
+
+
+def enlarge_box3d(boxes3d: torch.Tensor, extra_width: float) -> torch.Tensor:
+    """Grow h, w, l by 2 * extra_width and push the bottom y down by
+    extra_width."""
+    return torch.cat([boxes3d[..., 0:1], boxes3d[..., 1:2] + extra_width,
+                      boxes3d[..., 2:3], boxes3d[..., 3:6] + extra_width * 2,
+                      boxes3d[..., 6:]], dim=-1)
+
+
+def points_in_rotated_boxes(points: torch.Tensor,
+                            boxes3d: torch.Tensor) -> torch.Tensor:
+    """points (N, 3), boxes3d (M, 7) bottom-y -> (N, M) bool, faces
+    included: |dy - cy| <= h/2 about the vertical centre cy = -h/2, and the
+    (x, z) offset rotated into the box frame within l/2, w/2."""
+    shift = points[:, None, :] - boxes3d[None, :, 0:3]
+    h, w, l = boxes3d[:, 3], boxes3d[:, 4], boxes3d[:, 5]
+    cy = -h / 2.0
+    c, s = torch.cos(boxes3d[:, 6]), torch.sin(boxes3d[:, 6])
+    x_loc = shift[..., 0] * c - shift[..., 2] * s
+    z_loc = shift[..., 0] * s + shift[..., 2] * c
+    return ((torch.abs(x_loc) <= l / 2.0) & (torch.abs(z_loc) <= w / 2.0)
+            & (torch.abs(shift[..., 1] - cy) <= h / 2.0))

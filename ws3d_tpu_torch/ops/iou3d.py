@@ -10,6 +10,18 @@ EPS = 1e-8
 MARGIN = 1e-5
 
 
+def _bev_corners(bev: torch.Tensor) -> torch.Tensor:
+    """bev (..., 5) [x1, y1, x2, y2, angle] -> (..., 4, 2) corners of the
+    rectangle rotated about its centre: [dx c + dy s, -dx s + dy c]."""
+    x1, y1, x2, y2, ang = bev.unbind(-1)
+    cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+    dx = torch.stack([x1 - cx, x2 - cx, x2 - cx, x1 - cx], dim=-1)
+    dy = torch.stack([y1 - cy, y1 - cy, y2 - cy, y2 - cy], dim=-1)
+    c, s = torch.cos(ang)[..., None], torch.sin(ang)[..., None]
+    return torch.stack([dx * c + dy * s + cx[..., None],
+                        -dx * s + dy * c + cy[..., None]], dim=-1)
+
+
 def _corners_xy(bev: torch.Tensor):
     """bev (P, 5) -> corner planes (P, 4), (P, 4)."""
     x1, y1, x2, y2, ang = bev.unbind(-1)
@@ -120,6 +132,31 @@ def rotated_overlap_bev(bev_a: torch.Tensor,
     A = bev_a[..., :, None, :].expand(lead + (M, N, 5))
     B = bev_b[..., None, :, :].expand(lead + (M, N, 5))
     return _overlap_pairs(A, B)
+
+
+def boxes_iou_bev(bev_a: torch.Tensor, bev_b: torch.Tensor) -> torch.Tensor:
+    """(..., M, 5) x (..., N, 5) -> (..., M, N) rotated BEV IoU."""
+    sa = ((bev_a[..., 2] - bev_a[..., 0])
+          * (bev_a[..., 3] - bev_a[..., 1]))[..., :, None]
+    sb = ((bev_b[..., 2] - bev_b[..., 0])
+          * (bev_b[..., 3] - bev_b[..., 1]))[..., None, :]
+    inter = rotated_overlap_bev(bev_a, bev_b)
+    return inter / torch.clamp(sa + sb - inter, min=EPS)
+
+
+def aligned_overlap_bev(bev_a: torch.Tensor,
+                        bev_b: torch.Tensor) -> torch.Tensor:
+    """(..., M, 5) x (..., N, 5) -> (..., M, N) axis-aligned IoU, the angle
+    ignored."""
+    a, b = bev_a[..., :, None, :], bev_b[..., None, :, :]
+    lx = torch.maximum(a[..., 0], b[..., 0])
+    ly = torch.maximum(a[..., 1], b[..., 1])
+    rx = torch.minimum(a[..., 2], b[..., 2])
+    ry = torch.minimum(a[..., 3], b[..., 3])
+    inter = torch.clamp(rx - lx, min=0.0) * torch.clamp(ry - ly, min=0.0)
+    sa = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    sb = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / torch.clamp(sa + sb - inter, min=EPS)
 
 
 def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor):

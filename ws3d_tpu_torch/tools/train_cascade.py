@@ -15,14 +15,24 @@ prob_mask_ratio schedule. --ckpt warms the model's rcnn entries from a
 checkpoint (a train state or an npz); the cascade of an IOUN model stays
 fresh where it lacks them. Writes OUTPUT_DIR/<stage>_ckpt.pt (the train
 state) and OUTPUT_DIR/<stage>_weights.npz (the JAX package's flat keys).
-Runs on CUDA unless --device cpu. In-training validation and TensorBoard
-output are not ported.
+Runs on CUDA unless --device cpu.
+
+With --val_ratio R (default 0.1; 0 turns it off) and a database of 8 or
+more records, max(int(len * R), 2) records (a RandomState(666)
+permutation, as the JAX tool draws it) are held out and validated every
+--val_every steps (default steps // 20) and after the last step: the IoU
+recall of the held-out crops' boxes (IOUN: of the refined boxes, and the
+predicted-IoU error), logged as `val @ step i:`, each eval saved as
+OUTPUT_DIR/<stage>_ckpt_e{k}.pt and the best as <stage>_ckpt_best.pt, the
+scalars in OUTPUT_DIR/tb/scalars.jsonl.
 """
 from __future__ import annotations
 
 import os
 import pickle
 import sys
+
+import numpy as np
 
 from ws3d_tpu_torch.tools.train_rpn import base_parser, close_log, setup
 
@@ -42,6 +52,11 @@ def main(argv=None) -> int:
     p.add_argument("--weakly_ratio", type=float, default=None)
     p.add_argument("--db_size", type=int, default=64,
                    help="synthetic database size")
+    p.add_argument("--val_ratio", type=float, default=0.1,
+                   help="held-out fraction of the database for in-training "
+                        "eval (0 disables)")
+    p.add_argument("--val_every", type=int, default=None,
+                   help="eval cadence in steps (default total/20)")
     args = p.parse_args(argv)
     cfg, log = setup(args, "train_cascade")
     try:
@@ -67,12 +82,24 @@ def configure(cfg, stage: str, npoints: int, cascade=None) -> None:
         cfg.IOUN.SA_CONFIG.NPOINTS = cfg.RCNN.SA_CONFIG.NPOINTS
 
 
+def split_database(database, val_ratio: float):
+    """-> (train records, held-out records): max(int(len * val_ratio), 2)
+    records of a RandomState(666) permutation held out when val_ratio > 0
+    and the database holds 8 or more records, else none."""
+    if not val_ratio or len(database) < 8:
+        return database, []
+    order = np.random.RandomState(666).permutation(len(database))
+    n_val = max(int(len(database) * val_ratio), 2)
+    return ([database[i] for i in order[n_val:]],
+            [database[i] for i in order[:n_val]])
+
+
 def train(args, cfg, log) -> int:
     from ws3d_tpu_torch.datasets import (BoxPlaceDataset,
                                          synthetic_proposal_database)
     from ws3d_tpu_torch.models import build_model
     from ws3d_tpu_torch.training import (Trainer, load_part_checkpoint,
-                                         save_train_state)
+                                         make_val_fn, save_train_state)
     from ws3d_tpu_torch.weights import save_npz
 
     stage = STAGE_ALIASES[args.stage]
@@ -87,6 +114,7 @@ def train(args, cfg, log) -> int:
         database = synthetic_proposal_database(num=args.db_size,
                                                seed=args.seed,
                                                crop_points=args.npoints)
+    database, val_db = split_database(database, args.val_ratio)
     ds = BoxPlaceDataset(database, cfg, mode="TRAIN", npoints=args.npoints,
                          seed=args.seed, weakly_ratio=args.weakly_ratio)
     log.info("stage-2 dataset: %d samples (stage=%s cascade=%d)", len(ds),
@@ -98,7 +126,8 @@ def train(args, cfg, log) -> int:
         n = load_part_checkpoint(model, args.ckpt, subtrees=("rcnn",))
         log.info("loaded %d rcnn tensors from %s", n, args.ckpt)
     trainer = Trainer(model, cfg, total_steps=args.steps, stage=stage,
-                      seed=args.seed, log_fn=log.info)
+                      seed=args.seed, log_fn=log.info,
+                      tb_dir=os.path.join(args.output_dir, "tb"))
     log.info("device: %s", trainer.device)
     epoch_size = max(len(ds) // args.batch, 1)
     total_epochs = max(args.steps // epoch_size, 1)
@@ -115,9 +144,23 @@ def train(args, cfg, log) -> int:
                 if count >= args.steps:
                     return
 
+    val_fn = None
+    if val_db:
+        val_ds = BoxPlaceDataset(val_db, cfg, mode="EVAL",
+                                 npoints=args.npoints, seed=args.seed)
+        val_bs = min(args.batch, len(val_ds))
+        val_steps = max(len(val_ds) // val_bs, 1)
+        val_fn = make_val_fn(cfg, stage,
+                             lambda: val_ds.batches(val_bs, steps=val_steps,
+                                                    shuffle=False))
+        log.info("in-training val: %d held-out crops", len(val_ds))
+
     trainer.train_steps(batches(), total_steps=args.steps,
                         log_every=max(args.steps // 100, 1),
-                        epoch_size=epoch_size, ckpt_dir=args.output_dir)
+                        epoch_size=epoch_size, ckpt_dir=args.output_dir,
+                        val_fn=val_fn, val_every=args.val_every)
+    if trainer.best_val is not None:
+        log.info("best val: %s", trainer.best_val)
     trainer.recalibrate_bn(ds.batches(args.batch, steps=20))
 
     ckpt = save_train_state(os.path.join(args.output_dir,

@@ -10,8 +10,16 @@ statistics at the final weights and saves OUTPUT_DIR/rpn_ckpt.pt (the train
 state) and OUTPUT_DIR/rpn_weights.npz (the JAX package's flat keys). Runs on
 CUDA unless --device cpu. Scenes come from the synthetic generator, or with
 --data_root from a KITTI tree (its ImageSets/train.txt, the weak labels in
-label_noise/). In-training validation, TensorBoard output, the
-data-parallel mesh and the GT-database augmentation are not ported.
+label_noise/).
+
+With --val_scenes N (default 8; 0 turns it off) it validates every
+--val_every steps (default steps // 20) and after the last step on N
+synthetic scenes (seed + 1000), or on the tree's small_val split (else
+val): the vote precision and gt recall, logged as `val @ step i:`, each
+eval saved as OUTPUT_DIR/rpn_ckpt_e{k}.pt and the best as
+rpn_ckpt_best.pt, the scalars in OUTPUT_DIR/tb/scalars.jsonl. Like the JAX
+tool it builds no GT database (RPNDataset(gt_database=...) takes one). The
+data-parallel mesh (--mesh) is not ported.
 """
 from __future__ import annotations
 
@@ -75,6 +83,19 @@ def make_scene_source(args, num_scenes: int = 64, points: int = 18000):
     return KittiRaw(args.data_root, split=getattr(args, "split", "train"))
 
 
+def val_source(args):
+    """The in-training validation scenes: --val_scenes synthetic scenes
+    (seed + 1000), or with --data_root and no --synthetic the tree's
+    small_val split, else (no scene listed there) its val split."""
+    if args.synthetic or not args.data_root:
+        from ws3d_tpu_torch.datasets import SyntheticKitti
+        return SyntheticKitti(num_scenes=args.val_scenes,
+                              points_per_scene=18000, seed=args.seed + 1000)
+    from ws3d_tpu_torch.datasets import KittiRaw
+    src = KittiRaw(args.data_root, split="small_val")
+    return src if src.sample_ids else KittiRaw(args.data_root, split="val")
+
+
 def main(argv=None) -> int:
     p = base_parser("train stage-1 RPN from weak BEV-click labels")
     p.add_argument("--batch", type=int, default=16)
@@ -85,6 +106,10 @@ def main(argv=None) -> int:
     p.add_argument("--ckpt_every", type=int, default=1000)
     p.add_argument("--scenes", type=int, default=64,
                    help="synthetic scene count")
+    p.add_argument("--val_scenes", type=int, default=8,
+                   help="small_val scene count (0 disables in-training eval)")
+    p.add_argument("--val_every", type=int, default=None,
+                   help="eval cadence in steps (default total/20)")
     args = p.parse_args(argv)
     cfg, log = setup(args)
     try:
@@ -102,7 +127,8 @@ def train(args, cfg, log) -> int:
 
     from ws3d_tpu_torch.datasets import RPNDataset
     from ws3d_tpu_torch.models import build_model
-    from ws3d_tpu_torch.training import (Trainer, restore_train_state,
+    from ws3d_tpu_torch.training import (Trainer, make_val_fn,
+                                         restore_train_state,
                                          save_train_state)
     from ws3d_tpu_torch.weights import save_npz
 
@@ -116,18 +142,35 @@ def train(args, cfg, log) -> int:
     model = build_model(cfg, device="cpu" if args.cpu else args.device,
                         seed=args.seed)
     trainer = Trainer(model, cfg, total_steps=args.steps, stage="rpn",
-                      seed=args.seed, log_fn=log.info)
+                      seed=args.seed, log_fn=log.info,
+                      tb_dir=os.path.join(args.output_dir, "tb"))
     log.info("device: %s", trainer.device)
     epoch_size = max(len(ds) // args.batch, 1)
     if args.ckpt:
         step = restore_train_state(args.ckpt, model, trainer.optimizer)
         log.info("resumed from %s at step %d", args.ckpt, step)
 
+    val_fn = None
+    val_ds = (RPNDataset(val_source(args), cfg, mode="EVAL", seed=args.seed)
+              if args.val_scenes else None)
+    if val_ds is not None and len(val_ds):
+        val_bs = min(args.batch, len(val_ds))
+        val_steps = max(len(val_ds) // val_bs, 1)
+        val_fn = make_val_fn(cfg, "rpn",
+                             lambda: val_ds.batches(val_bs, steps=val_steps))
+        log.info("in-training val: %d scenes", len(val_ds))
+    elif val_ds is not None:
+        log.info("in-training val: the tree lists no small_val or val "
+                 "scene; no validation")
+
     trainer.train_steps(ds.batches(args.batch, shuffle=True),
                         total_steps=args.steps,
                         log_every=max(args.steps // 100, 1),
                         epoch_size=epoch_size, ckpt_every=args.ckpt_every,
-                        ckpt_dir=args.output_dir)
+                        ckpt_dir=args.output_dir, val_fn=val_fn,
+                        val_every=args.val_every)
+    if trainer.best_val is not None:
+        log.info("best val: %s", trainer.best_val)
     trainer.recalibrate_bn(ds.batches(args.batch, shuffle=True))
 
     ckpt = save_train_state(os.path.join(args.output_dir, "rpn_ckpt.pt"),

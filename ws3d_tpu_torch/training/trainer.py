@@ -13,8 +13,12 @@ its optimizer holds only the cascade's parameters (CASCADE_PREFIXES, the
 JAX package's _ioun_trainable_mask). optax clips the global norm over every
 gradient before it zeroes the frozen ones; that equals clipping over the
 cascade alone because the trunk's IOUN gradients are exactly zero (the
-trunk's box is detached). TensorBoard output and in-training validation
-are not ported.
+trunk's box is detached).
+
+The Trainer logs the scalar aux values every log_every steps (to the log
+and, with tb_dir, to a utils.tb.ScalarWriter) and, given a val_fn
+(training.validation.make_val_fn), validates at its cadence: each eval
+writes {stage}_ckpt_e{k}.pt and the best `score` {stage}_ckpt_best.pt.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from ws3d_tpu_torch import losses
 from ws3d_tpu_torch.training.checkpoint import save_train_state
 from ws3d_tpu_torch.training.optim import AdamOneCycle, bn_momentum_schedule
 from ws3d_tpu_torch.utils.prefetch import prefetch
+from ws3d_tpu_torch.utils.tb import ScalarWriter
 
 RPN_INPUTS = ("pts_input", "rpn_cls_label", "rpn_reg_label")
 RCNN_INPUTS = ("cur_box_point", "cur_box_reflect", "train_mask", "gt_boxes",
@@ -172,11 +177,13 @@ class Trainer:
     dropout from one seeded generator on the model's device."""
 
     def __init__(self, model, cfg, total_steps: int, stage: str = "rpn",
-                 seed: int = 0, log_fn=print):
+                 seed: int = 0, log_fn=print, tb_dir: Optional[str] = None):
         self.model = model
         self.cfg = cfg
         self.stage = stage
         self.log_fn = log_fn
+        self.writer = ScalarWriter(tb_dir) if tb_dir else None
+        self.best_val = None
         self.device = next(model.parameters()).device
         self.optimizer = AdamOneCycle(
             cfg, total_steps, trainable_parameters(model, stage).items())
@@ -228,14 +235,27 @@ class Trainer:
     def train_steps(self, batch_iter: Iterable, total_steps: int,
                     log_every: int = 10, epoch_size: Optional[int] = None,
                     prefetch_size: int = 2, ckpt_every: Optional[int] = None,
-                    ckpt_dir: Optional[str] = None):
+                    ckpt_dir: Optional[str] = None,
+                    val_fn: Optional[Callable] = None,
+                    val_every: Optional[int] = None):
         """Run `total_steps` steps; every `log_every` steps log the scalar
         aux values (this reads them back) and keep them in the returned
         history; every `ckpt_every` steps (after step 0) write a resume
-        checkpoint ckpt_dir/resume_step_{i}.pt."""
+        checkpoint ckpt_dir/resume_step_{i}.pt.
+
+        With `val_fn(model) -> metric dict`, validate every `val_every`
+        steps (default max(total_steps // 20, 1)) and after the last step:
+        log the metrics, write them to the scalar writer as val/<key>, save
+        ckpt_dir/{stage}_ckpt_e{k}.pt (k counts the evals from 1) and, when
+        the metric `score` beats self.best_val's, ckpt_dir/{stage}_ckpt_best
+        .pt. The writer is closed at the end."""
         if prefetch_size:
             batch_iter = prefetch(iter(batch_iter), size=prefetch_size)
+        if val_fn is not None and not val_every:
+            val_every = max(total_steps // 20, 1)
         history = []
+        self.best_val = None
+        n_eval = 0
         for i, batch in enumerate(batch_iter):
             if i >= total_steps:
                 break
@@ -248,7 +268,13 @@ class Trainer:
                 vals = {k: float(v) for k, v in aux.items() if v.dim() == 0}
                 self.log_fn(f"step {i}: " + " ".join(
                     f"{k}={v:.4f}" for k, v in sorted(vals.items())))
+                if self.writer is not None:
+                    self.writer.write(i, vals)
                 history.append(vals)
+            if val_fn is not None and ((i + 1) % val_every == 0
+                                       or i == total_steps - 1):
+                n_eval += 1
+                self._run_validation(val_fn, i, n_eval, ckpt_dir)
             if ckpt_every and ckpt_dir and i > 0 and i % ckpt_every == 0:
                 save_train_state(os.path.join(ckpt_dir,
                                               f"resume_step_{i}.pt"),
@@ -256,4 +282,29 @@ class Trainer:
                 self.log_fn(f"saved resume checkpoint at step {i}")
         if hasattr(batch_iter, "close"):
             batch_iter.close()
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
         return history
+
+    def _run_validation(self, val_fn: Callable, step: int, n_eval: int,
+                        ckpt_dir: Optional[str]) -> Dict[str, float]:
+        metrics = val_fn(self.model)
+        self.log_fn(f"val @ step {step}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(metrics.items())))
+        if self.writer is not None:
+            self.writer.write(step, {f"val/{k}": v
+                                     for k, v in metrics.items()})
+        if ckpt_dir:
+            save_train_state(os.path.join(
+                ckpt_dir, f"{self.stage}_ckpt_e{n_eval}.pt"), self.model,
+                self.optimizer)
+            score = metrics.get("score")
+            if score is not None and (self.best_val is None
+                                      or score > self.best_val["score"]):
+                self.best_val = {"step": step, **metrics}
+                save_train_state(os.path.join(
+                    ckpt_dir, f"{self.stage}_ckpt_best.pt"), self.model,
+                    self.optimizer)
+                self.log_fn(f"new best val score {score:.4f} @ step {step}")
+        return metrics
