@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from ws3d_tpu_torch/csrc (nvcc, sm_90a); print
      each kernel's registers and spills, and require TF32 tensor-core
      instructions (HMMA) in all three modes of the fused SA routine (kernels
-     2, 3 and 9), no SIMT MLP routine (fused_sa_kernel), and cluster
+     2, 3 and 9) and bf16 ones only (HMMA.1688.F32.BF16) in each mode's bf16
+     instance, no SIMT MLP routine (fused_sa_kernel), and cluster
      barriers (UCGABAR) in the FPS cluster kernel (cuobjdump -sass);
   2. run the two-stage pipeline once on a batch of the main path (16
      scenes), record every kernel call it makes, and hold each kernel
@@ -123,7 +124,20 @@ Phases (any failure exits non-zero; nothing is caught):
      batch ahead on its prefetch thread, with and without the
      augmentation. The validation forwards' kernel times go to the
      kernels line under ms_by_path only;
- 17. print the kernel table, the card's name and power limit, and the
+ 17. the inference cell in bf16 (cfg.TPU.COMPUTE_DTYPE=bfloat16; batch 16,
+     16,384 points, the fitted npz): every kernel call of one batch held
+     against its plain bf16 version (kernels 2 and 3 in their bf16 mode
+     and kernel 4 with its bf16 store within the stated tolerances, the
+     store also bit-equal to the f32 kernel's output rounded to bf16; FPS
+     and the crop exact), kernel 9 in its bf16 mode on kernel 6's indices for
+     each fused call (bit-equal to the fused kernel, then against its plain
+     version) and through its entry point fused_sa_idx; a warm-up and timed
+     batches (scenes/s, detections, n_live, spilled, which must be 0; the
+     bf16 modes, and no f32 mode of kernels 2, 3 and 4, launched), one
+     batch under torch.profiler; one scene on the GPU against the CPU's
+     plain bf16 versions; then eval_auto on 16 scenes in f32 and in bf16
+     and the port's diff_detections between the two, within stated bounds;
+ 18. print the kernel table, the card's name and power limit, and the
      result line.
 
 Prints nothing of the result and exits 2 without a CUDA device or outside
@@ -145,10 +159,11 @@ TIMED_ITERS = 3
 TIMED_STEPS = 5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 SIMT FLOP/s, dense
-# TF32 tensor-core FLOP/s
+# TF32 and bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 
 KERNELS = {
     "fps": ("ws3d_tpu_torch/csrc/fps.cu",
@@ -174,8 +189,14 @@ KERNELS = {
     "crop_gather_window": ("ws3d_tpu_torch/csrc/crop_gather.cu",
                            "ws3d_tpu/ops/ball_query_pallas.py:113"),
 }
+# the bf16 modes (cfg.TPU.COMPUTE_DTYPE=bfloat16) of kernels 2, 3, 9 and 4
+BF16_MODES = ("fused_sa_window", "fused_sa_full", "fused_sa_idx",
+              "three_interpolate")
+KERNELS.update({f"{k}_bf16": KERNELS[k] for k in BF16_MODES})
 INFERENCE_KERNELS = ("fps", "fused_sa_window", "fused_sa_full",
                      "three_interpolate", "crop_gather")
+BF16_INFERENCE_KERNELS = ("fps", "fused_sa_window_bf16", "fused_sa_full_bf16",
+                          "three_interpolate_bf16", "crop_gather")
 TRAIN_KERNELS = ("fps", "three_interpolate", "ball_query", "three_nn")
 STAGE2_BATCH = 800          # crops of a step (tools/bench_train.py)
 STAGE2_POINTS = 512
@@ -326,19 +347,25 @@ def compare_call(name, args, kw):
 
     if name == "fused_sa_cuda":
         xyz, feat, new_xyz, radius, nsample, kernels, biases, window = args
+        bf16 = bool(kw.get("bf16"))
         out = fused_sa.fused_sa_cuda(*args, **kw)
         ref = fused_sa.fused_sa_plain(xyz, feat, new_xyz, radius, nsample,
-                                      kernels, biases)
+                                      kernels, biases, bf16)
         err = (out - ref).abs().max().item()
+        gate = ""
+        if bf16:
+            gate = "; " + _bf16_gate(out, ref, fused_sa.fused_sa_plain(
+                xyz, feat, new_xyz, radius, nsample, kernels, biases),
+                f"fused_sa window={window} {tuple(xyz.shape)}")
         # f32 sums over <= 515 terms in another order than the plain matmul
-        tol = 1e-3 + 1e-4 * ref.abs().max().item()
-        if not err <= tol:
+        elif not err <= 1e-3 + 1e-4 * ref.abs().max().item():
             raise AssertionError(f"fused_sa window={window} "
-                                 f"{tuple(xyz.shape)}: max|diff| {err} > {tol}")
-        key = "fused_sa_window" if window else "fused_sa_full"
+                                 f"{tuple(xyz.shape)}: max|diff| {err}")
+        key = ("fused_sa_window" if window else "fused_sa_full") + (
+            "_bf16" if bf16 else "")
         ms = cuda_ms(lambda: fused_sa.fused_sa_cuda(*args, **kw), 5)
         plain = cuda_ms(lambda: fused_sa.fused_sa_plain(
-            xyz, feat, new_xyz, radius, nsample, kernels, biases), 1)
+            xyz, feat, new_xyz, radius, nsample, kernels, biases, bf16), 1)
         B, P, C = feat.shape
         M = new_xyz.shape[1]
         widths = [C + 3] + [int(k.shape[1]) for k in kernels]
@@ -348,31 +375,49 @@ def compare_call(name, args, kw):
         nbytes = 4 * (B * P * 3 + B * P * C + B * M * 3 + B * M * widths[-1]
                       + sum(k.numel() + b.numel()
                             for k, b in zip(kernels, biases)))
-        # the MLP in three TF32 passes on the tensor cores, the search on
-        # the SIMT cores; the larger of the two bounds
-        ops = [(3 * mlp_ops, PEAK_TF32, "3xTF32 ops"),
+        # the MLP on the tensor cores (three TF32 passes, or one in bf16),
+        # the search on the SIMT cores; the larger of the two bounds
+        ops = [(mlp_ops, PEAK_BF16, "bf16 ops") if bf16 else
+               (3 * mlp_ops, PEAK_TF32, "3xTF32 ops"),
                (9 * scanned, PEAK_F32, "search ops")]
         return (key, err, ms, plain, nbytes, ops,
                 f"B{B} P{P} M{M} C{C} S{nsample} {widths} "
-                + _plan_note(feat, new_xyz, nsample, widths))
+                + _plan_note(feat, new_xyz, nsample, widths) + gate)
 
     if name == "three_interpolate_cuda":
         # the forward's workspace, if it passed one, is left out: a call
         # here allocates its own, as the forward does
         args = args[:3]
         unknown, known, feats = args
-        out = interpolate.three_interpolate_cuda(*args)
-        ref = interpolate.three_interpolate_plain(*args)
+        bf16 = {"bf16_out": bool(kw.get("bf16_out"))}
+        out = interpolate.three_interpolate_cuda(*args, **bf16).float()
+        ref = interpolate.three_interpolate_plain(*args, **bf16).float()
         err = (out - ref).abs().max().item()
+        # f32 sums in another order; a bf16 store may round them to either
+        # side: one bf16 ulp of each value (at most 2^-7 of it) besides
         tol = 1e-4 + 1e-5 * ref.abs().max().item()
-        if not err <= tol:
-            raise AssertionError(f"three_interpolate {tuple(unknown.shape)}: "
-                                 f"max|diff| {err} > {tol}")
-        ms = cuda_ms(lambda: interpolate.three_interpolate_cuda(*args), 5)
-        plain = cuda_ms(lambda: interpolate.three_interpolate_plain(*args), 1)
+        over = (out - ref).abs() > tol + (
+            2.0 ** -7 * ref.abs() if bf16["bf16_out"] else 0.0)
+        if bool(over.any()):
+            raise AssertionError(f"three_interpolate {bf16} "
+                                 f"{tuple(unknown.shape)}: max|diff| {err}")
+        # the bf16 store is the f32 kernel's result rounded to nearest even,
+        # bit for bit (a truncating store, or one that rounds the weights
+        # or features first, differs)
+        if bf16["bf16_out"] and not torch.equal(
+                interpolate.three_interpolate_cuda(*args, bf16_out=True),
+                interpolate.three_interpolate_cuda(*args).to(torch.bfloat16)):
+            raise AssertionError(f"three_interpolate bf16 store "
+                                 f"{tuple(unknown.shape)}: not the f32 "
+                                 f"result rounded to nearest even")
+        ms = cuda_ms(lambda: interpolate.three_interpolate_cuda(*args, **bf16),
+                     5)
+        plain = cuda_ms(lambda: interpolate.three_interpolate_plain(
+            *args, **bf16), 1)
         B, n, _ = unknown.shape
         m, C = feats.shape[1], feats.shape[2]
-        nbytes = 4 * (B * n * 3 + B * m * 3 + B * m * C + B * n * C)
+        nbytes = (4 * (B * n * 3 + B * m * 3 + B * m * C)
+                  + (2 if bf16["bf16_out"] else 4) * B * n * C)
         # the pairs these inputs need tested (~10 operations each): on
         # z-sorted clouds those inside each query's z window (kernel 8's
         # search), else every pair; then the weighted three-row sum
@@ -382,7 +427,8 @@ def compare_call(name, args, kw):
                    + B * n * C * 5)
         else:
             ops = dense
-        return ("three_interpolate", err, ms, plain, nbytes, ops,
+        return ("three_interpolate_bf16" if bf16["bf16_out"] else
+                "three_interpolate", err, ms, plain, nbytes, ops,
                 f"B{B} n{n} m{m} C{C} (dense bound "
                 f"{_bound_ms(nbytes, dense):.4f} ms)")
 
@@ -567,18 +613,24 @@ def compare_call(name, args, kw):
 
     if name == "fused_sa_idx_cuda":
         xyz, feat, new_xyz, idx, kernels, biases = args
+        bf16 = bool(kw.get("bf16"))
         out = fused_sa_idx.fused_sa_idx_cuda(*args, **kw)
         ref = fused_sa_idx.fused_sa_idx_plain(idx, xyz, feat, new_xyz,
-                                              kernels, biases)
+                                              kernels, biases, bf16)
         err = (out - ref).abs().max().item()
+        gate = ""
+        if bf16:
+            f32 = fused_sa_idx.fused_sa_idx_plain(idx, xyz, feat, new_xyz,
+                                                  kernels, biases)
+            gate = "; " + _bf16_gate(out, ref, f32,
+                                     f"fused_sa_idx {tuple(idx.shape)}")
         # f32 sums in another order than the plain matmul
-        tol = 1e-4 * ref.abs().max().item() + 1e-6
-        if not err <= tol:
+        elif not err <= 1e-4 * ref.abs().max().item() + 1e-6:
             raise AssertionError(f"fused_sa_idx {tuple(idx.shape)}: "
-                                 f"max|diff| {err} > {tol}")
+                                 f"max|diff| {err}")
         ms = cuda_ms(lambda: fused_sa_idx.fused_sa_idx_cuda(*args, **kw), 5)
         plain = cuda_ms(lambda: fused_sa_idx.fused_sa_idx_plain(
-            idx, xyz, feat, new_xyz, kernels, biases), 1)
+            idx, xyz, feat, new_xyz, kernels, biases, bf16), 1)
         B, P, C = feat.shape
         M, S = idx.shape[1], idx.shape[2]
         widths = [C + 3] + [int(k.shape[1]) for k in kernels]
@@ -586,14 +638,37 @@ def compare_call(name, args, kw):
                       + B * M * widths[-1]
                       + sum(k.numel() + b.numel()
                             for k, b in zip(kernels, biases)))
-        # the MLP in three TF32 passes on the tensor cores
-        ops = [(3 * 2 * B * M * S * sum(a * b for a, b in zip(widths[:-1],
-                                                              widths[1:])),
-                PEAK_TF32, "3xTF32 ops")]
-        return ("fused_sa_idx", err, ms, plain, nbytes, ops,
+        # the MLP on the tensor cores: three TF32 passes, or one in bf16
+        mlp_ops = 2 * B * M * S * sum(a * b for a, b in zip(widths[:-1],
+                                                            widths[1:]))
+        ops = [(mlp_ops, PEAK_BF16, "bf16 ops") if bf16 else
+               (3 * mlp_ops, PEAK_TF32, "3xTF32 ops")]
+        return ("fused_sa_idx_bf16" if bf16 else "fused_sa_idx", err, ms,
+                plain, nbytes, ops,
                 f"B{B} P{P} M{M} C{C} S{S} {widths} "
-                + _plan_note(feat, new_xyz, S, widths))
+                + _plan_note(feat, new_xyz, S, widths) + gate)
     raise KeyError(name)
+
+
+def _bf16_gate(out, ref, f32, what: str) -> str:
+    """The gate of the fused SA's bf16 mode against its plain bf16 version
+    `ref` (f32: the plain f32 version): the same exact products summed in
+    another order can move an activation's bf16 rounding by one ulp, so an
+    output may move by up to one bf16 ulp of the largest one: max|diff| <=
+    1e-3 + 2^-7 max|ref|. Such moves are rare: the kernel must sit ten times
+    closer to the bf16 arithmetic than bf16 is to f32 on average, mean|out -
+    ref| <= 0.1 mean|ref - f32|. Returns the numbers; raises past a gate."""
+    d = (out - ref).abs()
+    err, mean = d.max().item(), d.mean().item()
+    scale = ref.abs().max().item()
+    rounding = (ref - f32).abs().mean().item()
+    tol = 1e-3 + 2 ** -7 * scale
+    note = (f"bf16 gate: max|diff| {err:.3g} (<= {tol:.3g}), "
+            f"mean {mean:.3g} (<= {0.1 * rounding:.3g}), "
+            f"{100 * (out == ref).float().mean().item():.2f} % bit-equal")
+    if not (err <= tol and mean <= 0.1 * rounding):
+        raise AssertionError(f"{what}: {note}")
+    return note
 
 
 def _plan_note(feat, new_xyz, nsample, widths) -> str:
@@ -713,21 +788,27 @@ def _print_build(lib_path) -> None:
     """Each kernel's registers, shared memory and spills (ptxas -v), and
     from its SASS the tensor-core (HMMA) and cluster-barrier (UCGABAR)
     instructions; the fused SA routine must have TF32 HMMA in each of its
-    three modes (kernels 3, 2 and 9) and no SIMT MLP routine may be left;
-    the FPS cluster kernel must have UCGABAR."""
+    three modes (kernels 3, 2 and 9) and bf16 HMMA (HMMA.1688.F32.BF16) in
+    each mode's bf16 instance, and no SIMT MLP routine may be left; the FPS
+    cluster kernel must have UCGABAR."""
     import re
     import shutil
 
     def kernel_name(mangled):
-        # <length><name> in the mangled symbol, then ILi<N>E for a template
-        # (a hash before it may end in digits: try each tail of the run)
+        # <length><name> in the mangled symbol, then I...E for a template
+        # whose arguments are L<type><N>E each (Li0E an int 0, Lb1E a bool
+        # true; a hash before the name may end in digits: try each tail of
+        # the run) -> name<N,...>
         for m in re.finditer(r"\d+", mangled):
             i = m.end()
             for k in range(m.start(), i):
                 n = int(mangled[k:i])
                 if mangled[i:i + n].endswith("_kernel"):
-                    t = re.match(r"ILi(\d+)E", mangled[i + n:])
-                    return mangled[i:i + n] + (f"<{t.group(1)}>" if t else "")
+                    t = re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[i + n:])
+                    args = re.findall(r"L[a-z]+(\d+)E", t.group(1)) if t \
+                        else []
+                    return mangled[i:i + n] + (f"<{','.join(args)}>" if args
+                                               else "")
         return None
     name = None
     for line in (lib_path.parent / "build.log").read_text().splitlines():
@@ -748,10 +829,15 @@ def _print_build(lib_path) -> None:
     if not any(k.startswith("fps_cluster_kernel") for k in counts):
         raise AssertionError("no FPS cluster kernel in the library")
     for mode in range(3):         # kFull (kernel 3), kWindow (2), kGiven (9)
-        if not any(op.startswith("HMMA") and "TF32" in op
-                   for op in counts.get(f"fused_sa_tc_kernel<{mode}>", {})):
-            raise AssertionError(f"fused_sa_tc_kernel<{mode}> has no TF32 "
-                                 f"HMMA instruction")
+        # <mode,0>: 3xTF32, TF32 HMMA only; <mode,1>: the bf16 mode,
+        # HMMA.1688.F32.BF16 only
+        for bf16, want in ((0, "TF32"), (1, "HMMA.1688.F32.BF16")):
+            ops = counts.get(f"fused_sa_tc_kernel<{mode},{bf16}>", {})
+            hmma = [op for op in ops if op.startswith("HMMA")]
+            if not hmma or not all(want in op for op in hmma):
+                raise AssertionError(f"fused_sa_tc_kernel<{mode},{bf16}> has "
+                                     f"the HMMA instructions {hmma}, not "
+                                     f"only {want}")
     if any(k.startswith("fused_sa_kernel") for k in counts):
         raise AssertionError("the SIMT MLP routine fused_sa_kernel is in the "
                              "library")
@@ -783,6 +869,8 @@ def main() -> int:
     # no TF32 in the dense layers, nor in any cuDNN op a later slice adds
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # and bf16 GEMMs (none on the port's path) summed in f32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     print(f"# card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
@@ -916,7 +1004,10 @@ def main() -> int:
     # ---- 16. training with validation
     launches.update(_train_val_phase(card, per_kernel))
 
-    # ---- 17. report
+    # ---- 17. the inference cell in bf16
+    launches.update(_bf16_phase(card, per_kernel))
+
+    # ---- 18. report
     table = []
     for key, (source, replaces) in KERNELS.items():
         agg = per_kernel[key]
@@ -936,6 +1027,24 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _compare_aside(calls, per_kernel, path: str, totals=()) -> list:
+    """_compare_calls, with the times of kernels not in `totals` kept out of
+    the kernels line's totals (ms, plain_ms, bound_ms cover the phase that
+    measured their main-path shapes first); errors and ms_by_path take
+    every call."""
+    aside = {k: _fresh() for k in per_kernel}
+    rows = _compare_calls(calls, aside, path)
+    for key, agg in aside.items():
+        if key in totals:
+            for f in ("ms", "plain", "bound", "by_bytes"):
+                per_kernel[key][f] += agg[f]
+        per_kernel[key]["err"] = max(per_kernel[key]["err"], agg["err"])
+        by_path = per_kernel[key]["ms_by_path"]
+        for p, ms in agg["ms_by_path"].items():
+            by_path[p] = by_path.get(p, 0.0) + ms
+    return rows
 
 
 def _compare_calls(calls, per_kernel, path: str) -> list:
@@ -1740,6 +1849,7 @@ def _eval_phase(card) -> dict:
     from ws3d_tpu_torch.eval.kitti_ap import get_official_eval_result
     from ws3d_tpu_torch.models import build_model
     from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.tools.diff_detections import load_txt
     from ws3d_tpu_torch.tools.eval_auto import run_eval
     from ws3d_tpu_torch.weights import load_npz
 
@@ -1823,13 +1933,182 @@ def _eval_phase(card) -> dict:
                  output_dir=os.path.join(tmp, "cpu"), no_ap=True)
         name = sorted(os.listdir(os.path.join(tmp, "cpu", "final_result",
                                               "data")))[0]
-        rows = [_txt_rows(os.path.join(tmp, side, "final_result", "data",
-                                       name)) for side in ("gpu", "cpu")]
+        rows = [load_txt(os.path.join(tmp, side, "final_result", "data",
+                                      name)) for side in ("gpu", "cpu")]
         _check_txt(*rows, float(cfg.IOUN.SCORE_THRESH))
         print(f"# phase 15: first scene GPU vs CPU plain: {len(rows[0])} vs "
               f"{len(rows[1])} detections in {name} agree "
               f"({time.perf_counter() - t1:.1f} s)", flush=True)
     return launches
+
+
+def _bf16_phase(card, per_kernel) -> dict:
+    """Phase 17 (see the module docstring); returns the launch counts of
+    the timed bf16 batches and of kernel 9's bf16 entry point."""
+    import logging
+    import tempfile
+    import torch
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.datasets import RPNDataset, SyntheticKitti
+    from ws3d_tpu_torch.models import build_model
+    from ws3d_tpu_torch.ops import _kernels, ball_query, fused_sa_idx
+    from ws3d_tpu_torch.pipeline import make_two_stage_fn
+    from ws3d_tpu_torch.tools.diff_detections import diff
+    from ws3d_tpu_torch.tools.eval_auto import run_eval
+    from ws3d_tpu_torch.weights import load_npz
+
+    t0 = time.perf_counter()
+    cfg = load_config()
+    cfg.RCNN.ENABLED = True
+    cfg.IOUN.ENABLED = True
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    model = build_model(cfg)
+    load_npz(model, WEIGHTS)
+    fn = make_two_stage_fn(model, cfg)
+    src = SyntheticKitti(num_scenes=BATCH * 2, points_per_scene=20000,
+                         seed=3)
+    ds = RPNDataset(src, cfg, mode="EVAL", npoints=cfg.RPN.NUM_POINTS,
+                    seed=0)
+    bufs = [torch.from_numpy(b["pts_input"]).cuda()
+            for b in ds.batches(batch_size=BATCH, steps=2)]
+
+    # every kernel call of one batch against its plain (bf16) version
+    with Recorder(outputs=True) as rec:
+        fn(bufs[0])
+        torch.cuda.synchronize()
+    # FPS and the crop run phase 2's calls again: their times stay out of
+    # the kernels line's totals
+    bf16_keys = [f"{k}_bf16" for k in BF16_MODES]
+    rows = _compare_aside(rec.calls, per_kernel, "inference_bf16", bf16_keys)
+    for key in ("fused_sa_window_bf16", "fused_sa_full_bf16",
+                "three_interpolate_bf16"):
+        kr = [r for r in rows if r[0] == key]
+        print(f"# phase 17: {key} by launch ({len(kr)} a batch): "
+              + "; ".join(f"{note} {ms:.4f} ms (bound {b:.4f})"
+                          for _, note, ms, b in kr), flush=True)
+    # kernel 9's bf16 mode on kernel 6's indices for each fused call
+    idx_calls = []
+    for (name, a, kw), out in zip(rec.calls, rec.outputs):
+        if name != "fused_sa_cuda":
+            continue
+        xyz, feat, new_xyz, radius, nsample, kernels, biases, window = a
+        idx = ball_query.ball_query_multi_cuda([radius], [nsample], xyz,
+                                               new_xyz)[0]
+        got = fused_sa_idx.fused_sa_idx_cuda(xyz, feat, new_xyz, idx,
+                                             kernels, biases, bf16=True)
+        # the same rows through the same routine: bit-equal
+        if not torch.equal(got, out):
+            raise AssertionError(f"kernel 9 (bf16) differs from the fused "
+                                 f"kernel (window={window}) by "
+                                 f"{(got - out).abs().max().item()}")
+        idx_calls.append(("fused_sa_idx_cuda",
+                          [xyz, feat, new_xyz, idx, kernels, biases],
+                          {"bf16": True}))
+    _compare_aside(idx_calls, per_kernel, "inference_bf16", bf16_keys)
+    _kernels.reset_launch_counts()
+    with torch.no_grad():
+        for _, a, kw in idx_calls:
+            fused_sa_idx.fused_sa_idx(*a, **kw)
+    torch.cuda.synchronize()
+    entry = dict(_kernels.LAUNCHES)
+    if entry["fused_sa_idx_bf16"] != len(idx_calls):
+        raise AssertionError(f"fused_sa_idx(bf16=True) launched kernel 9 "
+                             f"{entry['fused_sa_idx_bf16']} times")
+    print(f"# phase 17: {len(rec.calls)} kernel calls of a bf16 batch and "
+          f"{len(idx_calls)} kernel-9 calls (bit-equal to the fused "
+          f"kernel's) compared in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del rec, idx_calls
+
+    # the timed batches
+    _kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    fn(bufs[0])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t1
+    times, outs = [], []
+    for it in range(TIMED_ITERS):
+        t1 = time.perf_counter()
+        outs.append(fn(bufs[(it + 1) % len(bufs)]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = dict(_kernels.LAUNCHES)
+    missing = [k for k in BF16_INFERENCE_KERNELS if launches[k] == 0]
+    f32 = [k for k in BF16_MODES if launches[k]]
+    if missing or f32:
+        raise AssertionError(f"the bf16 path launched no {missing}, and "
+                             f"f32 modes {f32}")
+    spilled = max(int(o["spilled"]) for o in outs)
+    packed, keep = outs[-1]["packed"], outs[-1]["keep"]
+    if spilled or not (bool(torch.isfinite(packed[..., 0:7]).all()) and
+                       bool(torch.isfinite(packed[..., 7][keep]).all())):
+        raise AssertionError(f"bf16: spilled {spilled} or non-finite values "
+                             f"in the packed record")
+    print(f"# phase 17: {card}: bf16 {BATCH * TIMED_ITERS / sum(times):.2f} "
+          f"scenes/s (batch {BATCH}, {TIMED_ITERS} timed batches "
+          f"{[round(x * 1e3, 1) for x in times]} ms, warm-up "
+          f"{warm * 1e3:.1f} ms); detections {int(keep.sum())}, n_live "
+          f"{int(outs[-1]['n_live'])}, max spilled {spilled}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    _profile(lambda: fn(bufs[1]), 1e3 * sum(times) / len(times),
+             "phase 17 profile (bf16)", "batch")
+
+    # one scene: the GPU's kernels against the CPU's plain bf16 versions
+    t1 = time.perf_counter()
+    scene = bufs[0][:1].contiguous()
+    gpu = {k: v.cpu() for k, v in fn(scene).items()}
+    cpu_model = build_model(cfg, device="cpu")
+    load_npz(cpu_model, WEIGHTS)
+    cpu = make_two_stage_fn(cpu_model, cfg)(scene.cpu())
+    _check_detections(gpu, cpu, float(cfg.IOUN.SCORE_THRESH))
+    print(f"# phase 17: one scene GPU vs CPU plain, bf16: "
+          f"{int(gpu['keep'].sum())} vs {int(cpu['keep'].sum())} detections "
+          f"agree ({time.perf_counter() - t1:.1f} s)", flush=True)
+    del fn, model, cpu_model, bufs, outs
+
+    # eval_auto in f32 and in bf16, then the detection diff
+    t1 = time.perf_counter()
+    quiet = logging.getLogger("chip_smoke.bf16.quiet")
+    quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    src = SyntheticKitti(num_scenes=EVAL_SCENES, points_per_scene=20000,
+                         seed=3)
+    dets, aps, secs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("float32", "bfloat16"):
+            cfg.TPU.COMPUTE_DTYPE = dtype
+            model = build_model(cfg)
+            load_npz(model, WEIGHTS)
+            stats = {}
+            ret = run_eval(model, cfg, src, RPNDataset(src, cfg, mode="EVAL",
+                                                       seed=0),
+                           quiet, scenes=EVAL_SCENES, batch=BATCH,
+                           output_dir=os.path.join(tmp, dtype), stats=stats)
+            dets[dtype] = stats["detections"]
+            secs[dtype] = stats["seconds"]["inference"]
+            aps[dtype] = " / ".join(f"{ret[f'Car_3d_{d}']:.4f}"
+                                    for d in ("easy", "moderate", "hard"))
+            del model
+        rec_diff = diff(*(os.path.join(tmp, d, "final_result", "data")
+                          for d in ("bfloat16", "float32")))
+    print(f"# phase 17: {card}: eval_auto on {EVAL_SCENES} scenes: f32 "
+          f"{dets['float32']} detections, Car 3D AP e/m/h "
+          f"{aps['float32']}, inference {secs['float32']:.3f} s; bf16 "
+          f"{dets['bfloat16']} detections, {aps['bfloat16']}, inference "
+          f"{secs['bfloat16']:.3f} s ({time.perf_counter() - t1:.1f} s)",
+          flush=True)
+    # bounds: at most 4 detections unmatched (either side), and the
+    # matched ones within 0.05 m (centre, dims) and 0.02 (score) on average
+    print(f"# phase 17: diff_detections bf16 vs f32: {json.dumps(rec_diff)}"
+          f" (bounds: only_a + only_b <= 4; mean centre, dims <= 0.05 m; "
+          f"mean score <= 0.02)", flush=True)
+    if not (rec_diff["matched"] > 0
+            and rec_diff["only_a"] + rec_diff["only_b"] <= 4
+            and rec_diff["center_m"]["mean"] <= 0.05
+            and rec_diff["dims_m"]["mean"] <= 0.05
+            and rec_diff["score"]["mean"] <= 0.02):
+        raise AssertionError(f"bf16 vs f32 detections: {rec_diff}")
+    return {"inference_bf16": launches, "fused_sa_idx_bf16_entry": entry}
 
 
 def _snapshot(trainer) -> list:
@@ -1915,14 +2194,8 @@ def _train_loop(phase: str, trainer, host, total_steps: int, val_fn,
           f"loop's launches {({k: v for k, v in launches.items() if v})}; "
           f"{files}; generator, weights and "
           f"BN statistics bit-equal across every eval", flush=True)
-    # the eval shapes' times stay out of the line's totals (ms, plain_ms,
-    # bound_ms cover the earlier phases' calls); errors and ms_by_path
-    # take them
-    evals = {k: _fresh() for k in per_kernel}
-    _compare_calls(rec.calls, evals, path)
-    for key, agg in evals.items():
-        per_kernel[key]["err"] = max(per_kernel[key]["err"], agg["err"])
-        per_kernel[key]["ms_by_path"].update(agg["ms_by_path"])
+    # the eval shapes' times stay out of the line's totals
+    _compare_aside(rec.calls, per_kernel, path)
     names = {n for n, _, _ in rec.calls}
     print(f"# phase 16: {phase}: the {len(rec.calls)} kernel calls of one "
           f"validation forward ({sorted(names)}) held against their plain "
@@ -2116,40 +2389,13 @@ class _CommentFormatter:
                          for line in record.getMessage().splitlines())
 
 
-def _txt_rows(path):
-    """(N, 12) rows of a KITTI result file: bbox (4), h w l, x y z, ry,
-    score (tools/diff_detections.py's columns)."""
-    import numpy as np
-    with open(path) as f:
-        rows = [[float(v) for v in line.split()[4:]] for line in f
-                if line.split()]
-    return np.array(rows, np.float64).reshape(len(rows), 12)
-
-
-def _match(a, b, tol: float = 2.0):
-    """tools/diff_detections.py's match: greedy global-argmin pairing of
-    the centres (columns 7:10) within `tol` metres."""
-    import numpy as np
-    if not len(a) or not len(b):
-        return []
-    d = np.linalg.norm(a[:, None, 7:10] - b[None, :, 7:10], axis=-1)
-    pairs = []
-    for _ in range(min(len(a), len(b))):
-        i, j = np.unravel_index(np.argmin(d), d.shape)
-        if d[i, j] > tol:
-            break
-        pairs.append((int(i), int(j)))
-        d[i, :] = np.inf
-        d[:, j] = np.inf
-    return pairs
-
-
 def _check_txt(a, b, score_thresh: float, tol: float = 1e-3) -> None:
     """_check_detections's rule on two result files' rows: every detection
-    matched (_match) within `tol` in centre and score, unless its score lies
-    within 0.02 of the threshold."""
+    matched (the diff tool's match) within `tol` in centre and score, unless
+    its score lies within 0.02 of the threshold."""
     import numpy as np
-    pairs = _match(a, b)
+    from ws3d_tpu_torch.tools.diff_detections import match
+    pairs = match(a, b)
     for i, j in pairs:
         dc = float(np.linalg.norm(a[i, 7:10] - b[j, 7:10]))
         ds = abs(float(a[i, 11] - b[j, 11]))

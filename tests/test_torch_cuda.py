@@ -659,3 +659,54 @@ def test_neighbour_search_bench(dev, tmp_path):
     print(out.stdout)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.splitlines()[-1] == "ok"
+
+
+@pytest.mark.parametrize("mode", ["window", "full", "given"])
+def test_fused_sa_bf16_kernels(dev, rng, mode):
+    """The bf16 mode of kernels 2, 3 and 9 (bf16 factors, f32 sums) against
+    the plain bf16 versions within chip_smoke.py's gate (_bf16_gate), and
+    kernel 9 on kernel 6's indices bit-equal to kernel 2."""
+    from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda, fused_sa_plain
+    from ws3d_tpu_torch.ops.fused_sa_idx import (fused_sa_idx_cuda,
+                                                 fused_sa_idx_plain)
+    from ws3d_tpu_torch.ops.grouping import ball_query
+    xyz, feat = sorted_cloud(rng, 2, 1024, 61, spread=1.0)
+    new_xyz = xyz[:, np.sort(rng.choice(1024, 128, replace=False))]
+    ks, bs = random_mlp(rng, 64, [64, 96, 128])
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (xyz, feat, new_xyz)]
+    ks = [torch.from_numpy(k).to(dev) for k in ks]
+    bs = [torch.from_numpy(b).to(dev) for b in bs]
+    if mode == "given":
+        idx = ball_query(0.4, 32, args[0], args[2])
+        got = fused_sa_idx_cuda(*args, idx, ks, bs, bf16=True)
+        ref = fused_sa_idx_plain(idx, *args, ks, bs, bf16=True)
+        fused = fused_sa_cuda(*args, 0.4, 32, ks, bs, True, bf16=True)
+        assert torch.equal(got, fused)
+    else:
+        got = fused_sa_cuda(*args, 0.4, 32, ks, bs, mode == "window",
+                            bf16=True)
+        ref = fused_sa_plain(*args, 0.4, 32, ks, bs, bf16=True)
+    f32 = fused_sa_plain(*args, 0.4, 32, ks, bs)
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-3 + 2.0 ** -7 * scale
+    assert ((got - ref).abs().mean().item()
+            <= 0.1 * (ref - f32).abs().mean().item())
+
+
+def test_interpolate_bf16_store(dev, rng):
+    """Kernel 4's bf16 store: the f32 result rounded to nearest even, within
+    one bf16 ulp (at most 2^-7 of the value) of the plain version's
+    rounding (the f32 sums may differ in the last bit)."""
+    from ws3d_tpu_torch.ops.interpolate import (three_interpolate_cuda,
+                                                three_interpolate_plain)
+    u = torch.from_numpy(rng.randn(2, 700, 3).astype(np.float32)).to(dev)
+    k = torch.from_numpy(rng.randn(2, 300, 3).astype(np.float32)).to(dev)
+    f = torch.from_numpy(rng.randn(2, 300, 24).astype(np.float32)).to(dev)
+    got = three_interpolate_cuda(u, k, f, bf16_out=True)
+    ref = three_interpolate_plain(u, k, f, bf16_out=True)
+    assert got.dtype == ref.dtype == torch.bfloat16
+    d = (got.float() - ref.float()).abs()
+    assert bool((d <= 1e-5 + 2.0 ** -7 * ref.float().abs()).all())
+    assert (got == ref).float().mean().item() >= 0.99
+    assert torch.equal(got, three_interpolate_cuda(u, k, f).to(torch.bfloat16))

@@ -319,3 +319,27 @@ def load_config(yaml_path: Optional[str] = None,
 
 def mean_size(cfg: ConfigNode) -> np.ndarray:
     return np.asarray(cfg.CLS_MEAN_SIZE[0], dtype=np.float32)
+
+
+def compute_dtype(cfg: ConfigNode):
+    """cfg.TPU.COMPUTE_DTYPE as the models take it (ws3d_tpu/models/rpn.py:
+    _compute_dtype): torch.bfloat16 for "bfloat16", None for "float32";
+    any other name raises."""
+    import torch
+    name = str(cfg.TPU.COMPUTE_DTYPE)
+    if name == "bfloat16":
+        return torch.bfloat16
+    if name == "float32":
+        return None
+    raise ValueError(f"TPU.COMPUTE_DTYPE {name!r}: expected 'float32' or "
+                     f"'bfloat16'")
+
+
+def refuse_bf16_training(cfg: ConfigNode) -> None:
+    """Training computes in float32 only: raise NotImplementedError for a
+    bfloat16 compute dtype (the bf16 backward of the interpolation and of
+    the fused SA is ROADMAP.md queue 1, item 11)."""
+    if compute_dtype(cfg) is not None:
+        raise NotImplementedError(
+            "TPU.COMPUTE_DTYPE=bfloat16 serves inference only; bf16 training "
+            "is not ported yet (ROADMAP.md queue 1, item 11)")

@@ -976,7 +976,7 @@ int main() {
       };
       auto new_launch = [&] {
         return ws3d_three_interpolate(du, dk, df, s.B, s.n, s.m, s.C, dnew,
-                                      dbounds, nullptr);
+                                      dbounds, 0, nullptr);
       };
       const float t_old = time_ms(old_launch, e0, e1);
       const float t_new = time_ms(new_launch, e0, e1);

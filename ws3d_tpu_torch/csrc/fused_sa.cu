@@ -64,6 +64,23 @@
 // integer/f32 operations: three issued instructions for each mma, which
 // keeps it well below the tensor pipe's rate; wgmma (one instruction a 64 x
 // N x 8 tile, B read from shared memory by the hardware) is the next step.
+// The bf16 mode (BF16 = true; cfg.TPU.COMPUTE_DTYPE=bfloat16) rounds as the
+// JAX package's XLA bf16 path does: every product's two factors (the
+// centre-relative rows [feat, xyz - q] and the weights) rounded to bf16
+// (round to nearest even) and summed in f32, with f32 bias, ReLU and max.
+// The TPU kernels round layer 0 otherwise: they store [xyz, feat] @ W0,
+// absolute coordinates included, in bf16 and fold the centre into the bias
+// in f32; their later layers round as here. That layer-0 rounding is not
+// reproduced (ROADMAP.md queue 3).
+// It keeps the k8 loop, the staging and the epilogue, and replaces the three
+// passes with one mma.sync m16n8k8 bf16 (f32 accumulators) a tile: the f32
+// fragments load as before and cvt.rn.bf16x2.f32 packs them, two to a
+// register. bf16's k8 fragment holds columns 2t, 2t + 1 where TF32's holds
+// t, t + 4; A and B are packed with the same pairing (t, t + 4), which only
+// renumbers k, so the sum is the same. Its bound is the MLP's FLOPs at the
+// dense bf16 rate (989 TFLOP/s), a sixth of the 3xTF32 bound. The search
+// and the gather stay exact f32 in both modes.
+//
 // Bias + ReLU in the epilogue; the last layer max-pools each m16 tile in
 // registers (rows g and g + 8, then __shfl_xor across the quad's row
 // groups), and the Sp / 16 tile maxima of a query are combined with plain
@@ -198,6 +215,23 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// {lo, hi} rounded to bf16 (round to nearest even) and packed into one b32
+// register, lo in the low half (the fragment element of the lower k)
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
 // Stage weight rows [k0, k0 + rows) and columns [c0, c0 + ncol) of a layer
 // (kp4 rows of n columns, row-major in global memory) into Ws (row stride
 // ns): rows past kp4 and columns past n are zeros. perm_c >= 0 reorders the
@@ -255,7 +289,7 @@ __device__ __forceinline__ void load_frags(const float* xa, int xs,
   }
 }
 
-template <int MODE>
+template <int MODE, bool BF16>
 __global__ void __launch_bounds__(32 * kTCMaxWarps, 1)
 fused_sa_tc_kernel(const float* __restrict__ xyz,
                    const float* __restrict__ feat,
@@ -386,6 +420,27 @@ fused_sa_tc_kernel(const float* __restrict__ xyz,
           float ra[kMT][4], rb[kNT][2];
           load_frags(xa, xs, wb, ns, ra, rb);
           for (int ks = 0; ks < ksteps; ++ks) {
+            if constexpr (BF16) {
+              // fragments in bf16 (k pairs t, t + 4), then one mma a tile
+              uint32_t a16[kMT][2], b16[kNT];
+#pragma unroll
+              for (int mt = 0; mt < kMT; ++mt) {
+                a16[mt][0] = pack_bf16x2(ra[mt][0], ra[mt][2]);  // row g
+                a16[mt][1] = pack_bf16x2(ra[mt][1], ra[mt][3]);  // g + 8
+              }
+#pragma unroll
+              for (int j = 0; j < kNT; ++j)
+                b16[j] = pack_bf16x2(rb[j][0], rb[j][1]);
+              if (ks + 1 < ksteps)
+                load_frags(xa + 8 * (ks + 1), xs, wb + 8 * (ks + 1) * ns, ns,
+                           ra, rb);
+#pragma unroll
+              for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+                for (int j = 0; j < kNT; ++j)
+                  mma_bf16(acc[mt][j], a16[mt][0], a16[mt][1], b16[j]);
+              continue;
+            }
             uint32_t ahi[kMT][4], alo[kMT][4], bh[kNT][2], bl[kNT][2];
 #pragma unroll
             for (int mt = 0; mt < kMT; ++mt)
@@ -563,8 +618,9 @@ TCPlan plan_tc(int C, int M, int S, const MLPDesc& d, const float* feat) {
   return p;
 }
 
-// Launches mode MODE as planned; returns a cudaError_t.
-template <int MODE>
+// Launches mode MODE as planned, in bf16 (BF16) or 3xTF32; returns a
+// cudaError_t.
+template <int MODE, bool BF16 = false>
 int launch_fused_sa_tc(const TCPlan& p, const float* xyz, const float* feat,
                        const float* new_xyz, const int* given, int B, int P,
                        int C, int M, float r2, int S,
@@ -582,16 +638,16 @@ int launch_fused_sa_tc(const TCPlan& p, const float* xyz, const float* feat,
   const int a16 =
       (reinterpret_cast<uintptr_t>(xyz) & 15) == 0 && P % 4 == 0 ? 1 : 0;
   const int grid = B * ((M + p.lay.Q - 1) / p.lay.Q);
-  int err = ws3d_set_smem((const void*)fused_sa_tc_kernel<MODE>, p.smem);
+  const void* kernel = (const void*)fused_sa_tc_kernel<MODE, BF16>;
+  int err = ws3d_set_smem(kernel, p.smem);
   // all of the SM's 228 KB to shared memory, so that two blocks fit
   if (!err)
     err = (int)cudaFuncSetAttribute(
-        (const void*)fused_sa_tc_kernel<MODE>,
-        cudaFuncAttributePreferredSharedMemoryCarveout,
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
   if (err) return err;
-  fused_sa_tc_kernel<MODE><<<grid, 32 * p.warps, p.smem,
-                             (cudaStream_t)stream>>>(
+  fused_sa_tc_kernel<MODE, BF16><<<grid, 32 * p.warps, p.smem,
+                                   (cudaStream_t)stream>>>(
       xyz, feat, new_xyz, given, P, C, M, r2, S, p.lay, d, bounds, a16,
       params, out);
   return (int)cudaGetLastError();
@@ -612,6 +668,23 @@ int make_desc(int B, int P, int C, int M, int S, int n_layers,
   return 0;
 }
 
+// Launches mode MODE as planned in the precision bf16 selects (0: 3xTF32,
+// 1: bf16); returns a cudaError_t.
+template <int MODE>
+int launch_mode(int bf16, const TCPlan& p, const float* xyz,
+                const float* feat, const float* new_xyz, const int* given,
+                int B, int P, int C, int M, float r2, int S, const MLPDesc& d,
+                const float* params, float* out, float2* bounds,
+                void* stream) {
+  if (bf16 != 0 && bf16 != 1) return (int)cudaErrorInvalidValue;
+  return bf16 ? launch_fused_sa_tc<MODE, true>(p, xyz, feat, new_xyz, given,
+                                               B, P, C, M, r2, S, d, params,
+                                               out, bounds, stream)
+              : launch_fused_sa_tc<MODE, false>(p, xyz, feat, new_xyz, given,
+                                                B, P, C, M, r2, S, d, params,
+                                                out, bounds, stream);
+}
+
 }  // namespace
 
 // xyz (B, P, 3), feat (B, P, C), new_xyz (B, M, 3) f32; params packs
@@ -621,23 +694,24 @@ int make_desc(int B, int P, int C, int M, int S, int n_layers,
 // pre-pass writes it). windowed != 0 (kernel 2) is for xyz and new_xyz
 // sorted ascending by z: there every in-ball point lies in the query's z
 // window, and the search, the same as kernel 3's, gives the window's
-// indices.
+// indices. bf16 = 1 runs the MLP in bf16 (f32 sums), 0 in 3xTF32.
 WS3D_EXPORT int ws3d_fused_sa(const float* xyz, const float* feat,
                               const float* new_xyz, int B, int P, int C, int M,
-                              float r2, int S, int windowed, int n_layers,
-                              const int* widths, const float* params,
-                              float* out, void* bounds, void* stream) {
+                              float r2, int S, int windowed, int bf16,
+                              int n_layers, const int* widths,
+                              const float* params, float* out, void* bounds,
+                              void* stream) {
   MLPDesc d;
   const int err = make_desc(B, P, C, M, S, n_layers, widths, d);
   if (err) return err;
   if (bounds == nullptr) return (int)cudaErrorInvalidValue;
+  const TCPlan p = plan_tc(C, M, S, d, feat);
   if (windowed)
-    return launch_fused_sa_tc<kWindow>(plan_tc(C, M, S, d, feat), xyz, feat,
-                                       new_xyz, nullptr, B, P, C, M, r2, S, d,
-                                       params, out, (float2*)bounds, stream);
-  return launch_fused_sa_tc<kFull>(plan_tc(C, M, S, d, feat), xyz, feat,
-                                   new_xyz, nullptr, B, P, C, M, r2, S, d,
-                                   params, out, (float2*)bounds, stream);
+    return launch_mode<kWindow>(bf16, p, xyz, feat, new_xyz, nullptr, B, P, C,
+                                M, r2, S, d, params, out, (float2*)bounds,
+                                stream);
+  return launch_mode<kFull>(bf16, p, xyz, feat, new_xyz, nullptr, B, P, C, M,
+                            r2, S, d, params, out, (float2*)bounds, stream);
 }
 
 // The same with the indices given: idx (B, M, S) int32, each in [0, P).
@@ -645,18 +719,20 @@ WS3D_EXPORT int ws3d_fused_sa_idx(const float* xyz, const float* feat,
                                   const float* new_xyz, const int* idx, int B,
                                   int P, int C, int M, int S, int n_layers,
                                   const int* widths, const float* params,
-                                  float* out, void* stream) {
+                                  float* out, int bf16, void* stream) {
   MLPDesc d;
   const int err = make_desc(B, P, C, M, S, n_layers, widths, d);
   if (err) return err;
-  return launch_fused_sa_tc<kGiven>(plan_tc(C, M, S, d, feat), xyz, feat,
-                                    new_xyz, idx, B, P, C, M, 0.f, S, d,
-                                    params, out, nullptr, stream);
+  return launch_mode<kGiven>(bf16, plan_tc(C, M, S, d, feat), xyz, feat,
+                             new_xyz, idx, B, P, C, M, 0.f, S, d, params, out,
+                             nullptr, stream);
 }
 
-// The launch either entry makes for these shapes (the same in every mode):
-// plan[0..6] = feature gather by cp.async (1) or scalar loads (0), Q, Sp,
-// KC, warps, bytes of shared memory, blocks. Returns a cudaError_t.
+// The launch either entry makes for these shapes (the same in every mode
+// and both precisions: the bf16 mode packs its fragments from the same f32
+// buffers): plan[0..6] = feature gather by cp.async (1) or scalar loads
+// (0), Q, Sp, KC, warps, bytes of shared memory, blocks. Returns a
+// cudaError_t.
 WS3D_EXPORT int ws3d_fused_sa_plan(int B, int P, int C, int M, int S,
                                    int n_layers, const int* widths,
                                    const float* feat, int* plan) {

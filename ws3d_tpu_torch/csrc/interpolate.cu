@@ -38,6 +38,10 @@
 // each block searching its queries again. The block writes the output rows
 // with threads across channels (coalesced).
 //
+// bf16_out (cfg.TPU.COMPUTE_DTYPE=bfloat16, the TPU kernel's out_dtype
+// bfloat16) keeps the f32 weights and sums and rounds each output to bf16
+// (round to nearest even) as it is stored: half the output bytes.
+//
 // Kernel 8 replaces the TPU kernel three_nn_pallas.py:_window_interp_kernel
 // (wrapper three_interpolate_window_pallas, interpolate_features(
 // sorted_z=True)): the same function for clouds sorted ascending by z, with
@@ -66,6 +70,13 @@ namespace {
 constexpr int kQ = kNNThreads;  // threads a block
 constexpr int kInterpMinBlocks = 8;  // kernel 4's launch bound: blocks an SM
 
+// x rounded to bf16 (round to nearest even), as its 16 bits
+__device__ __forceinline__ unsigned short bf16_rn(float x) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(x));
+  return h;
+}
+
 // Kernels 4 and 8: a block takes 128 * kQPT consecutive unknown points of
 // one batch row and channels [split * cg, split * cg + cg) of their output,
 // cg = ceil(C / csplit), split = blockIdx.x % csplit; the blocks of split 0
@@ -73,13 +84,15 @@ constexpr int kInterpMinBlocks = 8;  // kernel 4's launch bound: blocks an SM
 // not null (kernel 8). kSortedEnds (kernel 8): the chunk bounds are each
 // chunk's first and last z, read in place (SortedChunkEnds; `bounds` is not
 // read), which bound the chunks only on known clouds sorted by z.
-template <int kQPT, int kMinBlocks, bool kSortedEnds = false>
+// kBF16Out: out holds bf16, each f32 sum rounded to nearest even.
+template <int kQPT, int kMinBlocks, bool kSortedEnds = false,
+          bool kBF16Out = false>
 __global__ void __launch_bounds__(kQ, kMinBlocks)
 three_interp_kernel(const float* __restrict__ unknown,
                     const float* __restrict__ known,
                     const float2* __restrict__ bounds,
                     const float* __restrict__ feats, int n, int m, int C,
-                    int csplit, int a16, float* __restrict__ out,
+                    int csplit, int a16, void* __restrict__ out,
                     int* __restrict__ idx_out, float* __restrict__ d2_out) {
   constexpr int kBQ = kQ * kQPT;  // queries a block
   __shared__ int s_idx[kBQ][3];
@@ -132,18 +145,23 @@ three_interp_kernel(const float* __restrict__ unknown,
         __fadd_rn(__fmul_rn(fb[(size_t)s_idx[q][0] * C + c], s_w[q][0]),
                   __fmul_rn(fb[(size_t)s_idx[q][1] * C + c], s_w[q][1])),
         __fmul_rn(fb[(size_t)s_idx[q][2] * C + c], s_w[q][2]));
-    out[((size_t)b * n + u0 + q) * C + c] = v;
+    const size_t o = ((size_t)b * n + u0 + q) * C + c;
+    if constexpr (kBF16Out)
+      static_cast<unsigned short*>(out)[o] = bf16_rn(v);
+    else
+      static_cast<float*>(out)[o] = v;
   }
 }
 
-// Launches kernel 4 (kernel 8: kSortedEnds, idx_out and d2_out) with kQPT
-// queries a thread, registers for kMinBlocks blocks an SM and csplit
-// channel groups, after the pre-pass unless kSortedEnds; returns a
-// cudaError_t.
-template <int kQPT, int kMinBlocks, bool kSortedEnds = false>
+// Launches kernel 4 (kernel 8: kSortedEnds, idx_out and d2_out; a bf16
+// output: kBF16Out) with kQPT queries a thread, registers for kMinBlocks
+// blocks an SM and csplit channel groups, after the pre-pass unless
+// kSortedEnds; returns a cudaError_t.
+template <int kQPT, int kMinBlocks, bool kSortedEnds = false,
+          bool kBF16Out = false>
 int launch_three_interp(int csplit, const float* unknown, const float* known,
                         const float* feats, int B, int n, int m, int C,
-                        float* out, float2* bounds, cudaStream_t st,
+                        void* out, float2* bounds, cudaStream_t st,
                         int* idx_out = nullptr, float* d2_out = nullptr) {
   if constexpr (!kSortedEnds) {
     const int err = launch_chunk_bounds(known, B, m, bounds, st);
@@ -152,7 +170,7 @@ int launch_three_interp(int csplit, const float* unknown, const float* known,
   const int a16 =
       (reinterpret_cast<uintptr_t>(known) & 15) == 0 && m % 4 == 0 ? 1 : 0;
   const long long blocks = (long long)B * ((n + kQ * kQPT - 1) / (kQ * kQPT));
-  three_interp_kernel<kQPT, kMinBlocks, kSortedEnds>
+  three_interp_kernel<kQPT, kMinBlocks, kSortedEnds, kBF16Out>
       <<<(unsigned)(blocks * csplit), kQ, 0, st>>>(
           unknown, known, bounds, feats, n, m, C, csplit, a16, out, idx_out,
           d2_out);
@@ -186,16 +204,22 @@ int library_splits(int B, int n, int m, int C, int* csplit) {
 
 }  // namespace
 
-// unknown (B, n, 3), known (B, m, 3), feats (B, m, C) f32 -> out (B, n, C);
-// bounds a workspace of B * n_chunks(m) float2 (the pre-pass writes it).
+// unknown (B, n, 3), known (B, m, 3), feats (B, m, C) f32 -> out (B, n, C),
+// f32 (bf16_out 0) or bf16 (1); bounds a workspace of B * n_chunks(m)
+// float2 (the pre-pass writes it).
 WS3D_EXPORT int ws3d_three_interpolate(const float* unknown, const float* known,
                                        const float* feats, int B, int n, int m,
-                                       int C, float* out, void* bounds,
-                                       void* stream) {
-  if (B <= 0 || n <= 0 || m <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+                                       int C, void* out, void* bounds,
+                                       int bf16_out, void* stream) {
+  if (B <= 0 || n <= 0 || m <= 0 || C <= 0 || (bf16_out != 0 && bf16_out != 1))
+    return (int)cudaErrorInvalidValue;
   int csplit = 1;
   const int err = library_splits(B, n, m, C, &csplit);
   if (err) return err;
+  if (bf16_out)
+    return launch_three_interp<1, kInterpMinBlocks, false, true>(
+        csplit, unknown, known, feats, B, n, m, C, out, (float2*)bounds,
+        (cudaStream_t)stream);
   return launch_three_interp<1, kInterpMinBlocks>(
       csplit, unknown, known, feats, B, n, m, C, out, (float2*)bounds,
       (cudaStream_t)stream);

@@ -14,7 +14,7 @@ from ws3d_tpu_torch.models.pointnet2 import (PointnetFPModule,
 class Pointnet2MSG(nn.Module):
     def __init__(self, cin: int, sa_npoints: Sequence[int], sa_radius,
                  sa_nsample, sa_mlps, fp_mlps, use_bn: bool = True,
-                 sorted_points: bool = False):
+                 sorted_points: bool = False, dtype=None):
         super().__init__()
         if cin < 1:
             raise NotImplementedError("the port's SA stages need per-point "
@@ -27,7 +27,7 @@ class Pointnet2MSG(nn.Module):
             sa = PointnetSAModuleMSG(
                 npoint=int(sa_npoints[k]), radii=sa_radius[k],
                 nsamples=sa_nsample[k], mlps=sa_mlps[k], cin=c,
-                use_bn=use_bn, sorted_points=sorted_points)
+                use_bn=use_bn, sorted_points=sorted_points, dtype=dtype)
             self.add_module(f"sa_{k}", sa)
             c = sa.out_channels
             skip.append(c)
@@ -38,7 +38,7 @@ class Pointnet2MSG(nn.Module):
             c_known = skip[i + 1] if i == self.n_fp - 1 else int(
                 fp_mlps[i + 1][-1])
             self.add_module(f"fp_{i}", PointnetFPModule(
-                c_known, skip[i], fp_mlps[i], use_bn=use_bn))
+                c_known, skip[i], fp_mlps[i], use_bn=use_bn, dtype=dtype))
 
     def forward(self, pts: torch.Tensor, train: bool = False,
                 bn_momentum: float = 0.1):

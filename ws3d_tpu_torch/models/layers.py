@@ -7,6 +7,13 @@ Train mode is an argument of each forward, as in the JAX package: BatchNorm
 then normalises with the batch statistics and updates its running ones with
 the momentum it is given, and HeadMLP applies dropout drawn from the
 caller's torch.Generator.
+
+`dtype=torch.bfloat16` is the JAX package's compute dtype (flax
+``nn.Dense(dtype=bfloat16)``): a Dense layer rounds its input and kernel to
+bf16, sums the products in f32 and returns bf16, the bias added in bf16;
+BatchNorm upcasts to f32 first; SharedMLP returns f32 unless `out_f32` is
+False; HeadMLP's last layer is f32 on an f32 input. Parameters, BatchNorm
+statistics and the folded weights stay f32.
 """
 from __future__ import annotations
 
@@ -15,20 +22,28 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ws3d_tpu_torch.ops.fused_sa import pack_params
+from ws3d_tpu_torch.ops.fused_sa import matmul_bf16, pack_params
 
 BN_EPS = 1e-5
 
 
 class Dense(nn.Module):
-    def __init__(self, cin: int, cout: int, use_bias: bool = True):
+    """x @ kernel + bias; with dtype bf16, flax's Dense(dtype=bfloat16):
+    the f32 sum of bf16 products rounded to bf16, plus the bias in bf16."""
+
+    def __init__(self, cin: int, cout: int, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.kernel)
-        return y if self.bias is None else y + self.bias
+        if self.dtype is None:
+            y = torch.matmul(x, self.kernel)
+            return y if self.bias is None else y + self.bias
+        y = matmul_bf16(x, self.kernel).to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -62,14 +77,20 @@ class BatchNorm(nn.Module):
 
 
 class SharedMLP(nn.Module):
-    """Dense(+BN)+ReLU stack over the trailing channel axis."""
+    """Dense(+BN)+ReLU stack over the trailing channel axis. With a bf16
+    `dtype` the output is f32 unless `out_f32` is False (the BN-free
+    stage-2 up/merge chains keep bf16)."""
 
-    def __init__(self, cin: int, channels: Sequence[int], use_bn: bool = True):
+    def __init__(self, cin: int, channels: Sequence[int], use_bn: bool = True,
+                 dtype: Optional[torch.dtype] = None, out_f32: bool = True):
         super().__init__()
         self.channels = [int(c) for c in channels]
         self.use_bn = use_bn
+        self.dtype = dtype
+        self.out_f32 = out_f32
         for k, c in enumerate(self.channels):
-            self.add_module(f"Dense_{k}", Dense(cin, c, use_bias=not use_bn))
+            self.add_module(f"Dense_{k}", Dense(cin, c, use_bias=not use_bn,
+                                                dtype=dtype))
             if use_bn:
                 self.add_module(f"BatchNorm_{k}", BatchNorm(c))
             cin = c
@@ -82,9 +103,10 @@ class SharedMLP(nn.Module):
         for k in range(len(self.channels)):
             x = getattr(self, f"Dense_{k}")(x)
             if self.use_bn:
-                x = getattr(self, f"BatchNorm_{k}")(x, train, bn_momentum)
+                x = getattr(self, f"BatchNorm_{k}")(x.float(), train,
+                                                    bn_momentum)
             x = torch.relu(x)
-        return x
+        return x.float() if self.out_f32 else x
 
     def folded(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """folded_mlp_params(self), made once per state of the weights.
@@ -116,18 +138,20 @@ class SharedMLP(nn.Module):
 
 
 class HeadMLP(nn.Module):
-    """Hidden Dense(+BN)+ReLU layers, then a linear output layer. In train
-    mode, dropout with rate `dp_ratio` after the ReLU of hidden layer 0
-    (inverted: kept values scale by 1 / (1 - p))."""
+    """Hidden Dense(+BN)+ReLU layers (in `dtype`), then a linear f32 output
+    layer. In train mode, dropout with rate `dp_ratio` after the ReLU of
+    hidden layer 0 (inverted: kept values scale by 1 / (1 - p))."""
 
     def __init__(self, cin: int, hidden: Sequence[int], out_channels: int,
-                 use_bn: bool = True, dp_ratio: float = 0.0):
+                 use_bn: bool = True, dp_ratio: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_hidden = len(hidden)
         self.use_bn = use_bn
         self.dp_ratio = float(dp_ratio)
         for i, c in enumerate(hidden):
-            self.add_module(f"Dense_{i}", Dense(cin, c, use_bias=not use_bn))
+            self.add_module(f"Dense_{i}", Dense(cin, c, use_bias=not use_bn,
+                                                dtype=dtype))
             if use_bn:
                 self.add_module(f"BatchNorm_{i}", BatchNorm(c))
             cin = c
@@ -139,11 +163,12 @@ class HeadMLP(nn.Module):
         for i in range(self.n_hidden):
             x = getattr(self, f"Dense_{i}")(x)
             if self.use_bn:
-                x = getattr(self, f"BatchNorm_{i}")(x, train, bn_momentum)
+                x = getattr(self, f"BatchNorm_{i}")(x.float(), train,
+                                                    bn_momentum)
             x = torch.relu(x)
             if i == 0 and train and self.dp_ratio > 0:
                 x = dropout(x, self.dp_ratio, generator)
-        return getattr(self, f"Dense_{self.n_hidden}")(x)
+        return getattr(self, f"Dense_{self.n_hidden}")(x.float())
 
 
 def dropout(x: torch.Tensor, p: float,

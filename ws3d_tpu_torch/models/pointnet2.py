@@ -13,6 +13,19 @@ features and runs the MLP unfolded. A BN-free SA stage (the stage-2 stacks)
 keeps the fused kernel of eval on its live weights and differentiates it
 with ops.fused_sa.FusedSA, as the JAX package does on the chip. GroupAll is
 plain tensor code in both.
+
+`dtype=torch.bfloat16` (cfg.TPU.COMPUTE_DTYPE=bfloat16) is the JAX
+package's bf16 path. The fused SA runs in its bf16 mode (bf16 factors, f32
+sums, f32 bias, ReLU and max; pointnet2.py:139-141), which rounds as the
+JAX package's XLA path does, not as its TPU kernels round layer 0
+(absolute coordinates in bf16; ROADMAP.md queue 3). The rest is as the TPU
+runs it: the FP fold's products with bf16 factors and f32 results and the
+interpolation's output in bf16 (pointnet2.py:237-258), and, unfolded, the
+interpolation and the skip features in bf16 before the concat
+(:270-281). Features that arrive in bf16 (the stage-2 up/merge chains)
+become f32 exactly: the fused SA casts them, and the concatenation with the
+f32 centre offsets promotes them, as in the JAX package. The BN-free
+stacks' train path (FusedSA) has no bf16 backward yet.
 """
 from __future__ import annotations
 
@@ -22,7 +35,7 @@ import torch
 from torch import nn
 
 from ws3d_tpu_torch.models.layers import SharedMLP, folded_mlp_params
-from ws3d_tpu_torch.ops.fused_sa import fused_sa, fused_sa_train
+from ws3d_tpu_torch.ops.fused_sa import fused_sa, fused_sa_train, matmul_bf16
 from ws3d_tpu_torch.ops.grouping import (ball_query_multi, group_all,
                                          group_with_idx)
 from ws3d_tpu_torch.ops.interpolate import interpolate_features
@@ -43,15 +56,18 @@ class PointnetSAModuleMSG(nn.Module):
 
     def __init__(self, npoint: Optional[int], radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
-                 cin: int, use_bn: bool = True, sorted_points: bool = False):
+                 cin: int, use_bn: bool = True, sorted_points: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.npoint = npoint
         self.radii = [float(r) for r in radii]
         self.nsamples = [int(s) for s in nsamples]
         self.sorted_points = sorted_points
         self.use_bn = use_bn
+        self.dtype = dtype
         for i, m in enumerate(mlps):
-            self.add_module(f"mlp_{i}", SharedMLP(cin + 3, m, use_bn=use_bn))
+            self.add_module(f"mlp_{i}", SharedMLP(cin + 3, m, use_bn=use_bn,
+                                                  dtype=dtype))
         self.out_channels = sum(int(m[-1]) for m in mlps)
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor,
@@ -80,6 +96,10 @@ class PointnetSAModuleMSG(nn.Module):
                 outs.append(torch.amax(h, dim=2))
                 continue
             if train:        # BN-free: the live Dense weights, never a cache
+                if self.dtype is not None:
+                    raise NotImplementedError(
+                        "the fused SA has no bf16 backward yet (ROADMAP.md "
+                        "queue 1, item 11)")
                 kernels, biases = folded_mlp_params(mlp)
                 outs.append(fused_sa_train(
                     xyz, features, new_xyz, self.radii[i], self.nsamples[i],
@@ -89,7 +109,8 @@ class PointnetSAModuleMSG(nn.Module):
             outs.append(fused_sa(
                 xyz, features, new_xyz, self.radii[i], self.nsamples[i],
                 kernels, biases, window,
-                params=mlp.packed() if xyz.is_cuda else None))
+                params=mlp.packed() if xyz.is_cuda else None,
+                bf16=self.dtype is not None))
         return new_xyz, torch.cat(outs, dim=-1)
 
     def _train_forward(self, xyz, features, new_xyz, bn_momentum):
@@ -117,30 +138,38 @@ class PointnetFPModule(nn.Module):
     both branches; the backbone leaves it off, as the JAX package does."""
 
     def __init__(self, c_known: int, c_unknown: int, mlp: Sequence[int],
-                 use_bn: bool = True, sorted_points: bool = False):
+                 use_bn: bool = True, sorted_points: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.c_known = c_known
         self.sorted_points = sorted_points
-        self.SharedMLP_0 = SharedMLP(c_known + c_unknown, mlp, use_bn=use_bn)
+        self.dtype = dtype
+        self.SharedMLP_0 = SharedMLP(c_known + c_unknown, mlp, use_bn=use_bn,
+                                     dtype=dtype)
 
     def forward(self, unknown: torch.Tensor, known: torch.Tensor,
                 unknown_feats: Optional[torch.Tensor],
                 known_feats: torch.Tensor, train: bool = False,
                 bn_momentum: float = 0.1) -> torch.Tensor:
+        bf16 = self.dtype is not None
         if train:
             h = interpolate_features(unknown, known, known_feats,
-                                     sorted_z=self.sorted_points)
+                                     sorted_z=self.sorted_points,
+                                     bf16_out=bf16)
             if unknown_feats is not None:
-                h = torch.cat([h, unknown_feats], dim=-1)
+                # bf16: the concat stays bf16, as in the JAX package
+                h = torch.cat([h, unknown_feats.to(h.dtype)], dim=-1)
             return self.SharedMLP_0(h, train=True, bn_momentum=bn_momentum)
         kernels, biases = self.SharedMLP_0.folded()
         ci = self.c_known
-        feats_f = torch.matmul(known_feats, kernels[0][:ci]).contiguous()
+        mm = matmul_bf16 if bf16 else torch.matmul
+        feats_f = mm(known_feats, kernels[0][:ci]).contiguous()
         h = interpolate_features(unknown, known, feats_f,
-                                 sorted_z=self.sorted_points)
+                                 sorted_z=self.sorted_points,
+                                 bf16_out=bf16).float()
         if unknown_feats is not None:
-            h = h + torch.matmul(unknown_feats, kernels[0][ci:])
+            h = h + mm(unknown_feats, kernels[0][ci:])
         h = torch.relu(h + biases[0])
         for W, b in zip(kernels[1:], biases[1:]):
-            h = torch.relu(torch.matmul(h, W) + b)
+            h = torch.relu(mm(h, W) + b)
         return h

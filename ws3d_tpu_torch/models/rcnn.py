@@ -9,7 +9,11 @@ kernels with a backward. The trunk's decoded box is detached (the JAX
 package stops its gradient), so the cascade's loss reaches no trunk
 parameter. `iou_noise` is the per-stage train-time jitter of the cascade's
 box: trans (B, 3, CASCADE) added, scale (B, 3, CASCADE) multiplied, ry
-(B, 1, CASCADE) added."""
+(B, 1, CASCADE) added.
+
+With cfg.TPU.COMPUTE_DTYPE=bfloat16 the up/merge chains, the SA stacks and
+the trunk's cls/reg heads compute in bf16 (the BN-free chains return bf16,
+rcnn.py:139-149 and :167-178); the IOUN heads stay f32 (:188-199)."""
 from __future__ import annotations
 
 import torch
@@ -17,6 +21,7 @@ from torch import nn
 
 from ws3d_tpu_torch.box_codec import (bottom_to_center, center_to_bottom,
                                       decode_box_stage2, refine_box)
+from ws3d_tpu_torch.config import compute_dtype
 from ws3d_tpu_torch.models.layers import HeadMLP, SharedMLP
 from ws3d_tpu_torch.models.pointnet2 import PointnetSAModuleMSG
 from ws3d_tpu_torch.ops.boxes import rotate_points_along_y
@@ -28,14 +33,14 @@ class SAStack(nn.Module):
     """Single-scale SA pyramid shared by the trunk and the cascade."""
 
     def __init__(self, cin: int, npoints, radius, nsample, mlps,
-                 use_bn: bool, sorted_points: bool):
+                 use_bn: bool, sorted_points: bool, dtype=None):
         super().__init__()
         self.n = len(npoints)
         for k in range(self.n):
             npoint = None if int(npoints[k]) == -1 else int(npoints[k])
             sa = PointnetSAModuleMSG(npoint, [radius[k]], [nsample[k]],
                                      [mlps[k]], cin, use_bn=use_bn,
-                                     sorted_points=sorted_points)
+                                     sorted_points=sorted_points, dtype=dtype)
             self.add_module(f"sa_{k}", sa)
             cin = sa.out_channels
         self.out_channels = cin
@@ -63,35 +68,39 @@ class RCNNNet(nn.Module):
         self.loc_bin_size = r.LOC_BIN_SIZE
         self.num_head_bin = r.NUM_HEAD_BIN
         sorted_points = bool(cfg.TPU.get("SORT_POINTS_Z", True))
+        dtype = compute_dtype(cfg)
         up = [int(c) for c in r.XYZ_UP_LAYER]
-        self.xyz_up = SharedMLP(3, up, use_bn=r.USE_BN)
-        self.feature_up = SharedMLP(2, up, use_bn=r.USE_BN)
-        self.merge_down = SharedMLP(2 * up[-1], [up[-1]], use_bn=r.USE_BN)
+        # the BN-free chains keep their bf16 output for the SA stack
+        chain = dict(use_bn=r.USE_BN, dtype=dtype,
+                     out_f32=r.USE_BN or dtype is None)
+        self.xyz_up = SharedMLP(3, up, **chain)
+        self.feature_up = SharedMLP(2, up, **chain)
+        self.merge_down = SharedMLP(2 * up[-1], [up[-1]], **chain)
         sa = r.SA_CONFIG
         self.sa_stack = SAStack(up[-1], sa.NPOINTS, sa.RADIUS, sa.NSAMPLE,
-                                sa.MLPS, r.USE_BN, sorted_points)
+                                sa.MLPS, r.USE_BN, sorted_points, dtype)
         c = self.sa_stack.out_channels
         per_loc_bin_num = int(r.LOC_SCOPE / r.LOC_BIN_SIZE) * 2
         reg_channels = per_loc_bin_num * 4 + r.NUM_HEAD_BIN * 2 + 3 + 1
         self.cls_head = HeadMLP(c, r.CLS_FC, 1, use_bn=r.USE_BN,
-                                dp_ratio=r.DP_RATIO)
+                                dp_ratio=r.DP_RATIO, dtype=dtype)
         self.reg_head = HeadMLP(c, r.REG_FC, reg_channels, use_bn=r.USE_BN,
-                                dp_ratio=r.DP_RATIO)
+                                dp_ratio=r.DP_RATIO, dtype=dtype)
         self.ioun_enabled = bool(io.ENABLED)
         self.cascade = int(cfg.CASCADE)
         self.sorted_points = sorted_points
         if not self.ioun_enabled:
             return
         isa = io.SA_CONFIG
+        chain = dict(use_bn=io.USE_BN, dtype=dtype,
+                     out_f32=io.USE_BN or dtype is None)
         for k in range(self.cascade):
-            self.add_module(f"can_xyz_up_{k}",
-                            SharedMLP(3, up, use_bn=io.USE_BN))
-            self.add_module(f"can_feature_up_{k}",
-                            SharedMLP(2, up, use_bn=io.USE_BN))
+            self.add_module(f"can_xyz_up_{k}", SharedMLP(3, up, **chain))
+            self.add_module(f"can_feature_up_{k}", SharedMLP(2, up, **chain))
             self.add_module(f"can_merge_down_{k}",
-                            SharedMLP(2 * up[-1], [up[-1]], use_bn=io.USE_BN))
+                            SharedMLP(2 * up[-1], [up[-1]], **chain))
             stack = SAStack(up[-1], isa.NPOINTS, isa.RADIUS, isa.NSAMPLE,
-                            isa.MLPS, io.USE_BN, sorted_points)
+                            isa.MLPS, io.USE_BN, sorted_points, dtype)
             self.add_module(f"sa_score_{k}", stack)
             cc = stack.out_channels
             for name, fc, n_out in (("iou_head", io.CLS_FC, 1),

@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ws3d_tpu_torch.config import compute_dtype
 from ws3d_tpu_torch.models.backbone import Pointnet2MSG
 from ws3d_tpu_torch.models.layers import HeadMLP
 
@@ -18,21 +19,22 @@ FOCAL_PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 class RPN(nn.Module):
     def __init__(self, cfg):
         super().__init__()
-        if str(cfg.TPU.COMPUTE_DTYPE) != "float32":
-            raise NotImplementedError("the port computes in float32 only")
+        dtype = compute_dtype(cfg)
         cin = 1 if cfg.RPN.USE_INTENSITY else 0
         sa = cfg.RPN.SA_CONFIG
         self.backbone = Pointnet2MSG(
             cin, sa.NPOINTS, sa.RADIUS, sa.NSAMPLE, sa.MLPS, cfg.RPN.FP_MLPS,
             use_bn=cfg.RPN.USE_BN,
-            sorted_points=bool(cfg.TPU.get("SORT_POINTS_Z", True)))
+            sorted_points=bool(cfg.TPU.get("SORT_POINTS_Z", True)),
+            dtype=dtype)
         c = int(cfg.RPN.FP_MLPS[0][-1])
         per_loc_bin_num = int(cfg.RPN.LOC_SCOPE / cfg.RPN.LOC_BIN_SIZE) * 2
         dp = float(cfg.RPN.DP_RATIO)
         self.cls_head = HeadMLP(c, cfg.RPN.CLS_FC, 1, use_bn=cfg.RPN.USE_BN,
-                                dp_ratio=dp)
+                                dp_ratio=dp, dtype=dtype)
         self.reg_head = HeadMLP(c, cfg.RPN.REG_FC, per_loc_bin_num * 4,
-                                use_bn=cfg.RPN.USE_BN, dp_ratio=dp)
+                                use_bn=cfg.RPN.USE_BN, dp_ratio=dp,
+                                dtype=dtype)
 
     def forward(self, pts: torch.Tensor, train: bool = False,
                 bn_momentum: float = 0.1,

@@ -31,10 +31,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel; the wrappers add one where they launch, nowhere else
+# (the bf16 modes of kernels 2, 3, 9 and 4 under names of their own)
 LAUNCHES = {"fps": 0, "fused_sa_window": 0, "fused_sa_full": 0,
             "three_interpolate": 0, "crop_gather": 0, "ball_query": 0,
             "three_nn": 0, "fused_sa_idx": 0, "ball_query_wrap": 0,
-            "three_interpolate_window": 0, "crop_gather_window": 0}
+            "three_interpolate_window": 0, "crop_gather_window": 0,
+            "fused_sa_window_bf16": 0, "fused_sa_full_bf16": 0,
+            "fused_sa_idx_bf16": 0, "three_interpolate_bf16": 0}
 
 _lib = None
 
@@ -43,12 +46,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "ws3d_fps": [_P, _I, _I, _I, _P, _P, _P],
-    "ws3d_fused_sa": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P, _P,
-                      _P, _P],
+    "ws3d_fused_sa": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _P],
     "ws3d_fused_sa_idx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                          _P],
+                          _I, _P],
     "ws3d_fused_sa_plan": [_I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "ws3d_three_interpolate": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "ws3d_three_interpolate": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
     "ws3d_three_interpolate_window": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                       _P],
     "ws3d_crop_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P,

@@ -12,7 +12,15 @@ the window's points and gives the window's indices), and both, with kernel
 9's given indices (ops/fused_sa_idx.py), run one routine: the search and
 the gather in exact f32 on the SIMT cores, the MLP on the tensor cores in
 three TF32 passes (3xTF32, about 22 mantissa bits). The plain version is
-the f32 composition of fused_sa_bq_pallas._xla_reference.
+the f32 composition of fused_sa_bq_pallas._xla_reference. With bf16=True
+(cfg.TPU.COMPUTE_DTYPE=bfloat16) the MLP's products take bf16 factors and
+f32 sums (fused_sa_idx.matmul_bf16), on CUDA the kernels' bf16 mode; the
+search stays exact f32. That is the rounding of the JAX package's XLA bf16
+path; the TPU kernels round layer 0 otherwise (fused_sa_bq_pallas.
+layer0_preact: [xyz, feat] @ W0 with absolute coordinates, stored in bf16),
+which the port does not reproduce (ROADMAP.md queue 3). Features that
+arrive in bf16 (the stage-2 up/merge chains) are cast to f32 first, which
+is exact.
 
 FusedSA gives both a backward, for the BN-free stage-2 SA stacks in train
 mode. Like the JAX custom VJPs (fused_sa_bq_pallas.py:213-239,
@@ -32,25 +40,31 @@ import torch
 
 from ws3d_tpu_torch.ops import _kernels
 from ws3d_tpu_torch.ops.ball_query import ball_query_multi_plain
-from ws3d_tpu_torch.ops.fused_sa_idx import (  # noqa: F401 (pack_params)
-    check_mlp, fused_sa_idx_plain, pack_params, sa_from_idx_backward)
+from ws3d_tpu_torch.ops.fused_sa_idx import (  # noqa: F401 (re-exported)
+    check_mlp, fused_sa_idx_plain, matmul_bf16, pack_params,
+    sa_from_idx_backward)
 from ws3d_tpu_torch.ops.grouping import ball_query
 
 
 def fused_sa_plain(xyz, features, new_xyz, radius: float, nsample: int,
                    kernels: Sequence[torch.Tensor],
-                   biases: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Plain version: ball query + group + dense stack + max over S."""
+                   biases: Sequence[torch.Tensor],
+                   bf16: bool = False) -> torch.Tensor:
+    """Plain version: ball query + group + dense stack + max over S (bf16:
+    bf16 factors, f32 sums)."""
     idx = ball_query_multi_plain([radius], [nsample], xyz, new_xyz)[0]
-    return fused_sa_idx_plain(idx, xyz, features, new_xyz, kernels, biases)
+    return fused_sa_idx_plain(idx, xyz, features, new_xyz, kernels, biases,
+                              bf16)
 
 
 def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
                   kernels, biases, window: bool,
-                  params: torch.Tensor | None = None) -> torch.Tensor:
+                  params: torch.Tensor | None = None,
+                  bf16: bool = False) -> torch.Tensor:
     """Kernels 2 (window=True) and 3: (B, P, 3), (B, P, C), (B, M, 3) f32
-    CUDA -> (B, M, C_last). `params` is pack_params(kernels, biases) made
-    ahead by the caller, or None to pack here."""
+    CUDA -> (B, M, C_last), in the bf16 mode with `bf16`. `params` is
+    pack_params(kernels, biases) made ahead by the caller, or None to pack
+    here."""
     B, P, _ = xyz.shape
     M = new_xyz.shape[1]
     C = features.shape[-1]
@@ -67,10 +81,11 @@ def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
     bounds = _kernels.chunk_bounds_workspace(xyz)
     rc = _kernels.library().ws3d_fused_sa(
         xyz.data_ptr(), features.data_ptr(), new_xyz.data_ptr(), B, P, C, M,
-        r * r, int(nsample), int(bool(window)), len(kernels), widths,
-        params.data_ptr(), out.data_ptr(), bounds.data_ptr(),
+        r * r, int(nsample), int(bool(window)), int(bool(bf16)), len(kernels),
+        widths, params.data_ptr(), out.data_ptr(), bounds.data_ptr(),
         _kernels.stream_ptr(xyz))
-    name = "fused_sa_window" if window else "fused_sa_full"
+    name = ("fused_sa_window" if window else "fused_sa_full") + (
+        "_bf16" if bf16 else "")
     _kernels.raise_on_error(rc, name)
     _kernels.LAUNCHES[name] += 1
     return out
@@ -78,9 +93,9 @@ def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
 
 def fused_sa_plan(features, new_xyz, nsample: int, widths) -> dict:
     """The launch csrc/fused_sa.cu plans for these shapes, in any of its
-    three modes: the feature gather ("cp.async" or "scalar" loads), Q
-    queries of Sp rows a block, KC weight rows a chunk, warps, bytes of
-    shared memory and blocks. Launches nothing."""
+    three modes and either precision: the feature gather ("cp.async" or
+    "scalar" loads), Q queries of Sp rows a block, KC weight rows a chunk,
+    warps, bytes of shared memory and blocks. Launches nothing."""
     B, P, C = features.shape
     w = (_kernels.ctypes.c_int * len(widths))(*widths)
     plan = (_kernels.ctypes.c_int * 7)()
@@ -95,16 +110,19 @@ def fused_sa_plan(features, new_xyz, nsample: int, widths) -> dict:
 
 
 def fused_sa(xyz, features, new_xyz, radius: float, nsample: int, kernels,
-             biases, window: bool,
-             params: torch.Tensor | None = None) -> torch.Tensor:
+             biases, window: bool, params: torch.Tensor | None = None,
+             bf16: bool = False) -> torch.Tensor:
     """Set abstraction for one scale: the kernel on CUDA tensors, the plain
     version on CPU tensors. `window` requires z-sorted points and queries;
-    `params` (the kernel's packed weights) is used only on CUDA."""
+    `params` (the kernel's packed weights) is used only on CUDA; `bf16`
+    selects the bf16 mode (features in bf16 are cast to f32 first)."""
+    features = features.float()
     if xyz.is_cuda:
         return fused_sa_cuda(xyz, features, new_xyz, radius, nsample,
-                             kernels, biases, window, params=params)
+                             kernels, biases, window, params=params,
+                             bf16=bf16)
     return fused_sa_plain(xyz, features, new_xyz, radius, nsample, kernels,
-                          biases)
+                          biases, bf16)
 
 
 class FusedSA(torch.autograd.Function):

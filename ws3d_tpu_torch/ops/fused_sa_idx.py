@@ -13,6 +13,16 @@ JAX package launches kernel 9 (only its tests call fused_sa_single_scale),
 and none of the port does: it runs from its own entry point,
 fused_sa_single_scale.
 
+With bf16=True each product's two factors are rounded to bf16 (round to
+nearest even) and the products summed in f32, with f32 bias, ReLU and max:
+the rounding of the JAX package's XLA bf16 path, and of the TPU kernel's
+layers after the first (bf16 multiplicands, f32 accumulation). Its layer 0
+rounds the gathered [xyz, feat] rows, absolute coordinates included, to
+bf16 and folds the centre into the bias; the port rounds the
+centre-relative rows (ROADMAP.md queue 3). On CUDA that is the kernel's
+bf16 mode (one bf16 mma.sync a product in place of three TF32 ones). The
+bf16 mode is forward only.
+
 Its backward, sa_from_idx_backward, is the JAX VJP of _xla_reference with
 the indices held constant: recompute group -> MLP -> amax under autograd and
 differentiate. It is also the backward of kernels 2 and 3
@@ -28,6 +38,15 @@ import torch
 
 from ws3d_tpu_torch.ops import _kernels
 from ws3d_tpu_torch.ops.grouping import group_with_idx
+
+
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with both factors rounded to bf16 (round to nearest even) and
+    the products summed in f32, as jax.lax.dot_general(a.astype(bf16),
+    b.astype(bf16), preferred_element_type=f32): an f32 result. The rounded
+    factors are exact in f32 (and in TF32), so each product is exact."""
+    return torch.matmul(a.to(torch.bfloat16).float(),
+                        b.to(torch.bfloat16).float())
 
 
 def pack_params(kernels, biases) -> torch.Tensor:
@@ -63,20 +82,24 @@ def check_mlp(name: str, C: int, kernels, biases, params):
 
 def fused_sa_idx_plain(idx, xyz, features, new_xyz,
                        kernels: Sequence[torch.Tensor],
-                       biases: Sequence[torch.Tensor]) -> torch.Tensor:
+                       biases: Sequence[torch.Tensor],
+                       bf16: bool = False) -> torch.Tensor:
     """Plain version, the f32 composition of
     fused_sa_pallas._xla_reference: idx (B, M, S) -> group -> dense stack
-    with ReLU -> max over S -> (B, M, C_last)."""
+    with ReLU -> max over S -> (B, M, C_last); with `bf16` every layer's
+    product is matmul_bf16."""
     h = group_with_idx(idx.long(), xyz, new_xyz, features)
+    mm = matmul_bf16 if bf16 else torch.matmul
     for k, b in zip(kernels, biases):
-        h = torch.relu(torch.matmul(h, k) + b)
+        h = torch.relu(mm(h, k) + b)
     return torch.amax(h, dim=2)
 
 
-def fused_sa_idx_cuda(xyz, features, new_xyz, idx, kernels,
-                      biases) -> torch.Tensor:
+def fused_sa_idx_cuda(xyz, features, new_xyz, idx, kernels, biases,
+                      bf16: bool = False) -> torch.Tensor:
     """Kernel 9: (B, P, 3), (B, P, C), (B, M, 3) f32 and idx (B, M, S)
-    int32 in [0, P), all CUDA -> (B, M, C_last)."""
+    int32 in [0, P), all CUDA -> (B, M, C_last); `bf16` launches the bf16
+    mode."""
     _kernels.check_cuda(xyz, "fused_sa_idx xyz", torch.float32,
                         (None, None, 3))
     B, P, _ = xyz.shape
@@ -93,9 +116,11 @@ def fused_sa_idx_cuda(xyz, features, new_xyz, idx, kernels,
     rc = _kernels.library().ws3d_fused_sa_idx(
         xyz.data_ptr(), features.data_ptr(), new_xyz.data_ptr(),
         idx.data_ptr(), B, P, C, M, S, len(kernels), widths,
-        params.data_ptr(), out.data_ptr(), _kernels.stream_ptr(xyz))
-    _kernels.raise_on_error(rc, "fused_sa_idx")
-    _kernels.LAUNCHES["fused_sa_idx"] += 1
+        params.data_ptr(), out.data_ptr(), int(bool(bf16)),
+        _kernels.stream_ptr(xyz))
+    name = "fused_sa_idx_bf16" if bf16 else "fused_sa_idx"
+    _kernels.raise_on_error(rc, name)
+    _kernels.LAUNCHES[name] += 1
     return out
 
 
@@ -118,17 +143,25 @@ def sa_from_idx_backward(idx, xyz, features, new_xyz, kernels, biases,
     return [next(grads) if w else None for w in needs]
 
 
+def fused_sa_idx(xyz, features, new_xyz, idx, kernels, biases,
+                 bf16: bool = False) -> torch.Tensor:
+    """SA with given indices, forward only: kernel 9 on CUDA tensors (idx
+    int32), the plain version on CPU tensors; `bf16` selects the bf16
+    mode."""
+    if xyz.is_cuda:
+        return fused_sa_idx_cuda(xyz, features, new_xyz, idx, kernels,
+                                 biases, bf16=bf16)
+    return fused_sa_idx_plain(idx, xyz, features, new_xyz, kernels, biases,
+                              bf16)
+
+
 class _FusedSAIdx(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xyz, features, new_xyz, idx, n_layers, *weights):
         kernels, biases = weights[:n_layers], weights[n_layers:]
         ctx.n_layers = n_layers
         ctx.save_for_backward(xyz, features, new_xyz, idx, *weights)
-        if xyz.is_cuda:
-            return fused_sa_idx_cuda(xyz, features, new_xyz, idx, kernels,
-                                     biases)
-        return fused_sa_idx_plain(idx, xyz, features, new_xyz, kernels,
-                                  biases)
+        return fused_sa_idx(xyz, features, new_xyz, idx, kernels, biases)
 
     @staticmethod
     def backward(ctx, grad_out):

@@ -9,7 +9,16 @@ interpolate_features is differentiable in the known features: its backward
 runs the 3-NN search again (kernel 7 on CUDA, with either forward: kernel 8
 picks exactly kernel 7's neighbours) and scatter-adds the weighted output
 gradient onto the known rows. The coordinates are data here and get no
-gradient."""
+gradient.
+
+bf16_out (cfg.TPU.COMPUTE_DTYPE=bfloat16) returns bf16, as the TPU kernel
+stores into its out_dtype (three_nn_pallas.py:96-101): the weights and sums
+stay f32 and only the result is rounded (to nearest even); kernel 4 rounds
+as it stores. The TPU kernel also rounds the weights and features to bf16
+for its matmul; the JAX package's CPU path (_interpolate_xla) does not, and
+neither does the port. Kernel 8 and the plain windowed version compute f32
+and cast after, as ws3d_tpu/ops/interpolate.py does for the windowed
+kernel. The bf16 output has no backward yet."""
 from __future__ import annotations
 
 import torch
@@ -109,12 +118,14 @@ def _weighted_rows(known_feats: torch.Tensor, d2: torch.Tensor,
 
 
 def three_interpolate_plain(unknown: torch.Tensor, known: torch.Tensor,
-                            known_feats: torch.Tensor,
-                            chunk: int = 2048) -> torch.Tensor:
-    """Plain version: -> (B, n, C), chunked over the unknown points."""
-    return torch.cat([_weighted_rows(known_feats, *_three_nn_block(
+                            known_feats: torch.Tensor, chunk: int = 2048,
+                            bf16_out: bool = False) -> torch.Tensor:
+    """Plain version: -> (B, n, C) f32, chunked over the unknown points;
+    with `bf16_out` the f32 result rounded to bf16."""
+    out = torch.cat([_weighted_rows(known_feats, *_three_nn_block(
         unknown[:, u0:u0 + chunk], known))
         for u0 in range(0, unknown.shape[1], chunk)], dim=1)
+    return out.to(torch.bfloat16) if bf16_out else out
 
 
 def _before(a, ia, b, ib):
@@ -202,11 +213,12 @@ def three_interpolate_window_plain(unknown: torch.Tensor, known: torch.Tensor,
 
 def three_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
                            known_feats: torch.Tensor,
-                           bounds: torch.Tensor | None = None) -> torch.Tensor:
-    """Kernel 4: (B, n, 3), (B, m, 3), (B, m, C) f32 CUDA -> (B, n, C)
-    (after a pre-pass that writes the known cloud's chunk z ranges into a
-    workspace: `bounds`, from _kernels.chunk_bounds_workspace(known), or a
-    fresh one)."""
+                           bounds: torch.Tensor | None = None,
+                           bf16_out: bool = False) -> torch.Tensor:
+    """Kernel 4: (B, n, 3), (B, m, 3), (B, m, C) f32 CUDA -> (B, n, C), f32
+    or with `bf16_out` bf16 (after a pre-pass that writes the known cloud's
+    chunk z ranges into a workspace: `bounds`, from
+    _kernels.chunk_bounds_workspace(known), or a fresh one)."""
     B, n, _ = unknown.shape
     m = known.shape[1]
     C = known_feats.shape[-1]
@@ -215,13 +227,16 @@ def three_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
     _kernels.check_cuda(known, "interpolate known", torch.float32, (B, m, 3))
     _kernels.check_cuda(known_feats, "interpolate feats", torch.float32,
                         (B, m, C))
-    out = torch.empty((B, n, C), dtype=torch.float32, device=unknown.device)
+    out = torch.empty((B, n, C), device=unknown.device,
+                      dtype=torch.bfloat16 if bf16_out else torch.float32)
     bounds = _workspace(known, bounds, "interpolate bounds")
     rc = _kernels.library().ws3d_three_interpolate(
         unknown.data_ptr(), known.data_ptr(), known_feats.data_ptr(), B, n, m,
-        C, out.data_ptr(), bounds.data_ptr(), _kernels.stream_ptr(unknown))
-    _kernels.raise_on_error(rc, "three_interpolate")
-    _kernels.LAUNCHES["three_interpolate"] += 1
+        C, out.data_ptr(), bounds.data_ptr(), int(bool(bf16_out)),
+        _kernels.stream_ptr(unknown))
+    name = "three_interpolate_bf16" if bf16_out else "three_interpolate"
+    _kernels.raise_on_error(rc, name)
+    _kernels.LAUNCHES[name] += 1
     return out
 
 
@@ -270,24 +285,32 @@ class _Interpolate(torch.autograd.Function):
     d known_feats[b, idx[b, i, k]] += w[b, i, k] * g[b, i]."""
 
     @staticmethod
-    def forward(ctx, unknown, known, known_feats, sorted_z):
+    def forward(ctx, unknown, known, known_feats, sorted_z, bf16_out):
         ctx.m = known_feats.shape[1]
         ctx.bounds = None
+        ctx.bf16_out = bf16_out
         ctx.save_for_backward(unknown, known)
         if sorted_z:
             if unknown.is_cuda:
-                return three_interpolate_window_cuda(unknown, known,
+                out = three_interpolate_window_cuda(unknown, known,
+                                                    known_feats)
+            else:
+                out = three_interpolate_window_plain(unknown, known,
                                                      known_feats)
-            return three_interpolate_window_plain(unknown, known,
-                                                  known_feats)
+            return out.to(torch.bfloat16) if bf16_out else out
         if unknown.is_cuda:
             ctx.bounds = _kernels.chunk_bounds_workspace(known)
             return three_interpolate_cuda(unknown, known, known_feats,
-                                          ctx.bounds)
-        return three_interpolate_plain(unknown, known, known_feats)
+                                          ctx.bounds, bf16_out=bf16_out)
+        return three_interpolate_plain(unknown, known, known_feats,
+                                       bf16_out=bf16_out)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.bf16_out:
+            raise NotImplementedError(
+                "interpolate_features(bf16_out=True) has no backward yet "
+                "(ROADMAP.md queue 1, item 11)")
         unknown, known = ctx.saved_tensors
         d2, idx = three_nn(unknown, known, ctx.bounds)
         recip = 1.0 / (d2 + 1e-8)
@@ -302,19 +325,21 @@ class _Interpolate(torch.autograd.Function):
         w2 = weight.reshape(B * n, 3)
         for k in range(3):
             grad.index_add_(0, rows[:, k], g2 * w2[:, k:k + 1])
-        return None, None, grad.reshape(B, ctx.m, C), None
+        return None, None, grad.reshape(B, ctx.m, C), None, None
 
 
 def interpolate_features(unknown: torch.Tensor, known: torch.Tensor,
-                         known_feats: torch.Tensor,
-                         sorted_z: bool = False) -> torch.Tensor:
+                         known_feats: torch.Tensor, sorted_z: bool = False,
+                         bf16_out: bool = False) -> torch.Tensor:
     """FP interpolation, (B, n, C): the kernels on CUDA tensors, the plain
     versions on CPU tensors. With `sorted_z` (both clouds sorted ascending
     by z, as cfg.TPU.SORT_POINTS_Z and the SA modules' sorted picks leave
     them) the forward is the windowed search, kernel 8 on CUDA; the result
-    is the same. Differentiable in `known_feats` only; raises if a
+    is the same. `bf16_out` returns bf16 (see the module docstring).
+    Differentiable in `known_feats` only (f32 output); raises if a
     coordinate tensor requires a gradient."""
     if unknown.requires_grad or known.requires_grad:
         raise ValueError("interpolate_features: the coordinates get no "
                          "gradient; detach unknown and known")
-    return _Interpolate.apply(unknown, known, known_feats, bool(sorted_z))
+    return _Interpolate.apply(unknown, known, known_feats, bool(sorted_z),
+                              bool(bf16_out))

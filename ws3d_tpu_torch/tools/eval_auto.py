@@ -13,7 +13,9 @@ OUTPUT_DIR/final_result/data/%06d.txt. Weights: --ckpt (the rpn and rcnn
 entries of a port train state or an npz), --rpn_ckpt (its rpn entries) and
 --bench_weights (the fitted ws3d_tpu/data/bench_weights.npz, all of them),
 in that order; with none the model keeps its seeded init. Runs on CUDA
-unless --cpu (or --device cpu). Data-parallel eval (--mesh) is not ported.
+unless --cpu (or --device cpu). --set TPU.COMPUTE_DTYPE=bfloat16 runs the
+bf16 compute dtype (ws3d_tpu_torch.tools.diff_detections bounds it against
+f32). Data-parallel eval (--mesh) is not ported.
 """
 from __future__ import annotations
 
@@ -57,16 +59,7 @@ def main(argv=None) -> int:
                          "(ROADMAP.md queue 1, item 7, scale-out)")
     cfg, log = setup(args, "eval_auto")
     try:
-        cfg.RCNN.ENABLED = True
-        cfg.IOUN.ENABLED = True
-        if args.points:
-            cfg.RPN.NUM_POINTS = args.points
-            if args.points <= 2048:
-                cfg.RPN.SA_CONFIG.NPOINTS = [args.points // 4,
-                                             args.points // 16,
-                                             args.points // 64,
-                                             args.points // 256]
-
+        configure(cfg, args.points)
         from ws3d_tpu_torch.datasets import RPNDataset
         from ws3d_tpu_torch.models import build_model
         from ws3d_tpu_torch.training import load_part_checkpoint
@@ -93,6 +86,18 @@ def main(argv=None) -> int:
         return 0
     finally:
         close_log(log)
+
+
+def configure(cfg, points=None) -> None:
+    """The two-stage eval's config: RCNN and IOUN on; `points` sets the
+    scene's points, with the SA NPOINTS scaled down at 2,048 and below."""
+    cfg.RCNN.ENABLED = True
+    cfg.IOUN.ENABLED = True
+    if points:
+        cfg.RPN.NUM_POINTS = points
+        if points <= 2048:
+            cfg.RPN.SA_CONFIG.NPOINTS = [points // 4, points // 16,
+                                         points // 64, points // 256]
 
 
 def run_eval(model, cfg, src, ds, log, *, scenes, batch=1, output_dir,

@@ -19,6 +19,10 @@ The Trainer logs the scalar aux values every log_every steps (to the log
 and, with tb_dir, to a utils.tb.ScalarWriter) and, given a val_fn
 (training.validation.make_val_fn), validates at its cadence: each eval
 writes {stage}_ckpt_e{k}.pt and the best `score` {stage}_ckpt_best.pt.
+
+Training computes in float32: the loss functions, the steps and the Trainer
+raise NotImplementedError for cfg.TPU.COMPUTE_DTYPE=bfloat16
+(config.refuse_bf16_training).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from ws3d_tpu_torch import losses
+from ws3d_tpu_torch.config import refuse_bf16_training
 from ws3d_tpu_torch.training.checkpoint import save_train_state
 from ws3d_tpu_torch.training.optim import AdamOneCycle, bn_momentum_schedule
 from ws3d_tpu_torch.utils.prefetch import prefetch
@@ -88,6 +93,7 @@ def _gradients(loss_fn, batch, generator, bn_momentum,
 def make_rpn_loss_fn(model, cfg) -> Callable:
     """loss_fn(batch, generator, bn_momentum) -> (total, aux); the forward
     updates the BN running statistics."""
+    refuse_bf16_training(cfg)
     loc_scope = cfg.RPN.LOC_SCOPE
     loc_bin_size = cfg.RPN.LOC_BIN_SIZE
     alpha = cfg.RPN.FOCAL_ALPHA[0]
@@ -128,6 +134,7 @@ def make_rpn_train_step(model, cfg, optimizer: AdamOneCycle) -> Callable:
 def make_rcnn_loss_fn(model, cfg, stage: str = "rcnn") -> Callable:
     """loss_fn(batch, generator, bn_momentum) -> (total, aux) of a stage-2
     step: rcnn_loss, or ioun_loss for stage "ioun"."""
+    refuse_bf16_training(cfg)
     anchor = [float(v) for v in cfg.CLS_MEAN_SIZE[0]]
     r = cfg.RCNN
 
@@ -178,6 +185,7 @@ class Trainer:
 
     def __init__(self, model, cfg, total_steps: int, stage: str = "rpn",
                  seed: int = 0, log_fn=print, tb_dir: Optional[str] = None):
+        refuse_bf16_training(cfg)
         self.model = model
         self.cfg = cfg
         self.stage = stage
