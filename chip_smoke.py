@@ -137,8 +137,34 @@ Phases (any failure exits non-zero; nothing is caught):
      batch under torch.profiler; one scene on the GPU against the CPU's
      plain bf16 versions; then eval_auto on 16 scenes in f32 and in bf16
      and the port's diff_detections between the two, within stated bounds;
- 18. print the kernel table, the card's name and power limit, and the
-     result line.
+ 18. the click-seeded annotator (ws3d_tpu_torch.tools.eval_active at its
+     defaults: 16 scenes of SyntheticKitti(seed=3), --max_points 16384,
+     batch 8, the fitted npz, f32): a warm-up run whose every kernel call
+     (kernel 5 in its `s % cnt` mode on these unsorted scenes, FPS and
+     kernels 2 and 3 on the pooled crops) is held against its plain
+     version, then a timed run: scenes/s of the device pass (batches and
+     their host copies) and the host's txt files and tally, hypotheses,
+     live slots and V of each batch, detections, the Car 3D AP and the
+     peak memory, and one run under torch.profiler; crop, FPS and both
+     fused SA entries launched, at least one detection; finalize's time and
+     memory at the largest slot bucket (batch 8, K 1,024); then one scene's
+     batch on the GPU and on the CPU (the
+     plain versions): equal keep masks, kept boxes and scores within 1e-3;
+ 19. one inference batch of 16 with RPN.USE_INTENSITY=False (3-channel
+     scenes; SA0 runs the ball query, kernel 6, instead of a fused kernel)
+     and ATTENTION=True, from seeded weights: every kernel call, kernel 6
+     among them, against its plain version; a timed batch with every
+     inference kernel and the ball query launched, finite boxes;
+ 20. tools/pointnet2_seg at its defaults (4,096 points, batch 4, the
+     seeded init): one step's kernel calls (FPS, the ball query and the
+     interpolation forward, the 3-NN search backward) against their plain
+     versions, then two steps and five timed ones (steps/s, finite Dice
+     losses, all four kernels launched);
+ 21. ws3d_tpu_torch.tools.gpu_selftest: every kernel against its plain
+     version at tools/tpu_selftest.py's shapes and beside them;
+ 22. print the kernel table, the card's name and power limit, and the
+     result line. The calls of phases 18-20 enter the table's ms_by_path
+     and launches_by_path only.
 
 Prints nothing of the result and exits 2 without a CUDA device or outside
 a checkout of the repository.
@@ -1007,7 +1033,19 @@ def main() -> int:
     # ---- 17. the inference cell in bf16
     launches.update(_bf16_phase(card, per_kernel))
 
-    # ---- 18. report
+    # ---- 18. the click-seeded annotator
+    launches["eval_active"] = _active_phase(card, per_kernel)
+
+    # ---- 19. one batch with USE_INTENSITY=False and ATTENTION=True
+    launches["no_intensity_attention"] = _flags_phase(card, per_kernel)
+
+    # ---- 20. the segmentation smoke trainer
+    launches["pointnet2_seg"] = _seg_phase(card, per_kernel)
+
+    # ---- 21. the GPU self-test
+    _selftest_phase(card)
+
+    # ---- 22. report
     table = []
     for key, (source, replaces) in KERNELS.items():
         agg = per_kernel[key]
@@ -2109,6 +2147,273 @@ def _bf16_phase(card, per_kernel) -> dict:
             and rec_diff["score"]["mean"] <= 0.02):
         raise AssertionError(f"bf16 vs f32 detections: {rec_diff}")
     return {"inference_bf16": launches, "fused_sa_idx_bf16_entry": entry}
+
+
+ACTIVE_SCENES = 16         # tools/eval_active.py's defaults
+ACTIVE_BATCH = 8
+ACTIVE_MAX_POINTS = 16384
+ACTIVE_KERNELS = ("crop_gather", "fps", "fused_sa_window", "fused_sa_full")
+SEG_POINTS = 4096           # tools/pointnet2_seg.py's defaults
+SEG_BATCH = 4
+SEG_STEPS = 5
+SEG_KERNELS = ("fps", "ball_query", "three_interpolate", "three_nn")
+
+
+def _active_phase(card, per_kernel) -> dict:
+    """Phase 18: the click-seeded annotator (see the module docstring);
+    returns the timed run's launch counts."""
+    import logging
+    import tempfile
+    import torch
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.datasets import SyntheticKitti
+    from ws3d_tpu_torch.models import build_model
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.tools import eval_active
+    from ws3d_tpu_torch.weights import load_npz
+
+    t0 = time.perf_counter()
+    cfg = load_config()
+    cfg.RCNN.ENABLED = True
+    cfg.IOUN.ENABLED = True
+    model = build_model(cfg)
+    load_npz(model, WEIGHTS)
+    src = SyntheticKitti(num_scenes=ACTIVE_SCENES, points_per_scene=20000,
+                         seed=3)
+    quiet = logging.getLogger("chip_smoke.eval_active.quiet")
+    quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    log = logging.getLogger("chip_smoke.eval_active")
+    log.setLevel(logging.INFO)
+    log.propagate = False
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(_CommentFormatter())
+    run = dict(scenes=ACTIVE_SCENES, batch=ACTIVE_BATCH,
+               max_points=ACTIVE_MAX_POINTS, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the warm-up run, every kernel call recorded and held against its
+        # plain version (kernel 5 in its `s % cnt` mode on unsorted scenes)
+        with Recorder() as rec:
+            eval_active.run_active(model, cfg, src, quiet,
+                                   output_dir=os.path.join(tmp, "warm"),
+                                   no_ap=True, **run)
+            torch.cuda.synchronize()
+        print(f"# phase 18: {card}: eval_active warm-up run in "
+              f"{time.perf_counter() - t0:.1f} s; {len(rec.calls)} kernel "
+              f"calls", flush=True)
+        modes = {kw.get("grouped", a[5] if len(a) > 5 else True)
+                 for n, a, kw in rec.calls if n == "crop_gather_cuda"}
+        if modes != {False}:
+            raise AssertionError(f"eval_active crop modes {modes}: the "
+                                 f"unsorted scenes need `s % cnt`")
+        _compare_aside(rec.calls, per_kernel, "eval_active")
+        del rec
+        stats = {}
+        log.addHandler(handler)
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        try:
+            ret = eval_active.run_active(
+                model, cfg, src, log, output_dir=os.path.join(tmp, "gpu"),
+                stats=stats, **run)
+            torch.cuda.synchronize()
+        finally:
+            log.removeHandler(handler)
+        launches = dict(_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sec = stats["seconds"]
+        _profile(lambda: eval_active.run_active(
+            model, cfg, src, quiet, output_dir=os.path.join(tmp, "prof"),
+            no_ap=True, **run), 1e3 * sum(sec.values()),
+            "phase 18 profile", "run of the 16 scenes (loading included)")
+    missing = [k for k in ACTIVE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"eval_active launched no {missing}")
+    if stats["detections"] == 0:
+        raise AssertionError("eval_active: no detection")
+    print(f"# phase 18: {card}: eval_active on {stats['scenes']} scenes "
+          f"({stats['with_clicks']} with clicks) at batch {ACTIVE_BATCH}: "
+          f"device+transfer {sec['device']:.4f} s = "
+          f"{stats['scenes'] / sec['device']:.2f} scenes/s, host txt and "
+          f"tally {sec['host']:.4f} s, loading {sec['load']:.3f} s; batches "
+          f"(hypotheses, live slots, V) {stats['batches']}; detections "
+          f"{stats['detections']}; Car 3D AP e/m/h "
+          f"{ret['Car_3d_easy']:.4f} / {ret['Car_3d_moderate']:.4f} / "
+          f"{ret['Car_3d_hard']:.4f}; peak memory {peak:.2f} GiB; "
+          f"launches {launches}", flush=True)
+
+    # finalize at the largest slot bucket, K 1,024 a scene, batch 8: the
+    # (B, K, K) rotated IoU and the greedy sweep of K steps
+    from ws3d_tpu_torch.pipeline.inference import finalize_detections
+    g = torch.Generator(device="cpu").manual_seed(0)
+    K = eval_active.SLOT_BUCKETS[-1]
+    ctr = torch.rand(ACTIVE_BATCH, K, 2, generator=g) * 40.0
+    boxes = torch.cat([torch.randn(ACTIVE_BATCH, K, 3, generator=g) * 0.3,
+                       torch.tensor([1.5, 1.6, 3.9]).expand(ACTIVE_BATCH, K,
+                                                            3),
+                       torch.rand(ACTIVE_BATCH, K, 1, generator=g) * 6.0],
+                      -1).cuda()
+    cls = torch.randn(ACTIVE_BATCH, K, generator=g).cuda()
+    iou = torch.rand(ACTIVE_BATCH, K, generator=g).cuda()
+    live = torch.ones(ACTIVE_BATCH, K, dtype=torch.bool).cuda()
+    ctr = ctr.cuda()
+    finalize_detections(boxes, cls, iou, ctr, live, size_gate=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    kept = finalize_detections(boxes, cls, iou, ctr, live,
+                               size_gate=False)[2]
+    torch.cuda.synchronize()
+    print(f"# phase 18: finalize_detections at batch {ACTIVE_BATCH}, K {K}: "
+          f"{1e3 * (time.perf_counter() - t1):.1f} ms, "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB "
+          f"above its inputs, {int(kept.sum())} kept", flush=True)
+
+    # one scene on the GPU and on the CPU (the plain versions)
+    t1 = time.perf_counter()
+    scene = src.get_scene(src.sample_ids[0], with_noise=True)
+    pts, sc, hyp, valid = eval_active.scene_entry(
+        scene, cfg, ACTIVE_MAX_POINTS, 0)
+    V = eval_active.pick_v_bucket(int(valid.sum()), valid.size)
+    cpu_model = build_model(cfg, device="cpu")
+    load_npz(cpu_model, WEIGHTS)
+    outs = []
+    for m in (model, cpu_model):
+        dev = next(m.parameters()).device
+        packed, _ = eval_active.infer_batch(
+            m, cfg, *(torch.from_numpy(a[None]).to(dev)
+                      for a in (pts, sc, hyp, valid)), V)
+        outs.append(packed.cpu())
+    keep = [o[0, :, 8] > 0.5 for o in outs]
+    if not torch.equal(keep[0], keep[1]):
+        raise AssertionError("eval_active one scene: GPU and CPU keep "
+                             "different hypotheses")
+    err = float((outs[0][0, keep[0], 0:8] - outs[1][0, keep[0], 0:8]).abs()
+                .max()) if bool(keep[0].any()) else 0.0
+    if not err <= 1e-3:
+        raise AssertionError(f"eval_active one scene: kept boxes differ by "
+                             f"{err}")
+    print(f"# phase 18: one scene GPU vs CPU plain: equal keep masks "
+          f"({int(keep[0].sum())} of {int(valid.sum())} hypotheses), kept "
+          f"boxes and scores within {err:.3g} "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    return launches
+
+
+def _flags_phase(card, per_kernel) -> dict:
+    """Phase 19: one inference batch with RPN.USE_INTENSITY=False and
+    ATTENTION=True from seeded weights; returns its launch counts."""
+    import torch
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.datasets import RPNDataset, SyntheticKitti
+    from ws3d_tpu_torch.models import build_model
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.pipeline import make_two_stage_fn
+
+    t0 = time.perf_counter()
+    cfg = load_config()
+    cfg.RCNN.ENABLED = True
+    cfg.IOUN.ENABLED = True
+    cfg.RPN.USE_INTENSITY = False
+    cfg.ATTENTION = True
+    model = build_model(cfg, seed=0)
+    fn = make_two_stage_fn(model, cfg)
+    src = SyntheticKitti(num_scenes=BATCH, points_per_scene=20000, seed=3)
+    ds = RPNDataset(src, cfg, mode="EVAL", npoints=cfg.RPN.NUM_POINTS,
+                    seed=0)
+    pts = torch.from_numpy(next(ds.batches(batch_size=BATCH, steps=1))[
+        "pts_input"]).cuda()
+    if pts.shape[-1] != 3:
+        raise AssertionError(f"no-intensity input has {pts.shape[-1]} "
+                             f"channels")
+    with Recorder() as rec:
+        fn(pts)
+        torch.cuda.synchronize()
+    _compare_aside(rec.calls, per_kernel, "no_intensity_attention")
+    if not any(n == "ball_query_multi_cuda" for n, _, _ in rec.calls):
+        raise AssertionError("the no-intensity SA0 did not reach kernel 6")
+    del rec
+    _kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    out = fn(pts)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1)
+    launches = dict(_kernels.LAUNCHES)
+    missing = [k for k in INFERENCE_KERNELS + ("ball_query",)
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the no-intensity batch launched no {missing}")
+    packed = out["packed"]
+    if tuple(packed.shape) != (BATCH, cfg.TPU.MAX_PROPOSALS, 9) or not bool(
+            torch.isfinite(packed[..., 0:7]).all()):
+        raise AssertionError("non-finite or misshaped no-intensity record")
+    print(f"# phase 19: {card}: USE_INTENSITY=False, ATTENTION=True, seeded "
+          f"weights: one batch of {BATCH} in {ms:.1f} ms (after one "
+          f"recorded batch; {time.perf_counter() - t0:.1f} s in all); "
+          f"detections {int(out['keep'].sum())}, n_live "
+          f"{int(out['n_live'])}; launches {launches}", flush=True)
+    return launches
+
+
+def _seg_phase(card, per_kernel) -> dict:
+    """Phase 20: pointnet2_seg at its defaults; returns the launch counts
+    of the timed steps."""
+    import math as _math
+    import torch
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.datasets import RPNDataset, SyntheticKitti
+    from ws3d_tpu_torch.models.detector import init_random
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.tools import pointnet2_seg as seg
+
+    t0 = time.perf_counter()
+    cfg = load_config()
+    seg.configure(cfg, SEG_POINTS)
+    src = SyntheticKitti(num_scenes=16, points_per_scene=18000, seed=0)
+    ds = RPNDataset(src, cfg, mode="EVAL", npoints=SEG_POINTS, seed=0)
+    batches = [(torch.from_numpy(b["pts_input"]).cuda(),
+                torch.from_numpy(b["label"]).cuda())
+               for _, b in zip(range(SEG_STEPS + 2),
+                               seg.seg_batches(ds, SEG_BATCH))]
+    net = init_random(seg.SegNet(cfg), 0).cuda()
+    opt = seg.make_optimizer(net, 0.002)
+    with Recorder() as rec:
+        seg.train_step(net, opt, *batches[0])
+        torch.cuda.synchronize()
+    _compare_aside(rec.calls, per_kernel, "pointnet2_seg")
+    del rec
+    seg.train_step(net, opt, *batches[1])
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    losses = [seg.train_step(net, opt, *b) for b in batches[2:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = dict(_kernels.LAUNCHES)
+    losses = [float(v) for v in losses]
+    if not all(_math.isfinite(v) for v in losses):
+        raise AssertionError(f"pointnet2_seg losses {losses}")
+    missing = [k for k in SEG_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"pointnet2_seg launched no {missing}")
+    print(f"# phase 20: {card}: pointnet2_seg at {SEG_POINTS} points, batch "
+          f"{SEG_BATCH}: {SEG_STEPS / dt:.3f} steps/s over {SEG_STEPS} steps "
+          f"(after two; {time.perf_counter() - t0:.1f} s in all); dice losses "
+          f"{[round(v, 5) for v in losses]}; launches {launches}",
+          flush=True)
+    return launches
+
+
+def _selftest_phase(card) -> None:
+    """Phase 21: ws3d_tpu_torch.tools.gpu_selftest."""
+    from ws3d_tpu_torch.tools import gpu_selftest
+    t0 = time.perf_counter()
+    failures = gpu_selftest.run()
+    if failures:
+        raise AssertionError(f"gpu_selftest: {failures} kernels failed")
+    print(f"# phase 21: {card}: gpu_selftest passed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _snapshot(trainer) -> list:

@@ -45,7 +45,16 @@ def test_import_leaves_jax_unloaded():
             "ws3d_tpu_torch.weights, ws3d_tpu_torch.training, "
             "ws3d_tpu_torch.losses, ws3d_tpu_torch.ops.ball_query, "
             "ws3d_tpu_torch.tools.train_rpn, ws3d_tpu_torch.tools.eval_auto, "
-            "ws3d_tpu_torch.eval, ws3d_tpu_torch.native; "
+            "ws3d_tpu_torch.eval, ws3d_tpu_torch.native, "
+            "ws3d_tpu_torch.tools.eval_active, "
+            "ws3d_tpu_torch.tools.pointnet2_seg, "
+            "ws3d_tpu_torch.tools.annotate, ws3d_tpu_torch.tools.gpu_selftest, "
+            "ws3d_tpu_torch.tools.train_cascade1, "
+            "ws3d_tpu_torch.tools.train_cascade_later, "
+            "ws3d_tpu_torch.pipeline.proposal_layer, "
+            "ws3d_tpu_torch.pipeline.roi_target, "
+            "ws3d_tpu_torch.models.transformer, "
+            "ws3d_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'ws3d_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -140,6 +140,33 @@ def points_in_rotated_boxes_np(pts: np.ndarray,
             & (np.abs(shift[..., 1] - cy) <= h / 2.0))
 
 
+def box_rpn_labels(pts_rect: np.ndarray, gt_boxes3d: np.ndarray,
+                   ignore_width: float = 0.2):
+    """Box labels (the JAX loader's EVAL labels): cls +1 inside a box, -1
+    in the ring of the box enlarged by `ignore_width`, else 0 (int32); reg
+    the (dx, 0, dz) to the centre of the box a point is in."""
+    n = pts_rect.shape[0]
+    cls_label = np.zeros((n,), np.int32)
+    reg_label = np.zeros((n, 3), np.float32)
+    if gt_boxes3d.shape[0] == 0:
+        return cls_label, reg_label
+    big_boxes = gt_boxes3d.copy()
+    big_boxes[:, 1] += ignore_width
+    big_boxes[:, 3:6] += ignore_width * 2
+    in_box = points_in_rotated_boxes_np(pts_rect, gt_boxes3d)
+    big = points_in_rotated_boxes_np(pts_rect, big_boxes)
+    fg = in_box.any(axis=1)
+    cls_label[fg] = 1
+    cls_label[big.any(axis=1) & ~fg] = -1
+    for k in range(gt_boxes3d.shape[0]):
+        m = in_box[:, k]
+        center = gt_boxes3d[k, 0:3].copy()
+        center[1] = 0.0
+        reg_label[m] = center - pts_rect[m]
+        reg_label[m, 1] = 0.0
+    return cls_label, reg_label
+
+
 class RPNDataset:
     """Fixed-shape batches from a scene source (an object with .sample_ids
     and .get_scene(i, with_noise), e.g. SyntheticKitti).

@@ -36,6 +36,19 @@ def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     return modulating * alpha_w * ce * weights
 
 
+def dice_loss(logits: torch.Tensor, target: torch.Tensor,
+              ignore_target: float = -1.0) -> torch.Tensor:
+    """Soft-IoU Dice loss on sigmoid scores: 1 - sum(min(x, t)) /
+    max(sum(max(x, t)), 1) over the entries whose target is not
+    `ignore_target`."""
+    x = torch.sigmoid(logits.reshape(-1))
+    t = target.reshape(-1).to(x.dtype)
+    mask = (t != ignore_target).to(x.dtype)
+    num = torch.sum(torch.minimum(x, t) * mask)
+    den = torch.clamp(torch.sum(torch.maximum(x, t) * mask), min=1.0)
+    return 1.0 - num / den
+
+
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Elementwise Huber with beta = 1."""
     d = torch.abs(pred - target)

@@ -16,9 +16,6 @@ class Pointnet2MSG(nn.Module):
                  sa_nsample, sa_mlps, fp_mlps, use_bn: bool = True,
                  sorted_points: bool = False, dtype=None):
         super().__init__()
-        if cin < 1:
-            raise NotImplementedError("the port's SA stages need per-point "
-                                      "features (RPN.USE_INTENSITY=True)")
         self.n_sa = len(sa_npoints)
         self.n_fp = len(fp_mlps)
         skip = [cin]

@@ -13,6 +13,9 @@ features and runs the MLP unfolded. A BN-free SA stage (the stage-2 stacks)
 keeps the fused kernel of eval on its live weights and differentiates it
 with ops.fused_sa.FusedSA, as the JAX package does on the chip. GroupAll is
 plain tensor code in both.
+Without per-point features (RPN.USE_INTENSITY=False) the JAX package
+declines both fused kernels, and so does the port in eval too: the ball
+query kernel, the gather, the MLP and a max.
 
 `dtype=torch.bfloat16` (cfg.TPU.COMPUTE_DTYPE=bfloat16) is the JAX
 package's bf16 path. The fused SA runs in its bf16 mode (bf16 factors, f32
@@ -83,9 +86,10 @@ class PointnetSAModuleMSG(nn.Module):
                 new_xyz = torch.gather(new_xyz, 1,
                                        order[..., None].expand(-1, -1, 3))
             new_xyz = new_xyz.contiguous()
-        if train and (self.use_bn or self.npoint is None):
-            return new_xyz, self._train_forward(xyz, features, new_xyz,
-                                                bn_momentum)
+        if (train and (self.use_bn or self.npoint is None)) or \
+                features is None:
+            return new_xyz, self._grouped_forward(xyz, features, new_xyz,
+                                                  train, bn_momentum)
         window = use_window(self.sorted_points, xyz.shape[1],
                             features.shape[-1])
         outs = []
@@ -113,10 +117,13 @@ class PointnetSAModuleMSG(nn.Module):
                 bf16=self.dtype is not None))
         return new_xyz, torch.cat(outs, dim=-1)
 
-    def _train_forward(self, xyz, features, new_xyz, bn_momentum):
-        """ball query (all scales, one launch) -> gather -> MLP with batch
-        statistics -> max over S. torch.amax splits the gradient evenly
-        among tied samples (the padded duplicates), as JAX's max does."""
+    def _grouped_forward(self, xyz, features, new_xyz, train, bn_momentum):
+        """ball query (all scales, one launch) -> gather -> MLP (with batch
+        statistics in train mode) -> max over S. torch.amax splits the
+        gradient evenly among tied samples (the padded duplicates), as JAX's
+        max does. Eval runs here only without per-point features
+        (RPN.USE_INTENSITY=False), where the JAX package declines both fused
+        kernels too."""
         if self.npoint is None:
             grouped = [group_all(xyz, features)] * len(self.radii)
         else:
@@ -124,7 +131,7 @@ class PointnetSAModuleMSG(nn.Module):
             grouped = [group_with_idx(i.long(), xyz, new_xyz, features)
                        for i in idx]
         outs = [torch.amax(getattr(self, f"mlp_{i}")(
-                    g, train=True, bn_momentum=bn_momentum), dim=2)
+                    g, train=train, bn_momentum=bn_momentum), dim=2)
                 for i, g in enumerate(grouped)]
         return torch.cat(outs, dim=-1)
 

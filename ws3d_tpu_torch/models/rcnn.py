@@ -1,6 +1,8 @@
 """Stage-2 RCNN trunk + IOUN cascade over fixed (B, 512) point crops (port
-of ws3d_tpu/models/rcnn.py; context attention stays off as in every shipped
-yaml).
+of ws3d_tpu/models/rcnn.py). cfg.ATTENTION (off in every shipped yaml) adds
+the parameter-free context-attention residual before each SA stage of the
+trunk and of each cascade stage; the SA kernels read the attended
+features.
 
 Train mode (train=True) is an argument of every forward, as in the JAX
 package: BatchNorm takes the batch statistics, the heads apply dropout from
@@ -16,6 +18,8 @@ the trunk's cls/reg heads compute in bf16 (the BN-free chains return bf16,
 rcnn.py:139-149 and :167-178); the IOUN heads stay f32 (:188-199)."""
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -29,13 +33,27 @@ from ws3d_tpu_torch.ops.boxes import rotate_points_along_y
 EXTEND_FACTOR = 1.2
 
 
+def context_attention(features: torch.Tensor) -> torch.Tensor:
+    """The context-attention residual (ws3d_tpu/models/rcnn.py:37-56):
+    features (B, N, C) -> features + A^T features, A = softmax over the
+    source axis i of f_i . f_j / sqrt(C). Plain products, outside every
+    kernel, as in the JAX package."""
+    logits = torch.matmul(features, features.transpose(1, 2)) / math.sqrt(
+        features.shape[-1])
+    attn = torch.softmax(logits, dim=1)
+    return features + torch.matmul(attn.transpose(1, 2), features)
+
+
 class SAStack(nn.Module):
-    """Single-scale SA pyramid shared by the trunk and the cascade."""
+    """Single-scale SA pyramid shared by the trunk and the cascade;
+    `attention` applies context_attention before each stage."""
 
     def __init__(self, cin: int, npoints, radius, nsample, mlps,
-                 use_bn: bool, sorted_points: bool, dtype=None):
+                 use_bn: bool, sorted_points: bool, dtype=None,
+                 attention: bool = False):
         super().__init__()
         self.n = len(npoints)
+        self.attention = attention
         for k in range(self.n):
             npoint = None if int(npoints[k]) == -1 else int(npoints[k])
             sa = PointnetSAModuleMSG(npoint, [radius[k]], [nsample[k]],
@@ -48,6 +66,8 @@ class SAStack(nn.Module):
     def forward(self, xyz, features, train: bool = False,
                 bn_momentum: float = 0.1):
         for k in range(self.n):
+            if self.attention:
+                features = context_attention(features)
             xyz, features = getattr(self, f"sa_{k}")(xyz, features, train,
                                                      bn_momentum)
         return features                                     # (B, 1, C_last)
@@ -59,8 +79,6 @@ class RCNNNet(nn.Module):
         if not cfg.RCNN.ROI_SAMPLE_JIT:
             raise NotImplementedError("RCNN.ROI_SAMPLE_JIT=False is not "
                                       "supported")
-        if cfg.ATTENTION:
-            raise NotImplementedError("context attention is not ported")
         r, io = cfg.RCNN, cfg.IOUN
         self.register_buffer("mean_size", torch.tensor(
             [float(v) for v in cfg.CLS_MEAN_SIZE[0]]), persistent=False)
@@ -77,8 +95,10 @@ class RCNNNet(nn.Module):
         self.feature_up = SharedMLP(2, up, **chain)
         self.merge_down = SharedMLP(2 * up[-1], [up[-1]], **chain)
         sa = r.SA_CONFIG
+        attention = bool(cfg.ATTENTION)
         self.sa_stack = SAStack(up[-1], sa.NPOINTS, sa.RADIUS, sa.NSAMPLE,
-                                sa.MLPS, r.USE_BN, sorted_points, dtype)
+                                sa.MLPS, r.USE_BN, sorted_points, dtype,
+                                attention)
         c = self.sa_stack.out_channels
         per_loc_bin_num = int(r.LOC_SCOPE / r.LOC_BIN_SIZE) * 2
         reg_channels = per_loc_bin_num * 4 + r.NUM_HEAD_BIN * 2 + 3 + 1
@@ -100,7 +120,8 @@ class RCNNNet(nn.Module):
             self.add_module(f"can_merge_down_{k}",
                             SharedMLP(2 * up[-1], [up[-1]], **chain))
             stack = SAStack(up[-1], isa.NPOINTS, isa.RADIUS, isa.NSAMPLE,
-                            isa.MLPS, io.USE_BN, sorted_points, dtype)
+                            isa.MLPS, io.USE_BN, sorted_points, dtype,
+                            attention)
             self.add_module(f"sa_score_{k}", stack)
             cc = stack.out_channels
             for name, fc, n_out in (("iou_head", io.CLS_FC, 1),

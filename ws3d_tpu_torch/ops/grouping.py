@@ -7,6 +7,8 @@ no point in its ball gets index 0 everywhere. Distances are the direct
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -77,14 +79,19 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def group_with_idx(idx: torch.Tensor, xyz: torch.Tensor,
                    new_xyz: torch.Tensor,
-                   features: torch.Tensor) -> torch.Tensor:
+                   features: Optional[torch.Tensor]) -> torch.Tensor:
     """idx (B, M, S) int64 -> (B, M, S, 3 + C): centre-relative xyz concat
-    features. Differentiable in `features` (gather's backward scatter-adds)
-    and through the centre subtraction."""
+    features (none without features). Differentiable in `features`
+    (gather's backward scatter-adds) and through the centre subtraction."""
     grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
+    if features is None:
+        return grouped_xyz
     return torch.cat([grouped_xyz, group_points(features, idx)], dim=-1)
 
 
-def group_all(xyz: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
+def group_all(xyz: torch.Tensor,
+              features: Optional[torch.Tensor]) -> torch.Tensor:
     """GroupAll: one group of all points -> (B, 1, N, 3 + C)."""
+    if features is None:
+        return xyz[:, None]
     return torch.cat([xyz[:, None], features[:, None]], dim=-1)

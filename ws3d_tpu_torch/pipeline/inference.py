@@ -143,13 +143,17 @@ def crop_membership(xyz: torch.Tensor, centers_xz: torch.Tensor,
 
 def crop_for_rcnn_batched(pts_input: torch.Tensor, scores_norm: torch.Tensor,
                           centers_xz: torch.Tensor, num_sampled: int = 512,
-                          sort_z: bool = True):
+                          sort_z: bool = True, scene_sorted: bool = False):
     """Scene points (B, N, 3+) + centres (B, K, 2) -> stage-2 crops.
 
-    The crop comes out in the crop kernel's grouped-duplicate order (which
-    is z-ascending for z-sorted scenes) or in `s % cnt` order without
-    sort_z; y is shifted by -GROUND_Y after the gather, x/z recentred on the
-    proposal, the mask channel is (score > 0.5) - 0.5, empty crops are 0.
+    With sort_z each crop comes out ascending by z, as the JAX package's
+    crop does: the first 512 members in point order, `s % cnt` slots, then
+    a stable sort of each crop by its recentred z. `scene_sorted` promises
+    scenes sorted ascending by z (the EVAL loader's): then kernel 5's
+    grouped-duplicate order is that order already and no sort runs.
+    Without sort_z the crop stays in `s % cnt` order. y is shifted by
+    -GROUND_Y after the gather, x/z recentred on the proposal, the mask
+    channel is (score > 0.5) - 0.5, empty crops are 0.
 
     :return: dict(cur_box_point (B, K, S, 3), cur_box_reflect (B, K, S, 1),
         train_mask (B, K, S, 1)), empty (B, K)
@@ -158,16 +162,25 @@ def crop_for_rcnn_batched(pts_input: torch.Tensor, scores_norm: torch.Tensor,
                else torch.zeros_like(pts_input[..., 0]))
     ch = torch.stack([pts_input[..., 0], pts_input[..., 1], pts_input[..., 2],
                       reflect, scores_norm], dim=1).contiguous()  # (B, 5, N)
+    grouped = sort_z and scene_sorted
     (gx, gy, gz, grf, gsn), cnt = crop_gather(
         pts_input[..., 0:3].contiguous(), ch, centers_xz.contiguous(),
-        CROP_RADIUS, num_sampled, grouped=sort_z)
+        CROP_RADIUS, num_sampled, grouped=grouped)
     empty = cnt == 0
     crop_xyz = torch.stack([gx - centers_xz[..., 0:1], gy - GROUND_Y,
                             gz - centers_xz[..., 1:2]], dim=-1)
+    crop_reflect = grf[..., None]
     crop_mask = (gsn > 0.5).to(crop_xyz.dtype)[..., None] - 0.5
+    if sort_z and not grouped:
+        # a permutation of each crop on the device, stable like lax.sort
+        order = torch.sort(crop_xyz[..., 2], dim=-1, stable=True).indices
+        crop_xyz = torch.gather(crop_xyz, 2,
+                                order[..., None].expand(-1, -1, -1, 3))
+        crop_reflect = torch.gather(crop_reflect, 2, order[..., None])
+        crop_mask = torch.gather(crop_mask, 2, order[..., None])
     zero = empty[:, :, None, None]
     crops = {"cur_box_point": torch.where(zero, 0.0, crop_xyz),
-             "cur_box_reflect": torch.where(zero, 0.0, grf[..., None]),
+             "cur_box_reflect": torch.where(zero, 0.0, crop_reflect),
              "train_mask": torch.where(zero, 0.0, crop_mask)}
     return crops, empty
 
@@ -239,9 +252,10 @@ def make_two_stage_fn(model, cfg, num_points: int = 512,
             centers, prop_scores, valid = z_order_slots(centers, prop_scores,
                                                         valid)
         scores_norm = torch.sigmoid(rpn_out["rpn_cls"][..., 0])
+        # the EVAL loader sorts each scene by z (its callers' input)
         crops, empty = crop_for_rcnn_batched(pts_input, scores_norm, centers,
                                              num_sampled=num_points,
-                                             sort_z=sort_z)
+                                             sort_z=sort_z, scene_sorted=True)
         live = valid & ~empty
         flat = {k: v.reshape((B * K,) + v.shape[2:]) for k, v in crops.items()}
         live_f = live.reshape(B * K)

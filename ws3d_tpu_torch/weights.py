@@ -6,6 +6,11 @@ keeps the same names, so the key for a state-dict entry ``a.b.kernel`` is
 ``params/a/b/kernel`` and for a BatchNorm buffer ``a.b.mean`` it is
 ``batch_stats/a/b/mean``. Dense kernels are (Cin, Cout) in both.
 
+A variables tree of the JAX package, as nested dicts of numpy arrays,
+flattens to the same keys (flat_variables), so a module whose names follow
+the JAX module's (the T-Net, the segmentation net's head, the 3-input SA0
+of RPN.USE_INTENSITY=False) loads a seeded JAX init with load_variables.
+
 Loading is all-or-nothing, like ws3d_tpu/utils/npz_overlay.py: every
 parameter and buffer of the model is set and every npz key is consumed, or
 it raises and the model is left unchanged. to_flat / save_npz go the other
@@ -58,6 +63,25 @@ def load_npz(model: nn.Module, path: str) -> int:
     """Load the npz file at `path` into `model` (all-or-nothing)."""
     with np.load(path) as z:
         return load_flat(model, {k: z[k] for k in z.files})
+
+
+def flat_variables(variables: Mapping) -> Dict[str, np.ndarray]:
+    """{collection: {name: ... {leaf: array}}} -> {npz key: array}."""
+    flat = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, prefix + (k,))
+            else:
+                flat["/".join(prefix + (k,))] = np.array(v)
+    walk(variables, ())
+    return flat
+
+
+def load_variables(model: nn.Module, variables: Mapping) -> int:
+    """load_flat of a nested variables tree (flat_variables)."""
+    return load_flat(model, flat_variables(variables))
 
 
 def to_flat(model: nn.Module) -> Dict[str, np.ndarray]:
