@@ -162,15 +162,38 @@ Phases (any failure exits non-zero; nothing is caught):
      losses, all four kernels launched);
  21. ws3d_tpu_torch.tools.gpu_selftest: every kernel against its plain
      version at tools/tpu_selftest.py's shapes and beside them;
- 22. print the kernel table, the card's name and power limit, and the
+ 22. scale-out (ws3d_tpu_torch.parallel) on the one card, the train-step
+     parities under torch.use_deterministic_algorithms (without it the
+     backward's atomics make two plain Trainers differ; printed): (a) one
+     NCCL rank through parallel.launch runs phase 6's data-parallel
+     stage-1 Trainer (a warm-up and 3 timed steps at batch 16; its
+     parameters and BN statistics within 1e-5 of the plain Trainer's from
+     the same state and batches, steps/s beside the plain Trainer's and
+     phase 6's) and eval_auto's run_eval on phase 15's 16 scenes (the
+     single run's detections, txt files within 1e-3); (b) two gloo ranks
+     sharing cuda:0 with CUDA tensors, DP_RATIO 0: the stage-1 step at
+     batch 16 (8 scenes a rank) and the IOUN step at 800 crops (400 a
+     rank), each on identical shards within 1e-5 of the single-process
+     step on one shard, on the whole batch its loss within 5 % (IOUN
+     15 %) of the single step's and the replicas bit-equal, the IOUN trunk
+     bit-unchanged; then phase 3's batch of 16 through
+     data_parallel_infer, the stage-2 budget pooled over both ranks: the
+     kept slots and their packed rows within 1e-3 of the single batch's,
+     n_live equal, spilled 0, every inference kernel
+     launched in each rank (the counts come back from the ranks). Times
+     of (b) are labelled as two ranks sharing one card, not a scaling
+     figure;
+ 23. print the kernel table, the card's name and power limit, and the
      result line. The calls of phases 18-20 enter the table's ms_by_path
-     and launches_by_path only.
+     and launches_by_path only; phase 22's launches enter
+     launches_by_path under paths named scaleout_*.
 
 Prints nothing of the result and exits 2 without a CUDA device or outside
 a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -250,6 +273,7 @@ RCNN_VAL_STEPS = 2
 VAL_EVERY = 2
 VAL_SCENES = 8
 PREFETCH_STEPS = 6          # stage-1 steps a loop with the loader prefetching
+SCALEOUT_STEPS = 3          # phase 22: timed data-parallel steps
 HOST_PROFILE = ("get_sample", "apply_gt_aug", "greedy_furthest_point_sample",
                 "gaussian_weak_labels", "sample_npoints", "valid_point_mask",
                 "augment_scene")
@@ -1010,7 +1034,7 @@ def main() -> int:
     del fn, cpu_model, rec
 
     # ---- 5.-7. the stage-1 training path
-    launches["train"] = _train_phases(card, per_kernel)
+    launches["train"], phase6_ms = _train_phases(card, per_kernel)
 
     # ---- 8.-11. the stage-2 (RCNN, IOUN) training paths
     launches.update(_stage2_phases(card, per_kernel))
@@ -1045,7 +1069,10 @@ def main() -> int:
     # ---- 21. the GPU self-test
     _selftest_phase(card)
 
-    # ---- 22. report
+    # ---- 22. scale-out: NCCL at world size 1, two gloo ranks on the card
+    launches.update(_scaleout_phase(card, phase6_ms))
+
+    # ---- 23. report
     table = []
     for key, (source, replaces) in KERNELS.items():
         agg = per_kernel[key]
@@ -1237,9 +1264,9 @@ def _rpn_model(cfg, device):
     return model
 
 
-def _train_phases(card, per_kernel) -> dict:
+def _train_phases(card, per_kernel) -> tuple:
     """Phases 5-7 on the stage-1 train step at batch 16; returns the
-    training path's launch counts."""
+    training path's launch counts and phase 6's ms a step."""
     import torch
     from ws3d_tpu_torch.config import load_config
     from ws3d_tpu_torch.datasets import RPNDataset, SyntheticKitti
@@ -1382,7 +1409,7 @@ def _train_phases(card, per_kernel) -> dict:
           f"vs {cl:.6f} (rel {rel:.3g}); worst gradient {worst[0]} "
           f"{worst[1]:.3g} of its largest magnitude "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    return launches
+    return launches, step_ms
 
 
 def _stage2_cfg(stage: str):
@@ -1395,19 +1422,9 @@ def _stage2_cfg(stage: str):
 
 def _stage2_model(cfg, device):
     """The stage-2 model with the fitted npz's RCNN trunk; an IOUN model's
-    cascade keeps its seeded init (the fitted cascade's ReLUs are all off
-    below SA1's last layer on these crops, so it would train nothing)."""
-    import numpy as np
-    from ws3d_tpu_torch.models import build_model
-    from ws3d_tpu_torch.training.trainer import CASCADE_PREFIXES
-    from ws3d_tpu_torch.weights import load_flat, to_flat
-    model = build_model(cfg, device=device, seed=0)
-    flat = to_flat(model)
-    with np.load(WEIGHTS) as z:
-        flat.update({k: z[k] for k in z.files if k in flat and not
-                     k.split("/")[2].startswith(CASCADE_PREFIXES)})
-    load_flat(model, flat)
-    return model
+    cascade keeps its seeded init (parallel.dryrun.stage2_model)."""
+    from ws3d_tpu_torch.parallel.dryrun import stage2_model
+    return stage2_model(cfg, device)
 
 
 def _stage2_batches(cfg, n: int):
@@ -2414,6 +2431,382 @@ def _selftest_phase(card) -> None:
         raise AssertionError(f"gpu_selftest: {failures} kernels failed")
     print(f"# phase 21: {card}: gpu_selftest passed in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms around phase 22's parity checks:
+    index_add_ and the gather backward sum without atomics, so two runs of
+    one step from one state agree bitwise. Without them two plain stage-1
+    Trainers from the same state and batches differ after 4 steps (by
+    2.4e-4 on an H100; phase 22 prints it): the atomics' order moves a
+    near-zero gradient's sign, which Adam's first step turns into a whole
+    lr. cuBLAS needs its workspace setting for
+    that mode (set before phase 22 starts its ranks)."""
+    import torch
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _quiet_log():
+    import logging
+    quiet = logging.getLogger("chip_smoke.quiet")
+    if not quiet.handlers:
+        quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    return quiet
+
+
+def _eval_cfg():
+    from ws3d_tpu_torch.config import load_config
+    cfg = load_config()
+    cfg.RCNN.ENABLED = True
+    cfg.IOUN.ENABLED = True
+    return cfg
+
+
+def _eval_inputs(device):
+    """Phase 15's configuration, the fitted model on `device` and its 16
+    EVAL scenes: (cfg, model, src, ds)."""
+    from ws3d_tpu_torch.datasets import RPNDataset, SyntheticKitti
+    from ws3d_tpu_torch.models import build_model
+    from ws3d_tpu_torch.weights import load_npz
+    cfg = _eval_cfg()
+    model = build_model(cfg, device=device)
+    load_npz(model, WEIGHTS)
+    src = SyntheticKitti(num_scenes=EVAL_SCENES, points_per_scene=20000,
+                         seed=3)
+    return cfg, model, src, RPNDataset(src, cfg, mode="EVAL", seed=0)
+
+
+def _timed_trainer(trainer, host, batches) -> list:
+    """A warm-up step through train_steps on host[0], then one timed step
+    a device batch; returns the steps' ms."""
+    import torch
+    trainer.train_steps([host[0]], total_steps=1, log_every=1,
+                        prefetch_size=0)
+    torch.cuda.synchronize()
+    times = []
+    for b in batches:
+        t0 = time.perf_counter()
+        trainer.step_fn(b, trainer.generator, trainer.bn_sched(0))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def _world1_rank(group, host, out_dir) -> dict:
+    """Phase 22 (a), the one rank of an NCCL group: the data-parallel
+    stage-1 Trainer on phase 6's batches, then run_eval on phase 15's
+    scenes (a warm-up run, then a timed one into `out_dir`)."""
+    import torch
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.parallel.dryrun import cpu_state
+    from ws3d_tpu_torch.tools.eval_auto import run_eval
+    from ws3d_tpu_torch.training import Trainer
+    from ws3d_tpu_torch.training.trainer import batch_to_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config()
+    model = _rpn_model(cfg, group.device)
+    trainer = Trainer(model, cfg, total_steps=1000, seed=0, group=group,
+                      log_fn=lambda msg: None)
+    batches = [batch_to_device(b, group.device) for b in host[1:]]
+    _kernels.reset_launch_counts()
+    with _deterministic():
+        times = _timed_trainer(trainer, host, batches)
+    out = {"train_launches": dict(_kernels.LAUNCHES), "train_ms": times,
+           "state": cpu_state(model), "step": trainer.step}
+    cfg, model, src, ds = _eval_inputs(group.device)
+    run_eval(model, cfg, src, ds, _quiet_log(), scenes=EVAL_SCENES,
+             batch=BATCH, output_dir=os.path.join(out_dir, "warm"),
+             no_ap=True, group=group)
+    torch.cuda.synchronize()
+    stats = {}
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_eval(model, cfg, src, ds, _quiet_log(), scenes=EVAL_SCENES,
+             batch=BATCH, output_dir=os.path.join(out_dir, "mesh1"),
+             group=group, stats=stats)
+    torch.cuda.synchronize()
+    out.update(eval_s=time.perf_counter() - t0,
+               eval_launches=dict(_kernels.LAUNCHES),
+               detections=stats["detections"], seconds=stats["seconds"])
+    return out
+
+
+def _one_dp_step(cfg, stage, model, batch, group, timed: int = 0):
+    """(state after one step on `batch`, its loss, ms of `timed` more
+    steps): parallel.dryrun.one_step, single-process (group None) or data
+    parallel on the rank's shard, from `model`'s weights."""
+    import torch
+    from ws3d_tpu_torch.parallel.dryrun import one_step
+    state, aux, _, again = one_step(cfg, stage, model, batch, group)
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return state, aux["loss"], times
+
+
+def _shared_card_models(stage: str, device):
+    if stage == "rpn":
+        from ws3d_tpu_torch.config import load_config
+        cfg = load_config()
+        cfg.RPN.DP_RATIO = 0.0          # no dropout: exact parity
+        return cfg, _rpn_model(cfg, device)
+    cfg = _stage2_cfg(stage)
+    return cfg, _stage2_model(cfg, device)
+
+
+def _shared_card_rank(group, rpn_host, ioun_host, pts) -> dict:
+    """Phase 22 (b), one of two gloo ranks on cuda:0: the stage-1 and IOUN
+    steps on identical shards and on the whole batch, then the inference
+    batch data parallel."""
+    import numpy as np
+    import torch
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.parallel import data_parallel_infer
+    from ws3d_tpu_torch.pipeline import make_two_stage_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for stage, host in (("rpn", rpn_host), ("ioun", ioun_host)):
+        per = len(next(iter(host.values()))) // group.world_size
+        tiled = {k: np.concatenate([v[:per]] * group.world_size)
+                 for k, v in host.items()}
+        with _deterministic():
+            cfg, model = _shared_card_models(stage, group.device)
+            tiled_state = _one_dp_step(cfg, stage, model, tiled, group)[0]
+            cfg, model = _shared_card_models(stage, group.device)
+            _kernels.reset_launch_counts()
+            state, loss, times = _one_dp_step(cfg, stage, model, host, group,
+                                              timed=TIMED_ITERS)
+        out[stage] = {"tiled": tiled_state, "full": state, "loss": loss,
+                      "ms": times, "launches": dict(_kernels.LAUNCHES)}
+        del model
+        torch.cuda.empty_cache()
+    cfg, model, _, _ = _eval_inputs(group.device)
+    infer = data_parallel_infer(make_two_stage_fn(model, cfg, group=group),
+                                group)
+    batch = torch.from_numpy(pts)
+    infer(batch)
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    times = []
+    for _ in range(TIMED_ITERS):
+        t0 = time.perf_counter()
+        got = infer(batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    out["infer"] = {"out": {k: v.cpu() for k, v in got.items()},
+                    "ms": times, "launches": dict(_kernels.LAUNCHES)}
+    return out
+
+
+def _kept_diff(a: dict, b: dict) -> float:
+    """max |a - b| over the packed rows of the kept slots (the
+    detections), which must be the same slots."""
+    import torch
+    keep = a["keep"].cpu()
+    if not torch.equal(keep, b["keep"].cpu()) or not keep.any():
+        raise AssertionError(f"the kept slots differ, or none: "
+                             f"{int(keep.sum())} vs {int(b['keep'].sum())}")
+    return float((a["packed"].cpu()[keep] - b["packed"].cpu()[keep]
+                  ).abs().max())
+
+
+def _scaleout_phase(card, phase6_ms: float) -> dict:
+    """Phase 22 (see the module docstring); returns the launch counts of
+    its data-parallel paths."""
+    import tempfile
+    import torch
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.datasets import RPNDataset, SyntheticKitti
+    from ws3d_tpu_torch.parallel import launch
+    from ws3d_tpu_torch.parallel.dryrun import cpu_state, max_diff
+    from ws3d_tpu_torch.pipeline import make_two_stage_fn
+    from ws3d_tpu_torch.tools.diff_detections import load_txt
+    from ws3d_tpu_torch.tools.eval_auto import run_eval
+    from ws3d_tpu_torch.training import Trainer
+    from ws3d_tpu_torch.training.trainer import (batch_to_device,
+                                                 trainable_parameters)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # ranks too
+    cfg = load_config()
+    src = SyntheticKitti(num_scenes=BATCH * 2, points_per_scene=20000, seed=3)
+    host = list(RPNDataset(src, cfg, mode="TRAIN", seed=0).batches(
+        BATCH, steps=1 + SCALEOUT_STEPS, shuffle=True))
+    launches = {}
+
+    # ---- (a) NCCL at world size 1
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        w1 = launch(_world1_rank, 1, host, tmp, device="cuda",
+                    timeout=600)[0]
+        t_launch = time.perf_counter() - t0
+        model = _rpn_model(cfg, "cuda")
+        trainer = Trainer(model, cfg, total_steps=1000, seed=0,
+                          log_fn=lambda msg: None)
+        with _deterministic():
+            plain_ms = _timed_trainer(trainer, host, [
+                batch_to_device(b, "cuda") for b in host[1:]])
+        err = max_diff(w1["state"], cpu_state(model))
+        if w1["step"] != trainer.step or not err <= 1e-5:
+            raise AssertionError(f"world-1 Trainer vs the plain one: steps "
+                                 f"{w1['step']} vs {trainer.step}, max|diff| "
+                                 f"{err}")
+        missing = [k for k in TRAIN_KERNELS if not w1["train_launches"][k]]
+        if missing:
+            raise AssertionError(f"world-1 Trainer launched no {missing}")
+        dp_ms = sum(w1["train_ms"]) / len(w1["train_ms"])
+        print(f"# phase 22: {card}: NCCL world 1 Trainer (deterministic "
+              f"algorithms, as the plain one beside it) {1e3 / dp_ms:.3f} "
+              f"steps/s ({[round(t, 1) for t in w1['train_ms']]} ms), the "
+              f"plain Trainer {1e3 * len(plain_ms) / sum(plain_ms):.3f} "
+              f"({[round(t, 1) for t in plain_ms]} ms), phase 6 "
+              f"{1e3 / phase6_ms:.3f}; params and BN statistics max|diff| "
+              f"{err:.3g} after {trainer.step} steps; the rank started and "
+              f"ran in {t_launch:.1f} s; launches {w1['train_launches']}",
+              flush=True)
+        del model, trainer
+        ecfg, emodel, esrc, eds = _eval_inputs("cuda")
+        run_eval(emodel, ecfg, esrc, eds, _quiet_log(), scenes=EVAL_SCENES,
+                 batch=BATCH, output_dir=os.path.join(tmp, "single"),
+                 no_ap=True)
+        data = [os.path.join(tmp, side, "final_result", "data")
+                for side in ("single", "mesh1")]
+        names = sorted(os.listdir(data[0]))
+        if names != sorted(os.listdir(data[1])):
+            raise AssertionError("eval_auto --mesh 1 wrote other files")
+        n_det = 0
+        for name in names:
+            a, b = (load_txt(os.path.join(d, name)) for d in data)
+            if len(a) != len(b):
+                raise AssertionError(f"{name}: {len(a)} vs {len(b)} "
+                                     f"detections")
+            _check_txt(a, b, float(ecfg.IOUN.SCORE_THRESH))
+            n_det += len(a)
+        missing = [k for k in INFERENCE_KERNELS
+                   if not w1["eval_launches"][k]]
+        if missing or n_det != w1["detections"] or n_det == 0:
+            raise AssertionError(f"eval_auto --mesh 1: {w1['detections']} "
+                                 f"detections, {n_det} single; launched no "
+                                 f"{missing}")
+        print(f"# phase 22: {card}: eval_auto --mesh 1 (NCCL) on "
+              f"{EVAL_SCENES} scenes: {n_det} detections, the single run's "
+              f"within 1e-3; {w1['eval_s']:.3f} s (inference "
+              f"{w1['seconds']['inference']:.3f}); launches "
+              f"{w1['eval_launches']}", flush=True)
+        del emodel
+    launches["scaleout_train_nccl1"] = w1["train_launches"]
+    launches["scaleout_eval_nccl1"] = w1["eval_launches"]
+
+    # ---- (b) two gloo ranks sharing cuda:0, CUDA tensors
+    torch.cuda.empty_cache()
+    rpn_host = {k: host[0][k] for k in ("pts_input", "rpn_cls_label",
+                                        "rpn_reg_label")}
+    icfg = _stage2_cfg("ioun")
+    ioun_host = _stage2_batches(icfg, 1)[0]
+    eds = RPNDataset(SyntheticKitti(num_scenes=BATCH * 2,
+                                    points_per_scene=20000, seed=3),
+                     _eval_cfg(), mode="EVAL", seed=0)
+    pts = next(eds.batches(batch_size=BATCH, steps=1))["pts_input"]
+    t0 = time.perf_counter()
+    ranks = launch(_shared_card_rank, 2, rpn_host, ioun_host, pts,
+                   backend="gloo", device="cuda:0", timeout=900)
+    t_launch = time.perf_counter() - t0
+    notes = []
+    kernels = {"rpn": TRAIN_KERNELS, "ioun": tuple(STAGE2_STEP_LAUNCHES["ioun"])}
+    for stage, host_batch, bound in (("rpn", rpn_host, 0.05),
+                                     ("ioun", ioun_host, 0.15)):
+        per = len(next(iter(host_batch.values()))) // 2
+        with _deterministic():
+            cfg_s, model = _shared_card_models(stage, "cuda")
+            ref_state = _one_dp_step(
+                cfg_s, stage, model,
+                {k: v[:per] for k, v in host_batch.items()}, None)[0]
+            cfg_s, model = _shared_card_models(stage, "cuda")
+            _, ref_loss, ref_ms = _one_dp_step(cfg_s, stage, model,
+                                               host_batch, None,
+                                               timed=TIMED_ITERS)
+        r0, r1 = ranks[0][stage], ranks[1][stage]
+        exact = max_diff(r0["tiled"], ref_state)
+        rel = abs(r0["loss"] - ref_loss) / abs(ref_loss)
+        if not exact < 1e-5:
+            raise AssertionError(f"{stage}: identical shards vs the single "
+                                 f"step: max|diff| {exact}")
+        if not (math.isfinite(r0["loss"]) and rel < bound):
+            raise AssertionError(f"{stage}: loss {r0['loss']} vs the whole "
+                                 f"batch's {ref_loss}")
+        for key in ("tiled", "full"):
+            if max_diff(r0[key], r1[key]) != 0.0:
+                raise AssertionError(f"{stage}: the replicas differ ({key})")
+        if stage == "ioun":
+            model = _shared_card_models(stage, "cuda")[1]
+            trained = set(trainable_parameters(model, stage))
+            init = cpu_state(model)
+            moved = [k for k in init if k not in trained
+                     and not torch.equal(init[k], r0["full"][k])]
+            if moved:
+                raise AssertionError(f"the frozen trunk moved: {moved[:3]}")
+        for r, res in enumerate((r0, r1)):
+            missing = [k for k in kernels[stage] if not res["launches"][k]]
+            if missing:
+                raise AssertionError(f"{stage} rank {r} launched no "
+                                     f"{missing}")
+        launches[f"scaleout_{stage}_gloo2"] = {
+            k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+        notes.append(f"{stage}: identical shards max|diff| {exact:.3g}, "
+                     f"loss {r0['loss']:.5f} vs {ref_loss:.5f} (rel "
+                     f"{rel:.3g}), replicas bit-equal; a step "
+                     f"{[round(t, 1) for t in r0['ms']]} ms on two ranks, "
+                     f"{[round(t, 1) for t in ref_ms]} ms alone")
+        del model
+        torch.cuda.empty_cache()
+    cfg_e, model, _, _ = _eval_inputs("cuda")
+    ref = make_two_stage_fn(model, cfg_e)(torch.from_numpy(pts).cuda())
+    r0, r1 = ranks[0]["infer"], ranks[1]["infer"]
+    got = r0["out"]
+    for k in got:
+        if not torch.equal(got[k], r1["out"][k]):
+            raise AssertionError(f"the ranks gathered another {k}")
+    err = _kept_diff(got, ref)
+    keeps = (got["keep"].sum(-1), ref["keep"].cpu().sum(-1))
+    spilled = [int(got["spilled"]), int(ref["spilled"])]
+    live = [int(got["n_live"]), int(ref["n_live"])]
+    if not (err < 1e-3 and torch.equal(*keeps) and live[0] == live[1]
+            and not any(spilled)):
+        raise AssertionError(f"inference over two ranks: packed max|diff| "
+                             f"{err}, keep counts {keeps}, n_live {live}, "
+                             f"spilled {spilled}")
+    for r, res in enumerate((r0, r1)):
+        missing = [k for k in INFERENCE_KERNELS if not res["launches"][k]]
+        if missing:
+            raise AssertionError(f"inference rank {r} launched no {missing}")
+    launches["scaleout_infer_gloo2"] = {
+        k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+    ms = sum(r0["ms"]) / len(r0["ms"])
+    notes.append(f"inference: {int(keeps[0].sum())} detections, packed "
+                 f"max|diff| {err:.3g} against the single batch, spilled 0; "
+                 f"a batch of {BATCH} {[round(t, 1) for t in r0['ms']]} ms "
+                 f"({BATCH * 1e3 / ms:.2f} scenes/s)")
+    print(f"# phase 22: {card}: two gloo ranks sharing one card (CUDA "
+          f"tensors; the steps with deterministic algorithms), not a "
+          f"scaling figure; started and ran in "
+          f"{t_launch:.1f} s: " + "; ".join(notes), flush=True)
+    print(f"# phase 22: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def _snapshot(trainer) -> list:

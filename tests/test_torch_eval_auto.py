@@ -100,7 +100,7 @@ def test_ap_matches_jax(runs):
 
 def test_cli_runs_on_the_cpu(tmp_path):
     """python -m ws3d_tpu_torch.tools.eval_auto with the fitted weights on
-    two scenes; --mesh is refused."""
+    two scenes; a --batch that --mesh does not divide is refused."""
     from ws3d_tpu_torch.tools import eval_auto
     assert eval_auto.main(["--synthetic", "--scenes", "2", "--points",
                            "4096", "--bench_weights", "--batch", "2",
@@ -109,6 +109,6 @@ def test_cli_runs_on_the_cpu(tmp_path):
     assert "Car 3D AP e/m/h" in log and "total bbox recall" in log
     assert sorted(os.listdir(tmp_path / "final_result" / "data")) == [
         "000000.txt", "000001.txt"]
-    with pytest.raises(SystemExit, match="queue 1, item 7"):
-        eval_auto.main(["--synthetic", "--mesh", "2", "--cpu",
-                        "--output_dir", str(tmp_path)])
+    with pytest.raises(SystemExit, match="divisible by --mesh"):
+        eval_auto.main(["--synthetic", "--batch", "3", "--mesh", "2",
+                        "--cpu", "--output_dir", str(tmp_path)])

@@ -259,3 +259,36 @@ def assert_gradients_match(got, ref, keys=None):
         scale = np.abs(r).max()
         err = np.abs(g - r).max()
         assert err <= 1e-3 * scale, (k, err, scale)
+
+
+def jax_rpn_gradients(batch, n_points: int):
+    """(loss, aux, {npz key: gradient}, {npz key: new BN statistic}) of the
+    JAX package's stage-1 loss (make_rpn_loss_fn + jax.value_and_grad) from
+    the fitted stage-1 weights, rpn_cfg at `n_points`, no dropout."""
+    import jax
+    import jax.numpy as jnp
+    from flax.traverse_util import flatten_dict, unflatten_dict
+    from ws3d_tpu.config import load_config
+    from ws3d_tpu.models import build_model, init_model
+    from ws3d_tpu.training.trainer import make_rpn_loss_fn
+    cfg = rpn_cfg(load_config, n_points)
+    model = build_model(cfg)
+    variables = init_model(model, cfg, jax.random.PRNGKey(0))
+    flat = rpn_flat_weights()
+    tree = {}
+    for coll in ("params", "batch_stats"):
+        f = flatten_dict(jax.tree.map(np.asarray, variables[coll]))
+        tree[coll] = unflatten_dict({k: flat[coll + "/" + "/".join(k)]
+                                     for k in f})
+    jbatch = {k: jnp.asarray(batch[k])
+              for k in ("pts_input", "rpn_cls_label", "rpn_reg_label")}
+    (loss, (aux, new_bs)), grads = jax.jit(jax.value_and_grad(
+        make_rpn_loss_fn(model, cfg), has_aux=True))(
+        tree["params"], tree["batch_stats"], jbatch, jax.random.PRNGKey(1),
+        jnp.float32(0.1))
+
+    def npz(t, coll):
+        return {coll + "/" + "/".join(k): np.asarray(v)
+                for k, v in flatten_dict(t).items()}
+    return (float(loss), {k: np.asarray(v) for k, v in aux.items()},
+            npz(grads, "params"), npz(new_bs, "batch_stats"))

@@ -22,6 +22,7 @@ from ws3d_tpu_torch.ops.ball_query import ball_query_wrap
 from ws3d_tpu_torch.ops.crop_gather import crop_gather
 from ws3d_tpu_torch.ops.iou3d import boxes_iou3d
 from ws3d_tpu_torch.ops.nms import greedy_suppress
+from ws3d_tpu_torch.parallel.mesh import all_gather
 
 GROUND_Y = 1.65
 MIN_VOTE_DIST = 0.2
@@ -221,14 +222,21 @@ def _round8(n: int) -> int:
 
 def make_two_stage_fn(model, cfg, num_points: int = 512,
                       pre_nms_top: int = 512,
-                      max_proposals: int | None = None):
+                      max_proposals: int | None = None, group=None):
     """fn(pts_input (B, N, 3+C)) -> dict(boxes (B, K, 7), scores (B, K),
     keep (B, K), packed (B, K, 9), centers (B, K, 2), proposal_valid (B, K),
     spilled (), n_live ()) on the model's device.
 
     Stage-2 compaction (cfg.TPU.*_BUDGET_PER_SCENE) pools the live slots of
     the batch; slots beyond a budget are dropped lowest score first and
-    counted in `spilled`."""
+    counted in `spilled`.
+
+    With a group (parallel.Group) fn takes the rank's contiguous slice of
+    the global batch (parallel.data_parallel_infer gives it) and still
+    pools over the whole batch, as jit does on a batch-sharded input: every
+    rank all-gathers the pool's keys, takes the same top-k of them and runs
+    stage 2 on the selected slots of its own scenes. Its boxes are then the
+    single batch's, and `spilled` and `n_live` are the whole batch's."""
     K = max_proposals or cfg.TPU.MAX_PROPOSALS
     pre_nms_top = min(pre_nms_top, int(cfg.RPN.NUM_POINTS))
     loc_scope, loc_bin_size = cfg.RPN.LOC_SCOPE, cfg.RPN.LOC_BIN_SIZE
@@ -239,10 +247,26 @@ def make_two_stage_fn(model, cfg, num_points: int = 512,
     rcnn_budget = int(getattr(cfg.TPU, "RCNN_BUDGET_PER_SCENE", 0))
     ioun_budget = int(getattr(cfg.TPU, "IOUN_BUDGET_PER_SCENE", 0))
     sort_z = bool(cfg.TPU.get("SORT_POINTS_Z", True))
+    W = 1 if group is None else group.world_size
+
+    def gather(t: torch.Tensor) -> torch.Tensor:
+        """The ranks' `t` concatenated in rank order."""
+        return t if group is None else all_gather(t, group)
+
+    def run(forward, crops, keys):
+        """forward(crops)'s outputs `keys`; a rank that holds no slot of
+        the pool launches nothing."""
+        first = next(iter(crops.values()))
+        if first.shape[0]:
+            out = forward(crops)
+            return [out[k] for k in keys]
+        return [torch.zeros((0, 7) if "box" in k else (0,),
+                            device=first.device) for k in keys]
 
     @torch.no_grad()
     def fn(pts_input: torch.Tensor):
         B = pts_input.shape[0]
+        BK = B * K
         rpn_out = model.rpn_forward({"pts_input": pts_input})
         centers, prop_scores, valid = rpn_propose(
             rpn_out["rpn_cls"], rpn_out["rpn_reg"], rpn_out["backbone_xyz"],
@@ -257,52 +281,75 @@ def make_two_stage_fn(model, cfg, num_points: int = 512,
                                              num_sampled=num_points,
                                              sort_z=sort_z, scene_sorted=True)
         live = valid & ~empty
-        flat = {k: v.reshape((B * K,) + v.shape[2:]) for k, v in crops.items()}
-        live_f = live.reshape(B * K)
+        flat = {k: v.reshape((BK,) + v.shape[2:]) for k, v in crops.items()}
+        live_f = live.reshape(BK)
+        live_g = gather(live_f)
         spilled = torch.zeros((), dtype=torch.int64, device=pts_input.device)
+        lo = 0 if group is None else group.rank * BK   # our first slot
 
-        V1 = min(_round8(B * rcnn_budget), B * K) if rcnn_budget > 0 else B * K
-        sel1 = None
-        if V1 < B * K:
-            key1 = torch.where(live_f, prop_scores.reshape(B * K), -torch.inf)
-            _, sel1 = top_k(key1, V1)
-            live_t = live_f[sel1]
-            spilled = spilled + live_f.sum() - live_t.sum()
-            crops_t = {k: v[sel1] for k, v in flat.items()}
+        # the pool: V slots of the whole batch in pool order; `rows` are
+        # our slots among them and `pos` their places in it
+        V = min(_round8(W * B * rcnn_budget), W * BK) if rcnn_budget > 0 \
+            else W * BK
+        rows = None
+        if V < W * BK:
+            key1 = torch.where(live_f, prop_scores.reshape(BK), -torch.inf)
+            _, sel1 = top_k(gather(key1), V)
+            spilled = spilled + live_g.sum() - live_g[sel1].sum()
+            local = sel1 - lo
+            mine = (local >= 0) & (local < BK)
+            rows, pos = local[mine], mine.nonzero()[:, 0]
+            live_t = live_f[rows]
+            crops_t = {k: v[rows] for k, v in flat.items()}
         else:
+            pos = torch.arange(lo, lo + BK, device=pts_input.device)
             live_t, crops_t = live_f, flat
 
-        trunk = model.rcnn_trunk_forward(crops_t)
-        cls_t, boxes_t = trunk["rcnn_cls"], trunk["pred_boxes3d"]
-        V = cls_t.shape[0]
+        cls_t, boxes_t = run(model.rcnn_trunk_forward, crops_t,
+                             ("rcnn_cls", "pred_boxes3d"))
+        n_t = cls_t.shape[0]
         if ioun_on:
-            V2 = min(_round8(B * ioun_budget), V) if ioun_budget > 0 else V
+            V2 = min(_round8(W * B * ioun_budget), V) if ioun_budget > 0 \
+                else V
             if V2 < V:
                 gate = live_t & (torch.sigmoid(cls_t) > rcnn_thresh)
-                _, sel2 = top_k(torch.where(gate, cls_t, -torch.inf), V2)
+                key2 = torch.where(gate, cls_t, -torch.inf)
+                if group is not None:     # the pool's keys, in pool order
+                    ours = torch.full((2, V), -torch.inf, device=key2.device)
+                    ours[0, pos] = key2.float()
+                    ours[1, pos] = gate.float()
+                    key2, gate = gather(ours).reshape(W, 2, V).amax(0)
+                    gate = gate > 0
+                _, sel2 = top_k(key2, V2)
                 spilled = spilled + gate.sum() - gate[sel2].sum()
+                row_at = torch.full((V,), -1, dtype=torch.int64,
+                                    device=cls_t.device)
+                row_at[pos] = torch.arange(n_t, device=cls_t.device)
+                sel2 = row_at[sel2]
+                sel2 = sel2[sel2 >= 0]    # our rows among the selected
                 crops_c = {k: v[sel2] for k, v in crops_t.items()}
                 crops_c["pred_boxes3d"] = boxes_t[sel2]
-                casc = model.ioun_forward(crops_c)
+                refined, iou_c = run(model.ioun_forward, crops_c,
+                                     ("refined_box", "rcnn_iou"))
                 # non-cascaded slots keep the trunk box with iou = -inf
                 boxes_t = boxes_t.clone()
-                boxes_t[sel2] = casc["refined_box"]
-                iou_t = torch.full((V,), -torch.inf, device=cls_t.device)
-                iou_t[sel2] = casc["rcnn_iou"]
+                boxes_t[sel2] = refined.to(boxes_t.dtype)
+                iou_t = torch.full((n_t,), -torch.inf, device=cls_t.device)
+                iou_t[sel2] = iou_c.to(iou_t.dtype)
             else:
-                casc = model.ioun_forward(dict(crops_t,
-                                               pred_boxes3d=boxes_t))
-                boxes_t, iou_t = casc["refined_box"], casc["rcnn_iou"]
+                boxes_t, iou_t = run(model.ioun_forward,
+                                     dict(crops_t, pred_boxes3d=boxes_t),
+                                     ("refined_box", "rcnn_iou"))
         else:
             iou_t = torch.sigmoid(cls_t)
 
-        if sel1 is not None:
-            boxes_f = torch.zeros((B * K, 7), device=boxes_t.device)
-            boxes_f[sel1] = boxes_t
-            cls_f = torch.full((B * K,), -torch.inf, device=cls_t.device)
-            cls_f[sel1] = cls_t
-            iou_f = torch.full((B * K,), -torch.inf, device=cls_t.device)
-            iou_f[sel1] = iou_t
+        if rows is not None:
+            boxes_f = torch.zeros((BK, 7), device=boxes_t.device)
+            boxes_f[rows] = boxes_t
+            cls_f = torch.full((BK,), -torch.inf, device=cls_t.device)
+            cls_f[rows] = cls_t
+            iou_f = torch.full((BK,), -torch.inf, device=cls_t.device)
+            iou_f[rows] = iou_t
         else:
             boxes_f, cls_f, iou_f = boxes_t, cls_t, iou_t
 
@@ -315,6 +362,6 @@ def make_two_stage_fn(model, cfg, num_points: int = 512,
         return {"boxes": boxes, "scores": scores, "keep": keep,
                 "packed": packed, "centers": centers,
                 "proposal_valid": valid, "spilled": spilled,
-                "n_live": live.sum()}
+                "n_live": live_g.sum()}
 
     return fn

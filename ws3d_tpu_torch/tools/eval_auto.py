@@ -15,7 +15,16 @@ entries of a port train state or an npz), --rpn_ckpt (its rpn entries) and
 in that order; with none the model keeps its seeded init. Runs on CUDA
 unless --cpu (or --device cpu). --set TPU.COMPUTE_DTYPE=bfloat16 runs the
 bf16 compute dtype (ws3d_tpu_torch.tools.diff_detections bounds it against
-f32). Data-parallel eval (--mesh) is not ported.
+f32).
+
+With --mesh N the scenes of every batch are split over N data-parallel
+ranks (ws3d_tpu_torch.parallel: N processes, one a visible GPU over NCCL,
+gloo ranks on the CPU with --cpu, or this process's rank under torchrun,
+where N must equal WORLD_SIZE); --batch must be divisible by N. Each rank
+runs its batch/N scenes, the stage-2 compaction budget pooled over the
+whole batch as in a single process (the JAX tool's jit on a sharded
+batch), and the packed records are all-gathered in scene order; rank 0
+alone writes the txt files, the recall tally and the AP.
 """
 from __future__ import annotations
 
@@ -30,9 +39,11 @@ from ws3d_tpu_torch.datasets.kitti_io import objs_to_boxes3d, save_kitti_format
 from ws3d_tpu_torch.eval import annos_from_objects, get_official_eval_result
 from ws3d_tpu_torch.eval.kitti_ap import anno_from_lines
 from ws3d_tpu_torch.eval.recall import RecallTally
+from ws3d_tpu_torch.parallel import data_parallel_infer, replicate
 from ws3d_tpu_torch.pipeline import make_two_stage_fn
 from ws3d_tpu_torch.tools.train_rpn import (base_parser, close_log,
-                                            make_scene_source, setup)
+                                            make_scene_source, run_ranks,
+                                            setup)
 
 BENCH_WEIGHTS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -52,12 +63,19 @@ def main(argv=None) -> int:
                    help="load ws3d_tpu/data/bench_weights.npz (the fitted "
                         "weights) last")
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel eval over N devices (not ported)")
+                   help="data-parallel inference over N ranks: batches "
+                        "sharded on the scene axis, the weights replicated "
+                        "(requires --batch %% N == 0)")
     args = p.parse_args(argv)
     if args.mesh:
-        raise SystemExit("--mesh: data-parallel eval is not ported yet "
-                         "(ROADMAP.md queue 1, item 7, scale-out)")
-    cfg, log = setup(args, "eval_auto")
+        if max(args.batch, 1) % args.mesh:
+            raise SystemExit("--batch must be divisible by --mesh")
+        return run_ranks(args, _run)
+    return _run(args, None)
+
+
+def _run(args, group) -> int:
+    cfg, log = setup(args, "eval_auto", group)
     try:
         configure(cfg, args.points)
         from ws3d_tpu_torch.datasets import RPNDataset
@@ -67,8 +85,9 @@ def main(argv=None) -> int:
 
         src = make_scene_source(args, num_scenes=args.scenes)
         ds = RPNDataset(src, cfg, mode="EVAL", seed=args.seed)
-        model = build_model(cfg, device="cpu" if args.cpu else args.device,
-                            seed=args.seed)
+        device = group.device if group is not None else (
+            "cpu" if args.cpu else args.device)
+        model = build_model(cfg, device=device, seed=args.seed)
         if args.ckpt:
             n = load_part_checkpoint(model, args.ckpt,
                                      subtrees=("rpn", "rcnn"))
@@ -82,7 +101,7 @@ def main(argv=None) -> int:
         log.info("device: %s", next(model.parameters()).device)
         run_eval(model, cfg, src, ds, log, scenes=args.scenes,
                  batch=args.batch, output_dir=args.output_dir,
-                 no_ap=args.no_ap)
+                 no_ap=args.no_ap, group=group)
         return 0
     finally:
         close_log(log)
@@ -101,7 +120,7 @@ def configure(cfg, points=None) -> None:
 
 
 def run_eval(model, cfg, src, ds, log, *, scenes, batch=1, output_dir,
-             no_ap=False, fn=None, stats=None):
+             no_ap=False, fn=None, stats=None, group=None):
     """The batched two-stage eval loop on the model's device: detections ->
     KITTI txt files -> recall tally -> official AP. Returns the AP result
     dict (None with no_ap). `fn` may be a two-stage function made before
@@ -109,10 +128,22 @@ def run_eval(model, cfg, src, ds, log, *, scenes, batch=1, output_dir,
     receives the detection count, the scene count, the recall lines, the
     seconds spent in inference (the batches and their host copies), in
     writing the txt files and in the AP harness, and the (gt, dt) annos
-    the AP was taken over."""
+    the AP was taken over.
+
+    With a group (parallel.Group) the model is broadcast from rank 0 and
+    each batch runs data parallel (parallel.data_parallel_infer): every
+    rank loads the batch and runs its batch/W scenes, the stage-2
+    compaction pooled over the whole batch (a given `fn` must be made with
+    group=group), so the detections are the single process's. Rank 0
+    writes the txt files, the tally, the AP and `stats` and returns the
+    AP; the other ranks return None."""
     device = next(model.parameters()).device
     if fn is None:
-        fn = make_two_stage_fn(model, cfg)
+        fn = make_two_stage_fn(model, cfg, group=group)
+    infer = lambda pts: fn(pts.to(device))["packed"]  # noqa: E731
+    if group is not None:
+        replicate(model, group)
+        infer = data_parallel_infer(infer, group)
     out_dir = os.path.join(output_dir, "final_result", "data")
     tally = RecallTally()
     gt_frames, sample_ids, det_count = [], [], 0
@@ -127,9 +158,11 @@ def run_eval(model, cfg, src, ds, log, *, scenes, batch=1, output_dir,
             stack = np.concatenate(
                 [stack, np.repeat(stack[-1:], bsz - stack.shape[0], 0)])
         t0 = time.perf_counter()
-        packed = fn(torch.from_numpy(stack).to(device))["packed"].cpu(
+        packed = infer(torch.from_numpy(stack)).cpu(
             ).numpy()                 # one host copy a batch
         seconds["inference"] += time.perf_counter() - t0
+        if group is not None and not group.is_main:
+            continue
         for j, i in enumerate(idxs):
             scene = src.get_scene(ds.sample_ids[i])
             keep = packed[j, :, 8] > 0.5
@@ -149,6 +182,8 @@ def run_eval(model, cfg, src, ds, log, *, scenes, batch=1, output_dir,
             log.info("scene %d: %d detections (recall %d/%d)", i,
                      boxes.shape[0], tally.recalled[3], tally.total_gt)
 
+    if group is not None and not group.is_main:
+        return None
     log.info("total detections: %d over %d scenes", det_count, n)
     for line in tally.summary_lines():
         log.info(line)

@@ -18,8 +18,15 @@ synthetic scenes (seed + 1000), or on the tree's small_val split (else
 val): the vote precision and gt recall, logged as `val @ step i:`, each
 eval saved as OUTPUT_DIR/rpn_ckpt_e{k}.pt and the best as
 rpn_ckpt_best.pt, the scalars in OUTPUT_DIR/tb/scalars.jsonl. Like the JAX
-tool it builds no GT database (RPNDataset(gt_database=...) takes one). The
-data-parallel mesh (--mesh) is not ported.
+tool it builds no GT database (RPNDataset(gt_database=...) takes one).
+
+With --mesh N it trains data parallel over N ranks (ws3d_tpu_torch.parallel):
+N processes, one a visible GPU over NCCL, or with --cpu N gloo ranks on the
+CPU; under torchrun (torchrun --nproc_per_node N -m
+ws3d_tpu_torch.tools.train_rpn --mesh N ...) N must equal WORLD_SIZE.
+--batch is the global batch and must divide by N; every rank builds it from
+the same seed and trains on its slice. Rank 0 alone logs and writes to
+OUTPUT_DIR.
 """
 from __future__ import annotations
 
@@ -51,9 +58,16 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     return p
 
 
-def setup(args, name: str = "train_rpn"):
+def setup(args, name: str = "train_rpn", group=None):
+    """(cfg, logger): the logger writes to stderr and OUTPUT_DIR/log.txt;
+    on a rank other than 0 of a group it writes nowhere."""
     from ws3d_tpu_torch.config import load_config
     cfg = load_config(args.cfg_file, args.set_cfgs)
+    if group is not None and not group.is_main:
+        log = logging.getLogger(f"ws3d_tpu_torch.{name}.rank{group.rank}")
+        log.propagate = False
+        log.addHandler(logging.NullHandler())
+        return cfg, log
     os.makedirs(args.output_dir, exist_ok=True)
     log = logging.getLogger(f"ws3d_tpu_torch.{name}")
     log.setLevel(logging.INFO)
@@ -69,6 +83,30 @@ def close_log(log: logging.Logger) -> None:
     for h in list(log.handlers):
         log.removeHandler(h)
         h.close()
+
+
+def run_ranks(args, run) -> int:
+    """run(args, group) -> exit code on args.mesh data-parallel ranks; rank
+    0's code. Under torchrun this process is one rank (args.mesh must equal
+    WORLD_SIZE); otherwise args.mesh processes start: gloo ranks on the CPU
+    with --cpu or --device cpu, else one visible CUDA device a rank over
+    NCCL, the kernels built once before the ranks start. `run` must be a
+    module-level function."""
+    from ws3d_tpu_torch.parallel import destroy_group, launch, make_mesh
+    device = "cpu" if args.cpu else args.device
+    if "WORLD_SIZE" in os.environ:
+        group = make_mesh(args.mesh, device=device)
+        try:
+            return run(args, group)
+        finally:
+            destroy_group()
+    # no deadline for the whole run: a hung collective fails on its own
+    return launch(_rank_entry, args.mesh, run, args, device=device,
+                  timeout=None)[0]
+
+
+def _rank_entry(group, run, args) -> int:
+    return run(args, group)
 
 
 def make_scene_source(args, num_scenes: int = 64, points: int = 18000):
@@ -110,15 +148,25 @@ def main(argv=None) -> int:
                    help="small_val scene count (0 disables in-training eval)")
     p.add_argument("--val_every", type=int, default=None,
                    help="eval cadence in steps (default total/20)")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="data-parallel over N ranks (0 = one process)")
     args = p.parse_args(argv)
-    cfg, log = setup(args)
+    if args.mesh:
+        if args.batch % args.mesh:
+            raise SystemExit("--batch must be divisible by --mesh")
+        return run_ranks(args, _run)
+    return _run(args, None)
+
+
+def _run(args, group) -> int:
+    cfg, log = setup(args, group=group)
     try:
-        return train(args, cfg, log)
+        return train(args, cfg, log, group)
     finally:
         close_log(log)
 
 
-def train(args, cfg, log) -> int:
+def train(args, cfg, log, group=None) -> int:
     from ws3d_tpu_torch.config import refuse_bf16_training
     refuse_bf16_training(cfg)       # training computes in f32 only
     if args.points:
@@ -141,12 +189,18 @@ def train(args, cfg, log) -> int:
     log.info("dataset: %d scenes, %d points/scene", len(ds),
              cfg.RPN.NUM_POINTS)
 
-    model = build_model(cfg, device="cpu" if args.cpu else args.device,
-                        seed=args.seed)
+    device = group.device if group is not None else (
+        "cpu" if args.cpu else args.device)
+    model = build_model(cfg, device=device, seed=args.seed)
     trainer = Trainer(model, cfg, total_steps=args.steps, stage="rpn",
                       seed=args.seed, log_fn=log.info,
-                      tb_dir=os.path.join(args.output_dir, "tb"))
+                      tb_dir=os.path.join(args.output_dir, "tb"),
+                      group=group)
     log.info("device: %s", trainer.device)
+    if group is not None:
+        log.info("data parallel over %d ranks (%s), %d scenes a rank",
+                 group.world_size, group.backend,
+                 args.batch // group.world_size)
     epoch_size = max(len(ds) // args.batch, 1)
     if args.ckpt:
         step = restore_train_state(args.ckpt, model, trainer.optimizer)
@@ -174,6 +228,8 @@ def train(args, cfg, log) -> int:
     if trainer.best_val is not None:
         log.info("best val: %s", trainer.best_val)
     trainer.recalibrate_bn(ds.batches(args.batch, shuffle=True))
+    if not trainer.is_main:
+        return 0
 
     ckpt = save_train_state(os.path.join(args.output_dir, "rpn_ckpt.pt"),
                             model, trainer.optimizer)

@@ -20,6 +20,14 @@ and, with tb_dir, to a utils.tb.ScalarWriter) and, given a val_fn
 (training.validation.make_val_fn), validates at its cadence: each eval
 writes {stage}_ckpt_e{k}.pt and the best `score` {stage}_ckpt_best.pt.
 
+Data parallel (group=, a parallel.Group; the JAX steps' axis_name and the
+Trainer's mesh=): each rank differentiates its shard of the batch with its
+own train-mode BatchNorm statistics, then the step replaces the gradients,
+the BN running statistics its forward wrote and every aux value by their
+mean over the ranks (_cross_device_mean) before the optimizer clips and
+applies the gradients, so every replica applies the same update. Dropout
+draws from a generator a rank (parallel.rank_seed).
+
 Training computes in float32: the loss functions, the steps and the Trainer
 raise NotImplementedError for cfg.TPU.COMPUTE_DTYPE=bfloat16
 (config.refuse_bf16_training).
@@ -34,6 +42,10 @@ import torch
 
 from ws3d_tpu_torch import losses
 from ws3d_tpu_torch.config import refuse_bf16_training
+from ws3d_tpu_torch.models.layers import BatchNorm
+from ws3d_tpu_torch.parallel.mesh import (LocalShard, all_reduce_mean,
+                                          data_parallel_step, rank_seed,
+                                          replicate)
 from ws3d_tpu_torch.training.checkpoint import save_train_state
 from ws3d_tpu_torch.training.optim import AdamOneCycle, bn_momentum_schedule
 from ws3d_tpu_torch.utils.prefetch import prefetch
@@ -74,6 +86,24 @@ def trainable_parameters(model, stage: str) -> Dict[str, torch.nn.Parameter]:
         return dict(named)
     return {k: p for k, p in named
             if k.split(".")[1].startswith(CASCADE_PREFIXES)}
+
+
+def bn_statistics(net: torch.nn.Module) -> list:
+    """The running mean and variance of every BatchNorm in `net`."""
+    return [t for m in net.modules() if isinstance(m, BatchNorm)
+            for t in (m.mean, m.var)]
+
+
+def _cross_device_mean(grads: Dict[str, torch.Tensor], net: torch.nn.Module,
+                       aux: Dict[str, torch.Tensor], group) -> dict:
+    """The mean over the ranks of the gradients and of `net`'s BN running
+    statistics, in place, and of the aux values (returned as float32): the
+    replica mean of nn.DataParallel and of the JAX steps' pmean; BN is not
+    synchronised inside the forward."""
+    aux = {k: v.float() for k, v in aux.items()}
+    all_reduce_mean(list(grads.values()) + bn_statistics(net)
+                    + list(aux.values()), group)
+    return aux
 
 
 def _gradients(loss_fn, batch, generator, bn_momentum,
@@ -119,12 +149,18 @@ def rpn_gradients(model, cfg, batch, generator, bn_momentum: float,
                       bn_momentum, params)
 
 
-def make_rpn_train_step(model, cfg, optimizer: AdamOneCycle) -> Callable:
+def make_rpn_train_step(model, cfg, optimizer: AdamOneCycle,
+                        group=None) -> Callable:
     """step(batch, generator, bn_momentum) -> aux: one stage-1 step on the
-    optimizer's parameters (the RPN's). Reads nothing back to the host."""
+    optimizer's parameters (the RPN's). Reads nothing back to the host.
+    With a group, the step takes the rank's shard and averages over the
+    ranks before the update (parallel.data_parallel_step shards a global
+    batch for it)."""
     def step(batch, generator, bn_momentum: float = 0.1):
         _, aux, grads = rpn_gradients(model, cfg, batch, generator,
                                       bn_momentum, optimizer.params)
+        if group is not None:
+            aux = _cross_device_mean(grads, model.rpn, aux, group)
         optimizer.step(grads)
         return aux
 
@@ -166,12 +202,15 @@ def rcnn_gradients(model, cfg, stage: str, batch, generator,
 
 
 def make_rcnn_train_step(model, cfg, optimizer: AdamOneCycle,
-                         stage: str = "rcnn") -> Callable:
+                         stage: str = "rcnn", group=None) -> Callable:
     """step(batch, generator, bn_momentum) -> aux: one stage-2 step on the
-    optimizer's parameters. Reads nothing back to the host."""
+    optimizer's parameters. Reads nothing back to the host. With a group,
+    as make_rpn_train_step's."""
     def step(batch, generator, bn_momentum: float = 0.1):
         _, aux, grads = rcnn_gradients(model, cfg, stage, batch, generator,
                                        bn_momentum, optimizer.params)
+        if group is not None:
+            aux = _cross_device_mean(grads, model.rcnn, aux, group)
         optimizer.step(grads)
         return aux
 
@@ -181,27 +220,54 @@ def make_rcnn_train_step(model, cfg, optimizer: AdamOneCycle,
 class Trainer:
     """Step loop for one stage (rpn, rcnn or ioun): AdamOneCycle over the
     stage's trainable parameters, the BN-momentum schedule per epoch,
-    dropout from one seeded generator on the model's device."""
+    dropout from one seeded generator on the model's device.
+
+    With a group (parallel.Group, the JAX Trainer's mesh=) the model is
+    broadcast from rank 0, every host batch is the global batch (each rank
+    builds the same one from the same seed, or passes the LocalShard of
+    parallel.shard_batch_multihost) and each step runs data parallel. Rank
+    0 alone logs, writes the scalar writer, runs val_fn and saves
+    checkpoints; the others wait for it at a barrier after each
+    validation."""
 
     def __init__(self, model, cfg, total_steps: int, stage: str = "rpn",
-                 seed: int = 0, log_fn=print, tb_dir: Optional[str] = None):
+                 seed: int = 0, log_fn=print, tb_dir: Optional[str] = None,
+                 group=None):
         refuse_bf16_training(cfg)
         self.model = model
         self.cfg = cfg
         self.stage = stage
-        self.log_fn = log_fn
-        self.writer = ScalarWriter(tb_dir) if tb_dir else None
+        self.group = group
+        self.is_main = group is None or group.is_main
+        self.log_fn = log_fn if self.is_main else (lambda msg: None)
+        self.writer = ScalarWriter(tb_dir) if tb_dir and self.is_main \
+            else None
         self.best_val = None
         self.device = next(model.parameters()).device
+        if group is not None:
+            replicate(model, group)
         self.optimizer = AdamOneCycle(
             cfg, total_steps, trainable_parameters(model, stage).items())
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
+        self.generator.manual_seed(rank_seed(seed, group))
         self.bn_sched = bn_momentum_schedule(cfg)
-        self.step_fn = (make_rpn_train_step(model, cfg, self.optimizer)
-                        if stage == "rpn" else
-                        make_rcnn_train_step(model, cfg, self.optimizer,
-                                             stage))
+        step = (make_rpn_train_step(model, cfg, self.optimizer, group)
+                if stage == "rpn" else
+                make_rcnn_train_step(model, cfg, self.optimizer, stage,
+                                     group))
+        self.step_fn = step if group is None else data_parallel_step(step,
+                                                                     group)
+
+    def _step_batch(self, batch):
+        """A host batch as step_fn takes it: the step's inputs on the
+        device, or with a group the global batch's step inputs (or the
+        LocalShard) for data_parallel_step to shard."""
+        keys = step_inputs(self.stage, batch)
+        if self.group is None:
+            return batch_to_device(batch, self.device, keys)
+        if isinstance(batch, LocalShard):
+            return batch
+        return {k: batch[k] for k in keys}
 
     @property
     def step(self) -> int:
@@ -212,9 +278,12 @@ class Trainer:
         """Re-estimate the BN running statistics at the current weights:
         up to `n_batches` train-mode forwards with `momentum`, no update of
         the weights. Returns the number of batches used: 0, and nothing
-        runs, when the stage's network has no BatchNorm."""
+        runs, when the stage's network has no BatchNorm. With a group, rank
+        0 runs the forwards on the whole host batches (the JAX Trainer's
+        unsharded pass) while the others draw the same batches, then the
+        statistics are broadcast from rank 0."""
         net = self.model.rpn if self.stage == "rpn" else self.model.rcnn
-        if not any(k.endswith(".mean") for k, _ in net.named_buffers()):
+        if not bn_statistics(net):
             self.log_fn(f"stage {self.stage} has no BatchNorm: nothing to "
                         f"recalibrate")
             return 0
@@ -225,11 +294,14 @@ class Trainer:
             for batch in batch_iter:
                 if used >= n_batches:
                     break
-                forward(batch_to_device(batch, self.device,
-                                        step_inputs(self.stage, batch)),
-                        train=True, bn_momentum=momentum,
-                        generator=self.generator)
+                if self.is_main:
+                    forward(batch_to_device(batch, self.device,
+                                            step_inputs(self.stage, batch)),
+                            train=True, bn_momentum=momentum,
+                            generator=self.generator)
                 used += 1
+        if self.group is not None:
+            replicate(net, self.group)
         self.log_fn(f"recalibrated BN stats over {used} batches")
         return used
 
@@ -268,10 +340,8 @@ class Trainer:
             if i >= total_steps:
                 break
             epoch = i // epoch_size if epoch_size else 0
-            aux = self.step_fn(
-                batch_to_device(batch, self.device,
-                                step_inputs(self.stage, batch)),
-                self.generator, self.bn_sched(epoch))
+            aux = self.step_fn(self._step_batch(batch), self.generator,
+                               self.bn_sched(epoch))
             if i % log_every == 0:
                 vals = {k: float(v) for k, v in aux.items() if v.dim() == 0}
                 self.log_fn(f"step {i}: " + " ".join(
@@ -282,8 +352,12 @@ class Trainer:
             if val_fn is not None and ((i + 1) % val_every == 0
                                        or i == total_steps - 1):
                 n_eval += 1
-                self._run_validation(val_fn, i, n_eval, ckpt_dir)
-            if ckpt_every and ckpt_dir and i > 0 and i % ckpt_every == 0:
+                if self.is_main:
+                    self._run_validation(val_fn, i, n_eval, ckpt_dir)
+                if self.group is not None:
+                    self.group.barrier()
+            if (ckpt_every and ckpt_dir and i > 0 and i % ckpt_every == 0
+                    and self.is_main):
                 save_train_state(os.path.join(ckpt_dir,
                                               f"resume_step_{i}.pt"),
                                  self.model, self.optimizer)
