@@ -12,14 +12,16 @@ plain version three_interpolate_plain(bf16_out=True)) on the CPU.
   way), and at least 99 % bit for bit.
 - The windowed path (kernel 8's plain version on sorted clouds) casts after,
   as the JAX package does: the same bf16 values as the full search.
-- The bf16 output has no backward yet: it raises."""
+- The bf16 output's backward is the f32 backward of the cotangent cast to
+  f32, as the JAX package's fused path casts it."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from torch_port_helpers import n, sorted_cloud, t
-from ws3d_tpu.ops.interpolate import _interpolate_xla
+from ws3d_tpu.ops.interpolate import _interpolate_fused, _interpolate_xla
 from ws3d_tpu.ops.three_nn_pallas import three_interpolate_pallas
 from ws3d_tpu_torch.ops.interpolate import (interpolate_features,
                                             three_interpolate_plain)
@@ -75,9 +77,35 @@ def test_windowed_path_casts_after(rng):
     assert torch.equal(win, full)
 
 
-def test_bf16_output_has_no_backward(rng):
-    unknown, known, feats = _cloud(rng, 1, 64, 16, 4)
+@pytest.mark.parametrize("sorted_z", [False, True])
+def test_bf16_output_backward_matches_jax(rng, sorted_z):
+    """The bf16 output's backward casts the cotangent to f32 and runs the
+    f32 backward: bit-equal to the port's f32 backward of the cotangent
+    cast to f32, an f32 gradient, and JAX's VJP of the fused path
+    (_interpolate_fused(interpret=True, bf16_out=True), whose backward
+    casts the same way) within the f32 interpolation's tolerance against
+    XLA (atol 1e-4, rtol 1e-5; its 3-NN takes distances through a matmul
+    identity)."""
+    if sorted_z:
+        unknown, _ = sorted_cloud(rng, 2, 256, 1, spread=2.0)
+        known, feats = sorted_cloud(rng, 2, 128, 32, spread=2.0)
+    else:
+        unknown, known, feats = _cloud(rng, 2, 256, 128, 32)
+    g = rng.randn(2, 256, 32).astype(np.float32)
+    g16 = t(g).to(BF16)
     f = t(feats).requires_grad_(True)
-    out = interpolate_features(t(unknown), t(known), f, bf16_out=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        out.float().sum().backward()
+    out = interpolate_features(t(unknown), t(known), f, sorted_z=sorted_z,
+                               bf16_out=True)
+    assert out.dtype == BF16
+    out.backward(g16)
+    f32 = t(feats).requires_grad_(True)
+    interpolate_features(t(unknown), t(known), f32,
+                         sorted_z=sorted_z).backward(g16.float())
+    assert f.grad.dtype == torch.float32
+    assert torch.equal(f.grad, f32.grad)
+    _, vjp = jax.vjp(
+        lambda fe: _interpolate_fused(jnp.asarray(unknown), jnp.asarray(known),
+                                      fe, True, sorted_z, True),
+        jnp.asarray(feats))
+    ref = np.asarray(vjp(jnp.asarray(n(g16.float()), jnp.bfloat16))[0])
+    np.testing.assert_allclose(n(f.grad), ref, atol=1e-4, rtol=1e-5)

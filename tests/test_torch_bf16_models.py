@@ -1,6 +1,7 @@
 """The port's networks with cfg.TPU.COMPUTE_DTYPE=bfloat16 against the JAX
 package's at bf16, full widths, the fitted npz, N = 2048 (NPOINTS 512, 128,
-32, 8), and the refusal of bf16 training.
+32, 8), and bf16 training through the entry points that used to refuse
+it.
 
 Rounding models (the port's fused SA rounds as JAX's XLA bf16 path does,
 bf16 factors of the centre-relative rows and f32 sums, not as the TPU's
@@ -199,27 +200,82 @@ def test_compute_dtype_names():
         build_model(cfg, device="cpu")
 
 
-def test_bf16_training_is_refused(tmp_path):
-    """The train steps, the Trainer, the fused SA's train path and both
-    training tools raise NotImplementedError naming the ROADMAP item."""
+def _floats_are_f32(state) -> bool:
+    """Every floating tensor in a (nested) checkpoint payload is f32."""
+    if isinstance(state, torch.Tensor):
+        return not state.is_floating_point() or state.dtype == torch.float32
+    if isinstance(state, dict):
+        return all(_floats_are_f32(v) for v in state.values())
+    if isinstance(state, (list, tuple)):
+        return all(_floats_are_f32(v) for v in state)
+    return True
+
+
+def _logged_losses(log_path) -> list:
+    import re
+    text = open(log_path).read()
+    return [float(v) for v in re.findall(r" loss=([-\w.]+)", text)]
+
+
+def test_bf16_training_runs(tmp_path):
+    """The calls that refused bf16 until the bf16 backward was ported now
+    train: both loss functions, the Trainer, the BN-free SA stack in train
+    mode and both training tools with --set TPU.COMPUTE_DTYPE=bfloat16 on
+    the CPU. Losses are finite; parameters, optimizer state and the saved
+    checkpoints stay f32, as flax keeps them."""
+    import math
+
+    from torch_port_helpers import (stage2_batch, torch_stage2_model,
+                                    train_batch)
     from ws3d_tpu_torch.tools import train_cascade, train_rpn
     from ws3d_tpu_torch.training import Trainer
-    from ws3d_tpu_torch.training.trainer import (make_rcnn_loss_fn,
-                                                 make_rpn_loss_fn)
+    from ws3d_tpu_torch.training.trainer import (batch_to_device,
+                                                 make_rcnn_loss_fn,
+                                                 make_rpn_loss_fn,
+                                                 step_inputs)
     port = _port("bfloat16")
     cfg = copy.deepcopy(small_cfg(load_config, N, NPOINTS))
     cfg.TPU.COMPUTE_DTYPE = "bfloat16"
-    for call in (lambda: Trainer(port, cfg, total_steps=2),
-                 lambda: make_rpn_loss_fn(port, cfg),
-                 lambda: make_rcnn_loss_fn(port, cfg, "ioun")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
-    crop = torch.zeros((2, 128, 3))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port.rcnn.sa_stack(crop, torch.zeros((2, 128, 128)), train=True)
-    for tool, extra in ((train_rpn, ["--points", "512"]),
-                        (train_cascade, ["--stage", "rcnn"])):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tool.main(["--synthetic", "--steps", "1", "--device", "cpu",
-                       "--output_dir", str(tmp_path / tool.__name__),
-                       "--set", "TPU.COMPUTE_DTYPE=bfloat16"] + extra)
+    cfg.RPN.DP_RATIO = 0.0
+    gen = torch.Generator().manual_seed(0)
+    batch = train_batch(2, N)
+    total, _ = make_rpn_loss_fn(port, cfg)(batch_to_device(batch, "cpu"), gen,
+                                           0.1)
+    total.backward()
+    assert math.isfinite(float(total.detach()))
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in port.rpn.parameters())
+
+    trainer = Trainer(port, cfg, total_steps=1)
+    hist = trainer.train_steps([batch], total_steps=1, log_every=1,
+                               prefetch_size=0)
+    assert math.isfinite(hist[0]["loss"])
+    assert _floats_are_f32(trainer.optimizer.state_dict())
+    assert all(p.dtype == torch.float32 for p in port.parameters())
+
+    model, scfg = torch_stage2_model("ioun", dtype="bfloat16")
+    crops = stage2_batch("ioun")
+    total, _ = make_rcnn_loss_fn(model, scfg, "ioun")(
+        batch_to_device(crops, "cpu", step_inputs("ioun", crops)), gen, 0.1)
+    assert math.isfinite(float(total.detach()))
+    crop = torch.randn((2, 128, 3), generator=gen)
+    feats = torch.randn((2, 128, 128), generator=gen).to(torch.bfloat16)
+    out = model.rcnn.sa_stack(crop, feats.requires_grad_(True), train=True)
+    out.float().sum().backward()
+    assert torch.isfinite(out.float()).all()
+    assert feats.grad is not None and feats.grad.dtype == torch.bfloat16
+    for tool, extra, name in (
+            (train_rpn, ["--points", "512", "--batch", "2", "--scenes", "4",
+                         "--val_scenes", "2", "--val_every", "1"], "rpn"),
+            (train_cascade, ["--stage", "rcnn", "--batch", "8",
+                             "--npoints", "128", "--db_size", "16",
+                             "--val_every", "1"], "rcnn")):
+        out_dir = tmp_path / tool.__name__.rsplit(".", 1)[-1]
+        assert tool.main(["--synthetic", "--steps", "1", "--device", "cpu",
+                          "--output_dir", str(out_dir),
+                          "--set", "TPU.COMPUTE_DTYPE=bfloat16"] + extra) == 0
+        losses = _logged_losses(out_dir / "log.txt")
+        assert losses and all(math.isfinite(v) for v in losses), losses
+        ckpt = torch.load(out_dir / f"{name}_ckpt.pt", weights_only=True)
+        assert _floats_are_f32(ckpt["model"])
+        assert _floats_are_f32(ckpt["optimizer"])

@@ -694,6 +694,86 @@ def test_fused_sa_bf16_kernels(dev, rng, mode):
             <= 0.1 * (ref - f32).abs().mean().item())
 
 
+@pytest.mark.parametrize("window", [True, False])
+def test_fused_sa_bf16_rounded_layers(dev, rng, window):
+    """The rounded-layer bf16 mode of kernels 2 and 3 (each layer's output
+    rounded as flax's bf16 Dense rounds it; the BN-free stacks' train
+    forward) against its plain version within chip_smoke.py's bf16 gate:
+    bf16-valued outputs, a sum in another order moving a rounding by one
+    ulp at most at a time; kernel 9 refuses the mode."""
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda, fused_sa_plain
+    xyz, feat = sorted_cloud(rng, 2, 512, 125, spread=1.0)
+    new_xyz = xyz[:, np.sort(rng.choice(512, 128, replace=False))]
+    ks, bs = random_mlp(rng, 128, [128, 128, 256])
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (xyz, feat, new_xyz)]
+    ks = [torch.from_numpy(k).to(dev) for k in ks]
+    bs = [torch.from_numpy(b).to(dev) for b in bs]
+    before = _kernels.LAUNCHES["fused_sa_window_bf16r" if window
+                               else "fused_sa_full_bf16r"]
+    got = fused_sa_cuda(*args, 0.4, 32, ks, bs, window, bf16=True,
+                        round_layers=True)
+    assert _kernels.LAUNCHES["fused_sa_window_bf16r" if window
+                             else "fused_sa_full_bf16r"] == before + 1
+    ref = fused_sa_plain(*args, 0.4, 32, ks, bs, bf16=True,
+                         round_layers=True)
+    f32 = fused_sa_plain(*args, 0.4, 32, ks, bs)
+    assert torch.equal(got, got.to(torch.bfloat16).float())
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-3 + 2.0 ** -7 * scale
+    assert ((got - ref).abs().mean().item()
+            <= 0.1 * (ref - f32).abs().mean().item())
+    lib = _kernels.library()
+    w = (_kernels.ctypes.c_int * 4)(128, 128, 128, 256)
+    rc = lib.ws3d_fused_sa_idx(0, 0, 0, 0, 2, 512, 125, 128, 32, 3, w, 0, 0,
+                               2, None)
+    assert rc != 0
+
+
+def test_bf16_backward_paths(dev, rng):
+    """The bf16 train backward on CUDA tensors: FusedSA's (kernel 6's
+    indices, the VJP of the rounded-layer composition) and the bf16
+    interpolation's (kernel 7, the cotangent cast to f32) against the same
+    calls on the CPU (the plain versions)."""
+    from ws3d_tpu_torch.ops.fused_sa import fused_sa_train
+    from ws3d_tpu_torch.ops.interpolate import interpolate_features
+    xyz, feat = sorted_cloud(rng, 2, 512, 125, spread=1.0)
+    new_xyz = xyz[:, np.sort(rng.choice(512, 128, replace=False))]
+    ks, bs = random_mlp(rng, 128, [128, 128, 256])
+    g = rng.randn(2, 128, 256).astype(np.float32)
+    grads = []
+    for device in (dev, "cpu"):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+             for a in (xyz, new_xyz, g)]
+        f = torch.from_numpy(feat).to(device).to(torch.bfloat16)
+        leaves = [f.requires_grad_(True)] + [
+            torch.from_numpy(a).to(device).requires_grad_(True)
+            for a in (*ks, *bs)]
+        out = fused_sa_train(t[0], leaves[0], t[1], 0.4, 32, leaves[1:4],
+                             leaves[4:], True, bf16=True)
+        grads.append([x.float().cpu() for x in torch.autograd.grad(
+            (out * t[2]).sum(), leaves)])
+    for a, b in zip(*grads):
+        # bf16 roundings of sums in another order
+        assert (a - b).abs().max().item() <= 2.0 ** -6 * b.abs().max().item()
+    u = torch.from_numpy(rng.randn(2, 700, 3).astype(np.float32))
+    k = torch.from_numpy(rng.randn(2, 300, 3).astype(np.float32))
+    f = torch.from_numpy(rng.randn(2, 300, 24).astype(np.float32))
+    gi = torch.from_numpy(rng.randn(2, 700, 24).astype(np.float32))
+    grads = []
+    for device in (dev, "cpu"):
+        fl = f.to(device).requires_grad_(True)
+        out = interpolate_features(u.to(device), k.to(device), fl,
+                                   bf16_out=True)
+        assert out.dtype == torch.bfloat16
+        out.backward(gi.to(device).to(torch.bfloat16))
+        grads.append(fl.grad.cpu())
+    assert grads[0].dtype == torch.float32
+    assert (grads[0] - grads[1]).abs().max().item() <= (
+        1e-5 * grads[1].abs().max().item() + 1e-6)
+
+
 def test_interpolate_bf16_store(dev, rng):
     """Kernel 4's bf16 store: the f32 result rounded to nearest even, within
     one bf16 ulp (at most 2^-7 of the value) of the plain version's

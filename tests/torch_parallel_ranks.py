@@ -19,13 +19,15 @@ from ws3d_tpu_torch.training import Trainer
 from ws3d_tpu_torch.weights import load_flat, load_npz
 
 
-def one_step(cfg, stage: str, flat: dict, batch: dict, group=None):
+def one_step(cfg, stage: str, flat: dict, batch: dict, group=None,
+             jit: bool = False):
     """(state, scalar aux, the gradients the optimizer applied) of one step
     from the weights `flat`: single-process on the CPU, or with a group the
-    data-parallel step on the rank's shard of `batch`."""
+    data-parallel step on the rank's shard of `batch` (with `jit` the
+    global-batch step)."""
     model = build_model(cfg, device="cpu" if group is None else group.device)
     load_flat(model, flat)
-    return step_from(cfg, stage, model, batch, group)[:3]
+    return step_from(cfg, stage, model, batch, group, jit)[:3]
 
 
 def train_rank(group, cfg, stage: str, flat: dict, batch: dict,
@@ -76,3 +78,17 @@ def unequal_slices_rank(group) -> None:
     """Rank r passes r + 1 samples: shard_batch_multihost must refuse."""
     shard_batch_multihost({"x": np.zeros((group.rank + 1, 3), np.float32)},
                           group)
+
+
+def global_rank(group, cases: dict) -> dict:
+    """For each case {name: (cfg, stage, flat, batch)} one global-batch step
+    (data_parallel_jit) on the rank's shard of the batch, and for the
+    stage-1 cases the per-rank step (data_parallel_step) on the same
+    shards."""
+    out = {}
+    for name, (cfg, stage, flat, batch) in cases.items():
+        out[name] = {"jit": one_step(cfg, stage, flat, batch, group,
+                                     jit=True)}
+        if stage == "rpn":
+            out[name]["step"] = one_step(cfg, stage, flat, batch, group)
+    return out

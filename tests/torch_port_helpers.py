@@ -66,11 +66,12 @@ def torch_detector(n_points: int = 4096, npoints=(1024, 256, 64, 16)):
     return model, cfg
 
 
-def rpn_cfg(load_config, n_points: int = 2048):
+def rpn_cfg(load_config, n_points: int = 2048, dtype: str = "float32"):
     """Stage 1 alone at full widths on a small cloud, NPOINTS scaled as
-    tools/train_rpn.py scales them, no dropout (either package's
-    load_config)."""
+    tools/train_rpn.py scales them, no dropout, TPU.COMPUTE_DTYPE `dtype`
+    (either package's load_config)."""
     cfg = load_config()
+    cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.RPN.NUM_POINTS = n_points
     cfg.RPN.SA_CONFIG.NPOINTS = [n_points // 4, n_points // 16,
                                  n_points // 64, n_points // 256]
@@ -168,13 +169,15 @@ def random_mlp(rng, cin, widths):
     return kernels, biases
 
 
-def stage2_cfg(load_config, stage: str, npoints: int = 128):
+def stage2_cfg(load_config, stage: str, npoints: int = 128,
+               dtype: str = "float32"):
     """The stage-2 config of `stage` at `npoints`-point crops, NPOINTS
-    scaled as tools/train_cascade.py scales them (either package's
-    load_config)."""
+    scaled as tools/train_cascade.py scales them, TPU.COMPUTE_DTYPE `dtype`
+    (either package's load_config)."""
     from ws3d_tpu_torch.tools.train_cascade import configure
     cfg = load_config()
     configure(cfg, stage, npoints)
+    cfg.TPU.COMPUTE_DTYPE = dtype
     return cfg
 
 
@@ -212,16 +215,18 @@ def stage2_batch(stage: str, n_crops: int = 4, npoints: int = 128,
     return next(ds.batches(n_crops, steps=1))
 
 
-def jax_stage2_gradients(stage: str, batch, npoints: int = 128):
+def jax_stage2_gradients(stage: str, batch, npoints: int = 128,
+                         dtype: str = "float32"):
     """(loss, aux, {npz key: gradient}) of the JAX package's stage-2 step
-    (make_rcnn_loss_fn + jax.value_and_grad) from the fitted weights."""
+    (make_rcnn_loss_fn + jax.value_and_grad) from the fitted weights, in
+    TPU.COMPUTE_DTYPE `dtype`."""
     import jax
     import jax.numpy as jnp
     from flax.traverse_util import flatten_dict, unflatten_dict
     from ws3d_tpu.config import load_config
     from ws3d_tpu.models import build_model, init_model
     from ws3d_tpu.training.trainer import make_rcnn_loss_fn
-    cfg = stage2_cfg(load_config, stage, npoints)
+    cfg = stage2_cfg(load_config, stage, npoints, dtype)
     model = build_model(cfg)
     variables = init_model(model, cfg, jax.random.PRNGKey(0))
     flat = stage2_flat_weights(stage == "ioun")
@@ -238,13 +243,14 @@ def jax_stage2_gradients(stage: str, batch, npoints: int = 128):
     return float(loss), {k: np.asarray(v) for k, v in aux.items()}, grads
 
 
-def torch_stage2_model(stage: str, npoints: int = 128):
+def torch_stage2_model(stage: str, npoints: int = 128,
+                       dtype: str = "float32"):
     """(model on the CPU with the fitted stage-2 weights, cfg) of the
-    port."""
+    port, in TPU.COMPUTE_DTYPE `dtype`."""
     from ws3d_tpu_torch.config import load_config
     from ws3d_tpu_torch.models import build_model
     from ws3d_tpu_torch.weights import load_flat
-    cfg = stage2_cfg(load_config, stage, npoints)
+    cfg = stage2_cfg(load_config, stage, npoints, dtype)
     model = build_model(cfg, device="cpu")
     load_flat(model, stage2_flat_weights(stage == "ioun"))
     return model, cfg
@@ -261,17 +267,18 @@ def assert_gradients_match(got, ref, keys=None):
         assert err <= 1e-3 * scale, (k, err, scale)
 
 
-def jax_rpn_gradients(batch, n_points: int):
+def jax_rpn_gradients(batch, n_points: int, dtype: str = "float32"):
     """(loss, aux, {npz key: gradient}, {npz key: new BN statistic}) of the
     JAX package's stage-1 loss (make_rpn_loss_fn + jax.value_and_grad) from
-    the fitted stage-1 weights, rpn_cfg at `n_points`, no dropout."""
+    the fitted stage-1 weights, rpn_cfg at `n_points` in `dtype`, no
+    dropout."""
     import jax
     import jax.numpy as jnp
     from flax.traverse_util import flatten_dict, unflatten_dict
     from ws3d_tpu.config import load_config
     from ws3d_tpu.models import build_model, init_model
     from ws3d_tpu.training.trainer import make_rpn_loss_fn
-    cfg = rpn_cfg(load_config, n_points)
+    cfg = rpn_cfg(load_config, n_points, dtype)
     model = build_model(cfg)
     variables = init_model(model, cfg, jax.random.PRNGKey(0))
     flat = rpn_flat_weights()

@@ -334,12 +334,3 @@ def compute_dtype(cfg: ConfigNode):
     raise ValueError(f"TPU.COMPUTE_DTYPE {name!r}: expected 'float32' or "
                      f"'bfloat16'")
 
-
-def refuse_bf16_training(cfg: ConfigNode) -> None:
-    """Training computes in float32 only: raise NotImplementedError for a
-    bfloat16 compute dtype (the bf16 backward of the interpolation and of
-    the fused SA is ROADMAP.md queue 1, item 11)."""
-    if compute_dtype(cfg) is not None:
-        raise NotImplementedError(
-            "TPU.COMPUTE_DTYPE=bfloat16 serves inference only; bf16 training "
-            "is not ported yet (ROADMAP.md queue 1, item 11)")

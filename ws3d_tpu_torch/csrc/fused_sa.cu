@@ -64,10 +64,16 @@
 // integer/f32 operations: three issued instructions for each mma, which
 // keeps it well below the tensor pipe's rate; wgmma (one instruction a 64 x
 // N x 8 tile, B read from shared memory by the hardware) is the next step.
-// The bf16 mode (BF16 = true; cfg.TPU.COMPUTE_DTYPE=bfloat16) rounds as the
+// The bf16 mode (PREC = kBF16; cfg.TPU.COMPUTE_DTYPE=bfloat16) rounds as the
 // JAX package's XLA bf16 path does: every product's two factors (the
 // centre-relative rows [feat, xyz - q] and the weights) rounded to bf16
 // (round to nearest even) and summed in f32, with f32 bias, ReLU and max.
+// The rounded-layer mode (PREC = kBF16Layers; the BN-free stacks in train
+// mode) multiplies the same way and rounds each layer's output as flax's
+// Dense(dtype=bfloat16) does: the f32 sum rounded to bf16, the bias rounded
+// to bf16 and added, the sum rounded again, then ReLU, so every layer's
+// output, the last one pooled, is bf16-valued (the composition whose VJP
+// the backward takes: ops/fused_sa_idx.py).
 // The TPU kernels round layer 0 otherwise: they store [xyz, feat] @ W0,
 // absolute coordinates included, in bf16 and fold the centre into the bias
 // in f32; their later layers round as here. That layer-0 rounding is not
@@ -99,6 +105,10 @@ enum Mode { kFull = 0, kWindow = 1, kGiven = 2 };
 // fill at least Q / 2 warp tiles, and plan_tc gives a block at least that
 // many warps (up to 4), so no warp takes more than 2 queries
 constexpr int kSearchQW = 2;
+
+// the MLP's precision: 3xTF32, bf16 factors (f32 bias, ReLU, max), or bf16
+// factors with every layer's output rounded as flax's bf16 Dense rounds it
+enum Prec { kTF32 = 0, kBF16 = 1, kBF16Layers = 2 };
 
 struct MLPDesc {
   int n_layers;
@@ -223,6 +233,22 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return d;
 }
 
+// x rounded to bf16 (round to nearest even), back in f32
+__device__ __forceinline__ float round_bf16(float x) {
+  uint16_t h;
+  asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(x));
+  return __uint_as_float((uint32_t)h << 16);
+}
+
+// one epilogue value: ReLU(acc + b), or in the rounded-layer mode
+// ReLU(bf16(bf16(acc) + b)) with b already rounded to bf16
+template <int PREC>
+__device__ __forceinline__ float layer_out(float acc, float b) {
+  if constexpr (PREC == kBF16Layers)
+    return fmaxf(round_bf16(round_bf16(acc) + b), 0.f);
+  return fmaxf(acc + b, 0.f);
+}
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
                                          uint32_t a1, uint32_t b) {
   asm volatile(
@@ -289,7 +315,7 @@ __device__ __forceinline__ void load_frags(const float* xa, int xs,
   }
 }
 
-template <int MODE, bool BF16>
+template <int MODE, int PREC>
 __global__ void __launch_bounds__(32 * kTCMaxWarps, 1)
 fused_sa_tc_kernel(const float* __restrict__ xyz,
                    const float* __restrict__ feat,
@@ -420,7 +446,7 @@ fused_sa_tc_kernel(const float* __restrict__ xyz,
           float ra[kMT][4], rb[kNT][2];
           load_frags(xa, xs, wb, ns, ra, rb);
           for (int ks = 0; ks < ksteps; ++ks) {
-            if constexpr (BF16) {
+            if constexpr (PREC != kTF32) {
               // fragments in bf16 (k pairs t, t + 4), then one mma a tile
               uint32_t a16[kMT][2], b16[kNT];
 #pragma unroll
@@ -480,16 +506,20 @@ fused_sa_tc_kernel(const float* __restrict__ xyz,
           const int col = (ct0 + j) * 8 + 2 * tg;
           // co % 4 == 0 and col is even: col < co implies col + 1 < co;
           // padded columns have zero weights and bias, so they stay 0
-          const float b0 = col < co ? __ldg(bias + col) : 0.f;
-          const float b1 = col < co ? __ldg(bias + col + 1) : 0.f;
+          float b0 = col < co ? __ldg(bias + col) : 0.f;
+          float b1 = col < co ? __ldg(bias + col + 1) : 0.f;
+          if constexpr (PREC == kBF16Layers) {
+            b0 = round_bf16(b0);
+            b1 = round_bf16(b1);
+          }
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt) {
             const int r = r0 + 16 * mt;
             if (r >= Reff) continue;
-            const float v0 = fmaxf(acc[mt][j][0] + b0, 0.f);
-            const float v1 = fmaxf(acc[mt][j][1] + b1, 0.f);
-            const float v2 = fmaxf(acc[mt][j][2] + b0, 0.f);
-            const float v3 = fmaxf(acc[mt][j][3] + b1, 0.f);
+            const float v0 = layer_out<PREC>(acc[mt][j][0], b0);
+            const float v1 = layer_out<PREC>(acc[mt][j][1], b1);
+            const float v2 = layer_out<PREC>(acc[mt][j][2], b0);
+            const float v3 = layer_out<PREC>(acc[mt][j][3], b1);
             if (!last) {
               *reinterpret_cast<float2*>(Y + (size_t)(r + g) * ys + col) =
                   make_float2(v0, v1);
@@ -618,9 +648,8 @@ TCPlan plan_tc(int C, int M, int S, const MLPDesc& d, const float* feat) {
   return p;
 }
 
-// Launches mode MODE as planned, in bf16 (BF16) or 3xTF32; returns a
-// cudaError_t.
-template <int MODE, bool BF16 = false>
+// Launches mode MODE as planned in precision PREC; returns a cudaError_t.
+template <int MODE, int PREC = kTF32>
 int launch_fused_sa_tc(const TCPlan& p, const float* xyz, const float* feat,
                        const float* new_xyz, const int* given, int B, int P,
                        int C, int M, float r2, int S,
@@ -638,7 +667,7 @@ int launch_fused_sa_tc(const TCPlan& p, const float* xyz, const float* feat,
   const int a16 =
       (reinterpret_cast<uintptr_t>(xyz) & 15) == 0 && P % 4 == 0 ? 1 : 0;
   const int grid = B * ((M + p.lay.Q - 1) / p.lay.Q);
-  const void* kernel = (const void*)fused_sa_tc_kernel<MODE, BF16>;
+  const void* kernel = (const void*)fused_sa_tc_kernel<MODE, PREC>;
   int err = ws3d_set_smem(kernel, p.smem);
   // all of the SM's 228 KB to shared memory, so that two blocks fit
   if (!err)
@@ -646,7 +675,7 @@ int launch_fused_sa_tc(const TCPlan& p, const float* xyz, const float* feat,
         kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
   if (err) return err;
-  fused_sa_tc_kernel<MODE, BF16><<<grid, 32 * p.warps, p.smem,
+  fused_sa_tc_kernel<MODE, PREC><<<grid, 32 * p.warps, p.smem,
                                    (cudaStream_t)stream>>>(
       xyz, feat, new_xyz, given, P, C, M, r2, S, p.lay, d, bounds, a16,
       params, out);
@@ -669,18 +698,29 @@ int make_desc(int B, int P, int C, int M, int S, int n_layers,
 }
 
 // Launches mode MODE as planned in the precision bf16 selects (0: 3xTF32,
-// 1: bf16); returns a cudaError_t.
+// 1: bf16, 2: bf16 with rounded layers, kernels 2 and 3 only); returns a
+// cudaError_t.
 template <int MODE>
 int launch_mode(int bf16, const TCPlan& p, const float* xyz,
                 const float* feat, const float* new_xyz, const int* given,
                 int B, int P, int C, int M, float r2, int S, const MLPDesc& d,
                 const float* params, float* out, float2* bounds,
                 void* stream) {
-  if (bf16 != 0 && bf16 != 1) return (int)cudaErrorInvalidValue;
-  return bf16 ? launch_fused_sa_tc<MODE, true>(p, xyz, feat, new_xyz, given,
-                                               B, P, C, M, r2, S, d, params,
-                                               out, bounds, stream)
-              : launch_fused_sa_tc<MODE, false>(p, xyz, feat, new_xyz, given,
+  if (bf16 == kBF16Layers) {
+    if constexpr (MODE == kGiven) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      return launch_fused_sa_tc<MODE, kBF16Layers>(p, xyz, feat, new_xyz,
+                                                   given, B, P, C, M, r2, S,
+                                                   d, params, out, bounds,
+                                                   stream);
+    }
+  }
+  if (bf16 != kTF32 && bf16 != kBF16) return (int)cudaErrorInvalidValue;
+  return bf16 ? launch_fused_sa_tc<MODE, kBF16>(p, xyz, feat, new_xyz, given,
+                                                B, P, C, M, r2, S, d, params,
+                                                out, bounds, stream)
+              : launch_fused_sa_tc<MODE, kTF32>(p, xyz, feat, new_xyz, given,
                                                 B, P, C, M, r2, S, d, params,
                                                 out, bounds, stream);
 }
@@ -694,7 +734,8 @@ int launch_mode(int bf16, const TCPlan& p, const float* xyz,
 // pre-pass writes it). windowed != 0 (kernel 2) is for xyz and new_xyz
 // sorted ascending by z: there every in-ball point lies in the query's z
 // window, and the search, the same as kernel 3's, gives the window's
-// indices. bf16 = 1 runs the MLP in bf16 (f32 sums), 0 in 3xTF32.
+// indices. bf16 = 1 runs the MLP in bf16 (f32 sums), 2 in bf16 with each
+// layer's output rounded as flax's bf16 Dense rounds it, 0 in 3xTF32.
 WS3D_EXPORT int ws3d_fused_sa(const float* xyz, const float* feat,
                               const float* new_xyz, int B, int P, int C, int M,
                               float r2, int S, int windowed, int bf16,

@@ -4,7 +4,9 @@ ws3d_tpu/losses.py.
 Fixed-shape and mask-based: a loss the reference takes over a foreground
 subset is a masked mean over the whole batch, and a loss with no foreground
 row is zero (the `has_fg` gates). The IoU targets are detached, as the JAX
-package stops their gradient.
+package stops their gradient. Every sum, count and `any` over the batch
+goes through parallel.global_batch, so inside parallel.data_parallel_jit it
+covers the whole global batch.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from ws3d_tpu_torch.ops.boxes import boxes3d_to_bev, boxes3d_to_corners3d
 from ws3d_tpu_torch.ops.iou3d import _overlap_pairs
+from ws3d_tpu_torch.parallel.global_batch import batch_any, batch_sum
 
 
 def sigmoid_cross_entropy(logits: torch.Tensor,
@@ -44,8 +47,9 @@ def dice_loss(logits: torch.Tensor, target: torch.Tensor,
     x = torch.sigmoid(logits.reshape(-1))
     t = target.reshape(-1).to(x.dtype)
     mask = (t != ignore_target).to(x.dtype)
-    num = torch.sum(torch.minimum(x, t) * mask)
-    den = torch.clamp(torch.sum(torch.maximum(x, t) * mask), min=1.0)
+    num = batch_sum(torch.sum(torch.minimum(x, t) * mask))
+    den = torch.clamp(batch_sum(torch.sum(torch.maximum(x, t) * mask)),
+                      min=1.0)
     return 1.0 - num / den
 
 
@@ -63,7 +67,8 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     while m.dim() < x.dim():
         m = m[..., None]
     m = m.expand(x.shape)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+    return batch_sum(torch.sum(x * m)) / torch.clamp(batch_sum(torch.sum(m)),
+                                                     min=1.0)
 
 
 def softmax_cross_entropy_int(logits: torch.Tensor,
@@ -112,10 +117,10 @@ def rpn_loss(rpn_cls: torch.Tensor, rpn_reg: torch.Tensor,
     target = cls_label.reshape(-1)
     pos = target
     neg = 1.0 - target
-    weights = (pos + neg) / torch.clamp(torch.sum(pos), min=1.0)
+    weights = (pos + neg) / torch.clamp(batch_sum(torch.sum(pos)), min=1.0)
     cls_elem = sigmoid_focal_loss(logits, target, weights,
                                   alpha=focal_alpha, gamma=focal_gamma)
-    loss_cls = torch.sum(cls_elem)
+    loss_cls = batch_sum(torch.sum(cls_elem))
 
     # XLA on the CPU and the TPU flushes denormals to zero, so a Gaussian
     # label that underflowed to a denormal is background in the JAX package
@@ -123,11 +128,11 @@ def rpn_loss(rpn_cls: torch.Tensor, rpn_reg: torch.Tensor,
     P = logits.shape[0]
     loss_reg = rpn_reg_loss(rpn_reg.reshape(P, -1), reg_label.reshape(P, 3),
                             fg_mask, loc_scope, loc_bin_size)
-    loss_reg = torch.where(torch.any(fg_mask), loss_reg,
+    loss_reg = torch.where(batch_any(fg_mask), loss_reg,
                            torch.zeros_like(loss_reg))
     total = loss_cls * loss_weights[0] + loss_reg * loss_weights[1]
     aux = {"rpn_loss_cls": loss_cls, "rpn_loss_reg": loss_reg,
-           "rpn_fg_sum": torch.sum(fg_mask.to(torch.int32)),
+           "rpn_fg_sum": batch_sum(torch.sum(fg_mask.to(torch.int32))),
            "rpn_loss": total}
     return total, aux
 
@@ -266,9 +271,10 @@ def rcnn_loss(rcnn_cls: torch.Tensor, rcnn_reg: torch.Tensor,
 
     bce = sigmoid_cross_entropy(rcnn_cls.reshape(-1), cls_label)
     valid = (cls_label >= 0).to(bce.dtype)
-    loss_cls = torch.sum(bce * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    loss_cls = batch_sum(torch.sum(bce * valid)) / torch.clamp(
+        batch_sum(torch.sum(valid)), min=1.0)
 
-    has_fg = torch.any(fg_mask)
+    has_fg = batch_any(fg_mask)
     zero = torch.zeros((), dtype=bce.dtype, device=bce.device)
     loss_loc = torch.where(has_fg, loss_loc, zero) * 20.0
     loss_angle = torch.where(has_fg, loss_angle, zero)
@@ -316,7 +322,7 @@ def ioun_loss(rcnn_iou: torch.Tensor, rcnn_ref: torch.Tensor,
     err = rcnn_iou.reshape(-1) - iou_label
     loss_iou = masked_mean(err * err, range_mask) * 100.0
 
-    has_fg = torch.any(fg_mask)
+    has_fg = batch_any(fg_mask)
     zero = torch.zeros((), dtype=err.dtype, device=err.device)
     loss_loc = torch.where(has_fg, loss_loc, zero)
     loss_siz = torch.where(has_fg, loss_siz, zero)

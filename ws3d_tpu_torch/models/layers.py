@@ -22,7 +22,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ws3d_tpu_torch.ops.fused_sa import matmul_bf16, pack_params
+from ws3d_tpu_torch.ops.fused_sa import pack_params
+from ws3d_tpu_torch.ops.fused_sa_idx import dense_bf16
+from ws3d_tpu_torch.parallel import global_batch
 
 BN_EPS = 1e-5
 
@@ -42,8 +44,7 @@ class Dense(nn.Module):
         if self.dtype is None:
             y = torch.matmul(x, self.kernel)
             return y if self.bias is None else y + self.bias
-        y = matmul_bf16(x, self.kernel).to(self.dtype)
-        return y if self.bias is None else y + self.bias.to(self.dtype)
+        return dense_bf16(x, self.kernel, self.bias)
 
 
 class BatchNorm(nn.Module):
@@ -51,7 +52,9 @@ class BatchNorm(nn.Module):
 
     train=True normalises with the mean and the biased variance over all
     leading axes and updates running = (1 - m) * running + m * batch, the
-    variance biased too (nn.BatchNorm would store the unbiased one)."""
+    variance biased too (nn.BatchNorm would store the unbiased one). Inside
+    parallel.data_parallel_jit the statistics are the whole global batch's
+    (parallel.global_batch.mean_var)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -63,9 +66,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 momentum: float = 0.1) -> torch.Tensor:
         if train:
-            axes = tuple(range(x.dim() - 1))
-            mean = torch.mean(x, dim=axes)
-            var = torch.var(x, dim=axes, correction=0)
+            mean, var = global_batch.mean_var(x)
             with torch.no_grad():
                 m = float(momentum)
                 self.mean.copy_((1 - m) * self.mean + m * mean)
@@ -174,10 +175,13 @@ class HeadMLP(nn.Module):
 def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout as flax.linen.Dropout: keep with probability 1 - p,
-    kept values divided by 1 - p. Draws from `generator` (on x's device)."""
+    kept values divided by 1 - p. Draws from `generator` (on x's device);
+    inside parallel.data_parallel_jit the mask of the whole global batch,
+    of which the rank keeps its rows (x batch-leading)."""
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = global_batch.rows(x.shape, lambda shape: torch.rand(
+        shape, generator=generator, device=x.device)) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 

@@ -28,7 +28,10 @@ interpolation and the skip features in bf16 before the concat
 (:270-281). Features that arrive in bf16 (the stage-2 up/merge chains)
 become f32 exactly: the fused SA casts them, and the concatenation with the
 f32 centre offsets promotes them, as in the JAX package. The BN-free
-stacks' train path (FusedSA) has no bf16 backward yet.
+stacks' train path (FusedSA) runs the fused SA's rounded-layer bf16 mode
+instead, each layer rounded as flax's bf16 Dense rounds it (the JAX
+package's bf16 XLA composition), and differentiates that composition
+(ops/fused_sa_idx.py).
 """
 from __future__ import annotations
 
@@ -100,14 +103,10 @@ class PointnetSAModuleMSG(nn.Module):
                 outs.append(torch.amax(h, dim=2))
                 continue
             if train:        # BN-free: the live Dense weights, never a cache
-                if self.dtype is not None:
-                    raise NotImplementedError(
-                        "the fused SA has no bf16 backward yet (ROADMAP.md "
-                        "queue 1, item 11)")
                 kernels, biases = folded_mlp_params(mlp)
                 outs.append(fused_sa_train(
                     xyz, features, new_xyz, self.radii[i], self.nsamples[i],
-                    kernels, biases, window))
+                    kernels, biases, window, bf16=self.dtype is not None))
                 continue
             kernels, biases = mlp.folded()
             outs.append(fused_sa(

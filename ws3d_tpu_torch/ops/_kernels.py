@@ -31,13 +31,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel; the wrappers add one where they launch, nowhere else
-# (the bf16 modes of kernels 2, 3, 9 and 4 under names of their own)
+# (the bf16 modes of kernels 2, 3, 9 and 4, and the rounded-layer bf16 mode
+# of kernels 2 and 3, under names of their own)
 LAUNCHES = {"fps": 0, "fused_sa_window": 0, "fused_sa_full": 0,
             "three_interpolate": 0, "crop_gather": 0, "ball_query": 0,
             "three_nn": 0, "fused_sa_idx": 0, "ball_query_wrap": 0,
             "three_interpolate_window": 0, "crop_gather_window": 0,
             "fused_sa_window_bf16": 0, "fused_sa_full_bf16": 0,
-            "fused_sa_idx_bf16": 0, "three_interpolate_bf16": 0}
+            "fused_sa_idx_bf16": 0, "three_interpolate_bf16": 0,
+            "fused_sa_window_bf16r": 0, "fused_sa_full_bf16r": 0}
 
 _lib = None
 

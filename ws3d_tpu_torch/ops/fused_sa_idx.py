@@ -20,8 +20,7 @@ layers after the first (bf16 multiplicands, f32 accumulation). Its layer 0
 rounds the gathered [xyz, feat] rows, absolute coordinates included, to
 bf16 and folds the centre into the bias; the port rounds the
 centre-relative rows (ROADMAP.md queue 3). On CUDA that is the kernel's
-bf16 mode (one bf16 mma.sync a product in place of three TF32 ones). The
-bf16 mode is forward only.
+bf16 mode (one bf16 mma.sync a product in place of three TF32 ones).
 
 Its backward, sa_from_idx_backward, is the JAX VJP of _xla_reference with
 the indices held constant: recompute group -> MLP -> amax under autograd and
@@ -29,6 +28,18 @@ differentiate. It is also the backward of kernels 2 and 3
 (ops/fused_sa.FusedSA), as fused_sa_bq_pallas._mlp_from_idx is in the JAX
 package. torch.amax splits the gradient evenly among tied samples (the
 padded duplicates), as JAX's max does.
+
+Its bf16 mode is the VJP of the JAX package's bf16 XLA composition, the
+path its CPU takes (pointnet2.py:_use_fused is false there): flax's
+Dense(dtype=bfloat16) on the grouped rows, whose output is the f32 sum of
+bf16 products rounded to bf16 with the bias added in bf16, ReLU in bf16,
+and the stack's output cast to f32 before the max (mlp_flax_bf16).
+Autodiff of that rounds every layer's output cotangent and each weight
+gradient to bf16 (the weight gradients return in f32), and pools over the
+bf16-valued last layer, so equal maxima are tied as JAX ties them: the
+kernels' f32 output has fewer ties, and their gradient would go to other
+samples. The TPU's custom VJP (_mlp_from_idx) differentiates an f32
+composition instead; the port does not copy it (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -80,15 +91,35 @@ def check_mlp(name: str, C: int, kernels, biases, params):
     return (_kernels.ctypes.c_int * len(widths))(*widths), params
 
 
+def dense_bf16(x: torch.Tensor, kernel: torch.Tensor,
+               bias: torch.Tensor | None) -> torch.Tensor:
+    """flax's Dense(dtype=bfloat16): the f32 sum of bf16 products rounded
+    to bf16, plus the bias rounded to bf16, the sum rounded again (bf16)."""
+    y = matmul_bf16(x, kernel).to(torch.bfloat16)
+    return y if bias is None else y + bias.to(torch.bfloat16)
+
+
+def mlp_flax_bf16(h: torch.Tensor, kernels, biases) -> torch.Tensor:
+    """The ReLU stack of dense_bf16 layers, all in bf16; the output cast to
+    f32 (bf16-valued)."""
+    for k, b in zip(kernels, biases):
+        h = torch.relu(dense_bf16(h, k, b))
+    return h.float()
+
+
 def fused_sa_idx_plain(idx, xyz, features, new_xyz,
                        kernels: Sequence[torch.Tensor],
                        biases: Sequence[torch.Tensor],
-                       bf16: bool = False) -> torch.Tensor:
+                       bf16: bool = False,
+                       round_layers: bool = False) -> torch.Tensor:
     """Plain version, the f32 composition of
     fused_sa_pallas._xla_reference: idx (B, M, S) -> group -> dense stack
     with ReLU -> max over S -> (B, M, C_last); with `bf16` every layer's
-    product is matmul_bf16."""
+    product is matmul_bf16, and with `round_layers` too the stack is
+    mlp_flax_bf16 (the kernels' rounded-layer mode)."""
     h = group_with_idx(idx.long(), xyz, new_xyz, features)
+    if bf16 and round_layers:
+        return torch.amax(mlp_flax_bf16(h, kernels, biases), dim=2)
     mm = matmul_bf16 if bf16 else torch.matmul
     for k, b in zip(kernels, biases):
         h = torch.relu(mm(h, k) + b)
@@ -125,18 +156,23 @@ def fused_sa_idx_cuda(xyz, features, new_xyz, idx, kernels, biases,
 
 
 def sa_from_idx_backward(idx, xyz, features, new_xyz, kernels, biases,
-                         grad_out, needs):
+                         grad_out, needs, bf16: bool = False):
     """The given-index VJP: gradients of fused_sa_idx_plain at these inputs
     with idx held constant, for the inputs (xyz, features, new_xyz,
-    *kernels, *biases) whose entry of `needs` is true (None for the rest).
-    The grouped rows are recomputed here and freed on return."""
+    *kernels, *biases) whose entry of `needs` is true (None for the rest);
+    with `bf16`, of its rounded-layer mode, group -> mlp_flax_bf16 -> max
+    (see the module docstring). Each gradient has its input's dtype. The
+    grouped rows are recomputed here and freed on return."""
     inputs = [xyz, features, new_xyz, *kernels, *biases]
     L = len(kernels)
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(bool(w))
                   for x, w in zip(inputs, needs)]
-        out = fused_sa_idx_plain(idx, leaves[0], leaves[1], leaves[2],
-                                 leaves[3:3 + L], leaves[3 + L:])
+        # bf16 features join the f32 rows exactly before the gather, as
+        # JAX's concat promotes them: the scatter-add sums in f32
+        out = fused_sa_idx_plain(idx, leaves[0], leaves[1].float(),
+                                 leaves[2], leaves[3:3 + L], leaves[3 + L:],
+                                 bf16=bf16, round_layers=bf16)
         wanted = [x for x, w in zip(leaves, needs) if w]
         grads = iter(torch.autograd.grad(out, wanted, grad_out)
                      if wanted else ())

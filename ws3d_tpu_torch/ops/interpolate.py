@@ -18,7 +18,9 @@ as it stores. The TPU kernel also rounds the weights and features to bf16
 for its matmul; the JAX package's CPU path (_interpolate_xla) does not, and
 neither does the port. Kernel 8 and the plain windowed version compute f32
 and cast after, as ws3d_tpu/ops/interpolate.py does for the windowed
-kernel. The bf16 output has no backward yet."""
+kernel. The bf16 output's backward casts the cotangent to f32 and runs the
+f32 backward (interpolate._interpolate_fused_bwd); the gradient keeps the
+known features' dtype."""
 from __future__ import annotations
 
 import torch
@@ -282,13 +284,14 @@ class _Interpolate(torch.autograd.Function):
     for the features): the 3-NN search again (kernel 7 on CUDA, on the
     chunk z ranges kernel 4's pre-pass wrote for the same known cloud),
     w = (1/(d2+1e-8)) / sum, and
-    d known_feats[b, idx[b, i, k]] += w[b, i, k] * g[b, i]."""
+    d known_feats[b, idx[b, i, k]] += w[b, i, k] * g[b, i]. A bf16 output's
+    cotangent is cast to f32 first, as the JAX backward casts it."""
 
     @staticmethod
     def forward(ctx, unknown, known, known_feats, sorted_z, bf16_out):
         ctx.m = known_feats.shape[1]
         ctx.bounds = None
-        ctx.bf16_out = bf16_out
+        ctx.feats_dtype = known_feats.dtype
         ctx.save_for_backward(unknown, known)
         if sorted_z:
             if unknown.is_cuda:
@@ -307,10 +310,7 @@ class _Interpolate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.bf16_out:
-            raise NotImplementedError(
-                "interpolate_features(bf16_out=True) has no backward yet "
-                "(ROADMAP.md queue 1, item 11)")
+        g = g.float()
         unknown, known = ctx.saved_tensors
         d2, idx = three_nn(unknown, known, ctx.bounds)
         recip = 1.0 / (d2 + 1e-8)
@@ -325,7 +325,8 @@ class _Interpolate(torch.autograd.Function):
         w2 = weight.reshape(B * n, 3)
         for k in range(3):
             grad.index_add_(0, rows[:, k], g2 * w2[:, k:k + 1])
-        return None, None, grad.reshape(B, ctx.m, C), None, None
+        return (None, None, grad.reshape(B, ctx.m, C).to(ctx.feats_dtype),
+                None, None)
 
 
 def interpolate_features(unknown: torch.Tensor, known: torch.Tensor,
@@ -336,8 +337,8 @@ def interpolate_features(unknown: torch.Tensor, known: torch.Tensor,
     by z, as cfg.TPU.SORT_POINTS_Z and the SA modules' sorted picks leave
     them) the forward is the windowed search, kernel 8 on CUDA; the result
     is the same. `bf16_out` returns bf16 (see the module docstring).
-    Differentiable in `known_feats` only (f32 output); raises if a
-    coordinate tensor requires a gradient."""
+    Differentiable in `known_feats` only; raises if a coordinate tensor
+    requires a gradient."""
     if unknown.requires_grad or known.requires_grad:
         raise ValueError("interpolate_features: the coordinates get no "
                          "gradient; detach unknown and known")

@@ -71,15 +71,17 @@ def max_diff(a: dict, b: dict) -> float:
                 for k in a if a[k].numel()), default=0.0)
 
 
-def one_step(cfg, stage: str, model, batch: dict, group=None):
+def one_step(cfg, stage: str, model, batch: dict, group=None,
+             jit: bool = False):
     """One train step of `model` (AdamOneCycle from count 0, no dropout
     generator, BN momentum 0.1) on the step's inputs of `batch`: the
     single-process step, or with a group the data-parallel step on the
-    rank's shard (the model broadcast from rank 0 first). Returns (the
-    state after it on the CPU, its scalar aux values, the gradients the
-    optimizer applied, again), where again() runs one more step on the
-    same batch."""
-    from ws3d_tpu_torch.parallel import data_parallel_step, replicate
+    rank's shard (the model broadcast from rank 0 first), with `jit` the
+    global-batch step (data_parallel_jit). Returns (the state after it on
+    the CPU, its scalar aux values, the gradients the optimizer applied,
+    again), where again() runs one more step on the same batch."""
+    from ws3d_tpu_torch.parallel import (data_parallel_jit,
+                                         data_parallel_step, replicate)
     from ws3d_tpu_torch.training.optim import AdamOneCycle
     from ws3d_tpu_torch.training.trainer import (batch_to_device,
                                                  make_rcnn_train_step,
@@ -94,15 +96,17 @@ def one_step(cfg, stage: str, model, batch: dict, group=None):
                         for k, g in grads.items()})
         apply(grads)
     opt.step = record
-    step = (make_rpn_train_step(model, cfg, opt, group) if stage == "rpn"
-            else make_rcnn_train_step(model, cfg, opt, stage, group))
+    built = None if jit else group
+    step = (make_rpn_train_step(model, cfg, opt, built) if stage == "rpn"
+            else make_rcnn_train_step(model, cfg, opt, stage, built))
     keys = step_inputs(stage, batch)
     if group is None:
         inputs = batch_to_device(batch, next(model.parameters()).device,
                                  keys)
     else:
         replicate(model, group)
-        step = data_parallel_step(step, group)
+        step = (data_parallel_jit if jit else data_parallel_step)(step,
+                                                                  group)
         inputs = {k: batch[k] for k in keys}
     aux = step(inputs, None, 0.1)
     opt.step = apply

@@ -19,13 +19,19 @@ are kept function by function:
   SyncBatchNorm), and the step replaces gradients, BN running statistics
   and aux values by their mean over the ranks before the optimizer applies
   the gradients;
+- `data_parallel_jit` runs a train step built without a group on the
+  rank's shard as one step on the global batch, as XLA's propagation path
+  compiles it: inside parallel.global_batch's context BatchNorm, the loss
+  normalisers and the aux sums reduce over every rank's rows (a
+  differentiable all-reduce) and dropout draws the global batch's mask, so
+  the loss, the aux values and the new BN statistics are the
+  single-process step's on the whole batch, and its gradients within
+  float rounding;
 - `data_parallel_infer` runs an inference function on the rank's scenes and
   all-gathers its outputs in scene order.
 
 JAX's `donate_state` has no counterpart: the port updates parameters and
-optimizer state in place. `data_parallel_jit` (XLA's propagation path, whose
-BatchNorm reduces over the whole global batch) is not ported: its
-counterpart would be a synced BatchNorm with its own backward.
+optimizer state in place.
 
 Every group has a timeout, so a collective that hangs fails instead.
 """
@@ -350,6 +356,20 @@ def rank_seed(seed: int, group: Optional[Group]) -> int:
     return int(seed) + (group.rank << 32 if group is not None else 0)
 
 
+def _rank_shard(batch, group: Group):
+    """The rank's shard of a global batch (shard_batch), or a LocalShard as
+    it is; a leaf whose leading dimension the world size does not divide
+    raises, as shard_map does."""
+    if isinstance(batch, LocalShard):
+        return batch
+    for k, v in batch.items():
+        if np.ndim(v) == 0 or np.shape(v)[0] % group.world_size:
+            raise ValueError(
+                f"batch leaf {k} of shape {tuple(np.shape(v))} does "
+                f"not split over {group.world_size} ranks")
+    return shard_batch(batch, group)
+
+
 def data_parallel_step(step: Callable, group: Group) -> Callable:
     """wrapper(batch, generator, bn_momentum) for a step built with
     group=group (training.trainer.make_*_train_step): shards a global batch
@@ -357,14 +377,37 @@ def data_parallel_step(step: Callable, group: Group) -> Callable:
     (shard_batch_multihost) runs as it is. A leaf whose leading dimension
     the world size does not divide raises, as shard_map does."""
     def wrapper(batch, generator, bn_momentum: float = 0.1):
-        if not isinstance(batch, LocalShard):
-            for k, v in batch.items():
-                if np.ndim(v) == 0 or np.shape(v)[0] % group.world_size:
-                    raise ValueError(
-                        f"batch leaf {k} of shape {tuple(np.shape(v))} does "
-                        f"not split over {group.world_size} ranks")
-            batch = shard_batch(batch, group)
-        return step(batch, generator, bn_momentum)
+        return step(_rank_shard(batch, group), generator, bn_momentum)
+
+    return wrapper
+
+
+def data_parallel_jit(step: Callable, group: Group) -> Callable:
+    """wrapper(batch, generator, bn_momentum) for a step built WITHOUT a
+    group (training.trainer.make_*_train_step(..., group=None)): one step on
+    the global batch, each rank computing its shard (shard_batch, or a
+    LocalShard as it is).
+
+    The step runs inside parallel.global_batch.global_batch(group): every
+    reduction over the batch axis (BatchNorm's mean and two-pass variance,
+    the losses' masked means, counts and `any` gates, the aux sums) is a
+    differentiable all-reduce over the ranks, and train-mode dropout draws
+    the mask of the whole batch and keeps the rank's rows. Every rank then
+    holds the same global loss and aux values and writes the same BN
+    running statistics. The backward of each all-reduce sums the cotangent
+    of W identical losses, so each rank's parameter gradient is W times its
+    shard's share of the global gradient; the step's gradient reduction is
+    therefore a mean over the ranks (training.trainer._gradients), and
+    every rank applies dL/dtheta of the global loss.
+
+    The model must be the same on every rank (replicate) and the dropout
+    generator in the same state on every rank (JAX passes one replicated
+    rng); the world size must divide the batch evenly."""
+    def wrapper(batch, generator, bn_momentum: float = 0.1):
+        from ws3d_tpu_torch.parallel.global_batch import global_batch
+        shard = _rank_shard(batch, group)
+        with global_batch(group):
+            return step(shard, generator, bn_momentum)
 
     return wrapper
 

@@ -95,8 +95,6 @@ def split_database(database, val_ratio: float):
 
 
 def train(args, cfg, log) -> int:
-    from ws3d_tpu_torch.config import refuse_bf16_training
-    refuse_bf16_training(cfg)       # training computes in f32 only
     from ws3d_tpu_torch.datasets import (BoxPlaceDataset,
                                          synthetic_proposal_database)
     from ws3d_tpu_torch.models import build_model

@@ -167,8 +167,6 @@ def _run(args, group) -> int:
 
 
 def train(args, cfg, log, group=None) -> int:
-    from ws3d_tpu_torch.config import refuse_bf16_training
-    refuse_bf16_training(cfg)       # training computes in f32 only
     if args.points:
         cfg.RPN.NUM_POINTS = args.points
         if args.points <= 2048:

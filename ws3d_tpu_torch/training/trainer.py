@@ -26,11 +26,16 @@ own train-mode BatchNorm statistics, then the step replaces the gradients,
 the BN running statistics its forward wrote and every aux value by their
 mean over the ranks (_cross_device_mean) before the optimizer clips and
 applies the gradients, so every replica applies the same update. Dropout
-draws from a generator a rank (parallel.rank_seed).
+draws from a generator a rank (parallel.rank_seed). A step built without a
+group and run by parallel.data_parallel_jit is the global-batch step:
+BatchNorm and the losses reduce over the whole batch, and _gradients takes
+the mean of the ranks' gradients (parallel/global_batch.py says why a
+mean).
 
-Training computes in float32: the loss functions, the steps and the Trainer
-raise NotImplementedError for cfg.TPU.COMPUTE_DTYPE=bfloat16
-(config.refuse_bf16_training).
+With cfg.TPU.COMPUTE_DTYPE=bfloat16 the forwards compute in bf16 as the JAX
+package's do (models/layers.py) and autograd differentiates them; the
+parameters, the optimizer state, the BN statistics and the checkpoints stay
+float32, and the gradients the optimizer takes are float32.
 """
 from __future__ import annotations
 
@@ -41,8 +46,8 @@ import numpy as np
 import torch
 
 from ws3d_tpu_torch import losses
-from ws3d_tpu_torch.config import refuse_bf16_training
 from ws3d_tpu_torch.models.layers import BatchNorm
+from ws3d_tpu_torch.parallel import global_batch
 from ws3d_tpu_torch.parallel.mesh import (LocalShard, all_reduce_mean,
                                           data_parallel_step, rank_seed,
                                           replicate)
@@ -109,12 +114,16 @@ def _cross_device_mean(grads: Dict[str, torch.Tensor], net: torch.nn.Module,
 def _gradients(loss_fn, batch, generator, bn_momentum,
                params: Dict[str, torch.Tensor]):
     """(loss, aux, {name: gradient}); a parameter the loss does not reach
-    gets a zero gradient, as jax.grad gives it."""
+    gets a zero gradient, as jax.grad gives it. Inside a global batch
+    (parallel.data_parallel_jit) the gradients are the mean of the ranks'."""
     total, aux = loss_fn(batch, generator, bn_momentum)
     grads = torch.autograd.grad(total, list(params.values()),
                                 allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params.values(), grads)]
+    group = global_batch.active()
+    if group is not None:
+        all_reduce_mean(grads, group)
     aux = {k: v.detach() for k, v in aux.items()}
     aux["loss"] = total.detach()
     return total.detach(), aux, dict(zip(params, grads))
@@ -123,7 +132,6 @@ def _gradients(loss_fn, batch, generator, bn_momentum,
 def make_rpn_loss_fn(model, cfg) -> Callable:
     """loss_fn(batch, generator, bn_momentum) -> (total, aux); the forward
     updates the BN running statistics."""
-    refuse_bf16_training(cfg)
     loc_scope = cfg.RPN.LOC_SCOPE
     loc_bin_size = cfg.RPN.LOC_BIN_SIZE
     alpha = cfg.RPN.FOCAL_ALPHA[0]
@@ -170,7 +178,6 @@ def make_rpn_train_step(model, cfg, optimizer: AdamOneCycle,
 def make_rcnn_loss_fn(model, cfg, stage: str = "rcnn") -> Callable:
     """loss_fn(batch, generator, bn_momentum) -> (total, aux) of a stage-2
     step: rcnn_loss, or ioun_loss for stage "ioun"."""
-    refuse_bf16_training(cfg)
     anchor = [float(v) for v in cfg.CLS_MEAN_SIZE[0]]
     r = cfg.RCNN
 
@@ -233,7 +240,6 @@ class Trainer:
     def __init__(self, model, cfg, total_steps: int, stage: str = "rpn",
                  seed: int = 0, log_fn=print, tb_dir: Optional[str] = None,
                  group=None):
-        refuse_bf16_training(cfg)
         self.model = model
         self.cfg = cfg
         self.stage = stage
