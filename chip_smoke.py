@@ -127,17 +127,20 @@ Phases (any failure exits non-zero; nothing is caught):
      kernels line under ms_by_path only;
  17. the inference cell in bf16 (cfg.TPU.COMPUTE_DTYPE=bfloat16; batch 16,
      16,384 points, the fitted npz): every kernel call of one batch held
-     against its plain bf16 version (kernels 2 and 3 in their bf16 mode
-     and kernel 4 with its bf16 store within the stated tolerances, the
-     store also bit-equal to the f32 kernel's output rounded to bf16; FPS
-     and the crop exact), kernel 9 in its bf16 mode on kernel 6's indices for
-     each fused call (bit-equal to the fused kernel, then against its plain
-     version) and through its entry point fused_sa_idx; a warm-up and timed
-     batches (scenes/s, detections, n_live, spilled, which must be 0; the
-     bf16 modes, and no f32 mode of kernels 2, 3 and 4, launched), one
-     batch under torch.profiler; one scene on the GPU against the CPU's
-     plain bf16 versions; then eval_auto on 16 scenes in f32 and in bf16
-     and the port's diff_detections between the two, within stated bounds;
+     against its plain bf16 version (kernels 2 and 3 in their bf16 mode,
+     on the BN-free stage-2 stacks in their rounded-layer mode, and kernel
+     4 with its bf16 store within the stated tolerances, the store also
+     bit-equal to the f32 kernel's output rounded to bf16; FPS and the
+     crop exact), kernel 9 in its bf16 mode on kernel 6's indices for
+     each fused call (bit-equal to the fused kernel's bf16 mode, then
+     against its plain version) and through its entry point fused_sa_idx;
+     a warm-up and timed batches (scenes/s, detections, n_live, spilled,
+     which must be 0; the bf16 and rounded-layer modes, and no f32 mode of
+     kernels 2, 3 and 4, launched), one batch under torch.profiler; one
+     scene on the GPU against the CPU's plain bf16 versions; then
+     eval_auto on 16 scenes in f32 and in bf16 (the BN-free stacks' eval
+     in the rounded-layer mode) and the port's diff_detections between the
+     two, within stated bounds;
  18. the click-seeded annotator (ws3d_tpu_torch.tools.eval_active at its
      defaults: 16 scenes of SyntheticKitti(seed=3), --max_points 16384,
      batch 8, the fitted npz, f32): a warm-up run whose every kernel call
@@ -189,9 +192,12 @@ Phases (any failure exits non-zero; nothing is caught):
      step's; on the two gloo ranks of (b), 8 + 8 scenes, against the
      single 16-scene step: replicas bit-equal, the loss within 1e-5
      relative, every BN statistic within 1e-5 relative (atol 1e-5 of its
-     tensor's max), every gradient within GLOBAL_GRAD_WORST and the median
-     tensor within GLOBAL_GRAD_MEDIAN of their tensors' max, kernels 1, 4,
-     6 and 7 launched in each rank;
+     tensor's max), the worst gradient gap to the single step within
+     GLOBAL_GRAD_FACTOR times that of the single step run with every
+     BatchNorm's sums split in two as the ranks split them (in the same
+     run), between GLOBAL_GRAD_WORST_FLOOR and GLOBAL_GRAD_WORST, the
+     median gap below GLOBAL_GRAD_MEDIAN, kernels 1, 4, 6 and 7 launched
+     in each rank;
  23. bf16 training (cfg.TPU.COMPUTE_DTYPE=bfloat16), at full width: the
      stage-1 step at batch 16 (phase 6's cell) and the RCNN and IOUN
      steps at 800 crops of 512 points (phases 9 and 10's cells). For
@@ -210,11 +216,33 @@ Phases (any failure exits non-zero; nothing is caught):
      gradient gap of card to CPU in bf16 below BF16_GRAD_MEDIAN and below
      half the CPU's bf16-vs-f32 median gap, BN statistics within
      BF16_BN_TOL;
- 24. print the kernel table, the card's name and power limit, and the
+ 24. the port's bench entry points: (a) ws3d_tpu_torch.tools.bench's
+     main in this process at its defaults (batch 64, bf16, the fitted
+     npz; 2 warm-up and 12 timed batches, the txt dump overlapped), its
+     launch counts read around it: FPS, the crop, kernels 2 and 3 in
+     their bf16 and rounded-layer modes and kernel 4's bf16 store
+     launched; its JSON line parsed: weights "fitted" with every array
+     overlaid, detections_last_batch > 0, a finite value; then the same
+     loop in f32 at batch 64 (every inference kernel launched, a finite
+     value) and its line, each with its max_spilled beside its rate (at
+     batch 64 the stage-2 budgets drop slots, so the rate is not the
+     spill-free rate of phases 3 and 17); (b) every kernel call of one
+     bf16 and one f32 inference batch of 64 (the bench's model and first
+     input batch) and of one stage-1 step at batch 25 (tools.bench_train's
+     seeded model and batch) against its plain version at the usual
+     gates, FPS's rows included; (c) `python -m
+     ws3d_tpu_torch.tools.bench_train --split` at its defaults (stage 1
+     at batch 25, RCNN and IOUN at 800 crops of 512 points, the seeded
+     init, one process a stage): three JSON lines with finite positive
+     device_ms_per_step, fwd_ms and bwd_ms, printed beside phases 6, 9
+     and 10's steps/s;
+ 25. print the kernel table, the card's name and power limit, and the
      result line. The calls of phases 18-20 enter the table's ms_by_path
      and launches_by_path only; phase 22's launches enter
      launches_by_path under paths named scaleout_*, phase 23's under
-     bf16_{rpn,rcnn,ioun}_train.
+     bf16_{rpn,rcnn,ioun}_train, phase 24's under bench_bf16 and
+     bench_f32 (phase 24's compared calls enter ms_by_path under
+     bench_bf16, bench_f32 and bench_train_rpn).
 
 Prints nothing of the result and exits 2 without a CUDA device or outside
 a checkout of the repository.
@@ -278,6 +306,8 @@ INFERENCE_KERNELS = ("fps", "fused_sa_window", "fused_sa_full",
                      "three_interpolate", "crop_gather")
 BF16_INFERENCE_KERNELS = ("fps", "fused_sa_window_bf16", "fused_sa_full_bf16",
                           "three_interpolate_bf16", "crop_gather")
+# the BN-free stage-2 stacks' bf16 eval: the rounded-layer mode
+BF16R_INFERENCE_KERNELS = ("fused_sa_window_bf16r", "fused_sa_full_bf16r")
 TRAIN_KERNELS = ("fps", "three_interpolate", "ball_query", "three_nn")
 STAGE2_BATCH = 800          # crops of a step (tools/bench_train.py)
 STAGE2_POINTS = 512
@@ -313,26 +343,38 @@ BF16_TRAIN_STEPS = 3        # phase 23: timed bf16 steps after a warm-up
 # between the CPU's bf16 and f32 steps (bf16 alone moves these gradients
 # by a median of 11-26 %); BN statistics within 5e-3 of each tensor's max.
 # Stage 2 was first bounded at 0.02, which the IOUN step's 0.0237 missed
-# on the H100: its frozen trunk's bf16 box moves the cascade's canonical
-# frame, so the summation order of the trunk moves the cascade's inputs
+# on an H100. One frame is not the cause: with both cascades started from
+# the CPU trunk's boxes it reads 0.0237 again. On four draws of 8 crops it
+# reads 0.0237-0.0353; with the fused SA's plain version in place of
+# kernels 2 and 3 on the card, 0.0013-0.0206; the CPU's own step with its
+# bf16 products summed in four other orders moves 0.0064-0.0351. So the
+# gap is the kernels' f32 sums of bf16 products (the tensor cores' order),
+# each call held against its plain version in (a) (chip_gaps.py prints
+# these readings).
 BF16_GRAD_MEDIAN = {"rpn": 0.15, "rcnn": 0.05, "ioun": 0.05}
 BF16_BN_TOL = 5e-3
 # phase 22: the global-batch step on two ranks against the single step, a
-# gradient's max|diff| over its tensor's max: the worst tensor and the
-# median one (the CPU test's 1e-3 read 1.15e-3 on one tensor at full width
-# on the H100: the BN sums run in another order)
+# gradient's max|diff| over its tensor's max. The worst tensor is held
+# within GLOBAL_GRAD_FACTOR times the same reading of the single step with
+# every BatchNorm's sums split as the two ranks split them (measured in
+# the same run), never below the CPU test's 1e-3
+# (tests/test_torch_parallel_global.py) and never above PR 15's 5e-3; the
+# median tensor below PR 15's 1e-4. On an H100 the split step reads
+# 0.008 (median 4.04e-4), the global step 0.00115 (median 7.29e-5). The
+# 0.008 is not the split's: the unsplit two-pass sums read it too, and so
+# do halves added the other way and quarters (chip_gaps.py). The halves
+# flip the sign of 193 of 9.1e8 BatchNorm outputs, each within 1.5e-6 of
+# zero, and the gradients behind those ReLUs move by a step: which
+# outputs flip is a draw of the rounding, so
+# the split step bounds the worst tensor from below and the ceilings keep
+# the gate no looser than PR 15's.
+GLOBAL_GRAD_FACTOR = 2.0
+GLOBAL_GRAD_WORST_FLOOR = 1e-3
 GLOBAL_GRAD_WORST = 5e-3
 GLOBAL_GRAD_MEDIAN = 1e-4
 HOST_PROFILE = ("get_sample", "apply_gt_aug", "greedy_furthest_point_sample",
                 "gaussian_weak_labels", "sample_npoints", "valid_point_mask",
                 "augment_scene")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -449,14 +491,18 @@ def compare_call(name, args, kw):
         bf16 = bool(kw.get("bf16"))
         rounded = bf16 and bool(kw.get("round_layers"))
         out = fused_sa.fused_sa_cuda(*args, **kw)
-        ref = fused_sa.fused_sa_plain(xyz, feat, new_xyz, radius, nsample,
-                                      kernels, biases, bf16, rounded)
+
+        def plain_fn(b16=bf16, r=rounded):
+            return _rows_plain(lambda x, f, q: fused_sa.fused_sa_plain(
+                x, f, q, radius, nsample, kernels, biases, b16, r),
+                xyz, feat, new_xyz, nsample, kernels)
+        ref = plain_fn()
         err = (out - ref).abs().max().item()
         gate = ""
         if bf16:
-            gate = "; " + _bf16_gate(out, ref, fused_sa.fused_sa_plain(
-                xyz, feat, new_xyz, radius, nsample, kernels, biases),
-                f"fused_sa window={window} {tuple(xyz.shape)}")
+            gate = "; " + _bf16_gate(out, ref, plain_fn(False, False),
+                                     f"fused_sa window={window} "
+                                     f"{tuple(xyz.shape)}")
         # f32 sums over <= 515 terms in another order than the plain matmul
         elif not err <= 1e-3 + 1e-4 * ref.abs().max().item():
             raise AssertionError(f"fused_sa window={window} "
@@ -467,9 +513,7 @@ def compare_call(name, args, kw):
         key = ("fused_sa_window" if window else "fused_sa_full") + (
             "_bf16r" if rounded else "_bf16" if bf16 else "")
         ms = cuda_ms(lambda: fused_sa.fused_sa_cuda(*args, **kw), 5)
-        plain = cuda_ms(lambda: fused_sa.fused_sa_plain(
-            xyz, feat, new_xyz, radius, nsample, kernels, biases, bf16,
-            rounded), 1)
+        plain = cuda_ms(plain_fn, 1)
         B, P, C = feat.shape
         M = new_xyz.shape[1]
         widths = [C + 3] + [int(k.shape[1]) for k in kernels]
@@ -754,6 +798,29 @@ def compare_call(name, args, kw):
     raise KeyError(name)
 
 
+# a plain fused SA of more grouped elements (rows x queries x samples x
+# widest layer) than this runs in slices of the rows (the trunk's 4,096
+# crops of a batch of 64), each at most PLAIN_SLICE_ELEMENTS
+PLAIN_ROWS_ELEMENTS = 2 ** 31
+PLAIN_SLICE_ELEMENTS = 2 ** 29
+
+
+def _rows_plain(fn, xyz, feat, new_xyz, nsample, kernels):
+    """fn(xyz, feat, new_xyz), a plain SA whose rows are independent, over
+    slices of the rows when its grouped tensors would pass
+    PLAIN_ROWS_ELEMENTS (the same values; the card's memory bounds one
+    pass)."""
+    import torch
+    B, M = new_xyz.shape[:2]
+    widest = max([feat.shape[2] + 3] + [int(k.shape[1]) for k in kernels])
+    per_row = M * nsample * widest
+    if B * per_row <= PLAIN_ROWS_ELEMENTS:
+        return fn(xyz, feat, new_xyz)
+    step = max(1, PLAIN_SLICE_ELEMENTS // per_row)
+    return torch.cat([fn(xyz[b:b + step], feat[b:b + step],
+                         new_xyz[b:b + step]) for b in range(0, B, step)])
+
+
 def _bf16_gate(out, ref, f32, what: str) -> str:
     """The gate of the fused SA's bf16 mode against its plain bf16 version
     `ref` (f32: the plain f32 version): the same exact products summed in
@@ -969,6 +1036,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from ws3d_tpu_torch.config import load_config
     from ws3d_tpu_torch.datasets import RPNDataset, SyntheticKitti
+    from ws3d_tpu_torch.device import card_line
     from ws3d_tpu_torch.models import build_model
     from ws3d_tpu_torch.ops import _kernels
     from ws3d_tpu_torch.pipeline import make_two_stage_fn
@@ -1137,7 +1205,10 @@ def main() -> int:
     # ---- 23. bf16 training
     launches.update(_bf16_train_phase(card, per_kernel, f32_steps))
 
-    # ---- 24. report
+    # ---- 24. the port's bench entry points
+    launches.update(_bench_phase(card, per_kernel, f32_steps))
+
+    # ---- 25. report
     table = []
     for key, (source, replaces) in KERNELS.items():
         agg = per_kernel[key]
@@ -2075,7 +2146,8 @@ def _bf16_phase(card, per_kernel) -> dict:
     from ws3d_tpu_torch.config import load_config
     from ws3d_tpu_torch.datasets import RPNDataset, SyntheticKitti
     from ws3d_tpu_torch.models import build_model
-    from ws3d_tpu_torch.ops import _kernels, ball_query, fused_sa_idx
+    from ws3d_tpu_torch.ops import (_kernels, ball_query, fused_sa,
+                                    fused_sa_idx)
     from ws3d_tpu_torch.pipeline import make_two_stage_fn
     from ws3d_tpu_torch.tools.diff_detections import diff
     from ws3d_tpu_torch.tools.eval_auto import run_eval
@@ -2120,6 +2192,10 @@ def _bf16_phase(card, per_kernel) -> dict:
                                                new_xyz)[0]
         got = fused_sa_idx.fused_sa_idx_cuda(xyz, feat, new_xyz, idx,
                                              kernels, biases, bf16=True)
+        if kw.get("round_layers"):
+            # kernel 9 has no rounded-layer mode: the BN-free stacks' call
+            # in the bf16 mode is its reference
+            out = fused_sa.fused_sa_cuda(*a, **{**kw, "round_layers": False})
         # the same rows through the same routine: bit-equal
         if not torch.equal(got, out):
             raise AssertionError(f"kernel 9 (bf16) differs from the fused "
@@ -2157,7 +2233,8 @@ def _bf16_phase(card, per_kernel) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
     launches = dict(_kernels.LAUNCHES)
-    missing = [k for k in BF16_INFERENCE_KERNELS if launches[k] == 0]
+    missing = [k for k in BF16_INFERENCE_KERNELS + BF16R_INFERENCE_KERNELS
+               if launches[k] == 0]
     f32 = [k for k in BF16_MODES if launches[k]]
     if missing or f32:
         raise AssertionError(f"the bf16 path launched no {missing}, and "
@@ -2713,16 +2790,61 @@ def _shared_card_rank(group, rpn_host, ioun_host, pts) -> dict:
     return out
 
 
-def _global_parity(ranks, single) -> str:
+@contextlib.contextmanager
+def _split_bn_sums(parts: int = 2, reverse: bool = False):
+    """BatchNorm's batch statistics summed as `parts` ranks of a global
+    batch sum them (parallel.global_batch.mean_var at W = parts), in one
+    process: the sums over each of `parts` equal slices of the batch axis,
+    added in turn (the last slice first with `reverse`), over the whole
+    count; then the squared deviations from that mean likewise (parts 1:
+    the unsplit two-pass sums). A test helper, not an option of the
+    package: it swaps global_batch.mean_var while the context is open."""
+    import torch
+    from ws3d_tpu_torch.parallel import global_batch
+
+    def mean_var(x):
+        axes = tuple(range(x.dim() - 1))
+        edges = [i * (x.shape[0] // parts) for i in range(parts)]
+        slices = list(zip(edges, edges[1:] + [x.shape[0]]))
+        slices = slices[::-1] if reverse else slices
+        count = x.numel() // x.shape[-1]
+
+        def summed(t):
+            out = torch.sum(t[slices[0][0]:slices[0][1]], dim=axes)
+            for a, b in slices[1:]:
+                out = out + torch.sum(t[a:b], dim=axes)
+            return out
+        mean = summed(x) / count
+        d = x - mean
+        return mean, summed(d * d) / count
+
+    saved = global_batch.mean_var
+    global_batch.mean_var = mean_var
+    try:
+        yield
+    finally:
+        global_batch.mean_var = saved
+
+
+def _grad_gaps(got, ref) -> tuple:
+    """(worst tensor's name, its gap, the median gap) of the gradients
+    `got` against `ref`, each max|diff| over its tensor's max."""
+    import numpy as np
+    gaps = {k: _gap(got[k], g) for k, g in ref.items()}
+    worst = max(gaps, key=gaps.get)
+    return worst, gaps[worst], float(np.median(list(gaps.values())))
+
+
+def _global_parity(ranks, single, split) -> str:
     """Phase 22 (b)'s gate of the global-batch stage-1 step on two ranks
     (8 scenes each) against the single 16-scene step: the replicas
     bit-equal; the loss within 1e-5 relative; every new BN statistic
-    within 1e-5 relative (atol 1e-5 of its tensor's max); every applied
-    gradient within GLOBAL_GRAD_WORST of its tensor's max and the median
-    tensor within GLOBAL_GRAD_MEDIAN (the reductions sum each rank's rows,
-    then the ranks' sums, and the few-sample BatchNorms of SA3 and FP3
-    amplify that rounding). Returns the readings."""
-    import numpy as np
+    within 1e-5 relative (atol 1e-5 of its tensor's max); the applied
+    gradients' worst gap to the single step's within GLOBAL_GRAD_FACTOR
+    times that of `split`, the single step with each BN's sums split in
+    two as the ranks split them, between GLOBAL_GRAD_WORST_FLOOR and
+    GLOBAL_GRAD_WORST; their median gap below GLOBAL_GRAD_MEDIAN. Returns
+    the readings."""
     from ws3d_tpu_torch.parallel.dryrun import max_diff
     g0, g1 = ranks[0]["global"], ranks[1]["global"]
     if max_diff(g0["state"], g1["state"]) != 0.0 or g0["loss"] != g1["loss"]:
@@ -2739,20 +2861,25 @@ def _global_parity(ranks, single) -> str:
             raise AssertionError(f"global-batch step: BN statistic {k} off "
                                  f"by {d.max().item():.3g}")
         bn_worst = max(bn_worst, _gap(g0["state"][k], v))
-    gaps = {k: _gap(g0["grads"][k], g) for k, g in single["grads"].items()}
-    worst = max(gaps, key=gaps.get)
-    median = float(np.median(list(gaps.values())))
+    worst, gap, median = _grad_gaps(g0["grads"], single["grads"])
+    s_worst, s_gap, s_median = _grad_gaps(split["grads"], single["grads"])
+    bound = min(max(GLOBAL_GRAD_FACTOR * s_gap, GLOBAL_GRAD_WORST_FLOOR),
+                GLOBAL_GRAD_WORST)
+    bound_median = GLOBAL_GRAD_MEDIAN
     missing = [k for k in TRAIN_KERNELS
                if not (g0["launches"][k] and g1["launches"][k])]
     note = (f"global-batch stage-1 step (data_parallel_jit) on 8 + 8 "
             f"scenes: loss {g0['loss']:.6f} vs the single step's "
             f"{ref_loss:.6f} (rel {rel:.3g}), BN statistics within "
             f"{bn_worst:.3g} of their tensors' max, gradients within "
-            f"{gaps[worst]:.3g} ({worst}; <= {GLOBAL_GRAD_WORST}), median "
-            f"{median:.3g} (<= {GLOBAL_GRAD_MEDIAN}), replicas bit-equal; "
-            f"a step {[round(t, 1) for t in g0['ms']]} ms on two ranks")
-    if not (rel <= 1e-5 and gaps[worst] <= GLOBAL_GRAD_WORST
-            and median <= GLOBAL_GRAD_MEDIAN) or missing:
+            f"{gap:.3g} ({worst}; <= {bound:.3g}), median {median:.3g} "
+            f"(<= {bound_median:.3g}); the single step with its BN sums "
+            f"split in two: loss {split['aux']['loss']:.6f}, gradients "
+            f"within {s_gap:.3g} ({s_worst}), median {s_median:.3g}; "
+            f"replicas bit-equal; a step "
+            f"{[round(t, 1) for t in g0['ms']]} ms on two ranks")
+    if not (rel <= 1e-5 and gap <= bound and median <= bound_median) \
+            or missing:
         raise AssertionError(f"{note}; launched no {missing}")
     return note
 
@@ -2800,6 +2927,11 @@ def _scaleout_phase(card, phase6_ms: float) -> dict:
     with _deterministic():
         cfg_s, model = _shared_card_models("rpn", "cuda")
         single = dict(zip(("state", "aux", "grads"), one_step(
+            cfg_s, "rpn", model, rpn_host, None)[:3]))
+    # and that step with its BN sums split as the two gloo ranks split them
+    with _deterministic(), _split_bn_sums():
+        cfg_s, model = _shared_card_models("rpn", "cuda")
+        split = dict(zip(("state", "aux", "grads"), one_step(
             cfg_s, "rpn", model, rpn_host, None)[:3]))
     del model
     torch.cuda.empty_cache()
@@ -2943,7 +3075,7 @@ def _scaleout_phase(card, phase6_ms: float) -> dict:
                      f"{[round(t, 1) for t in ref_ms]} ms alone")
         del model
         torch.cuda.empty_cache()
-    notes.append(_global_parity(ranks, single))
+    notes.append(_global_parity(ranks, single, split))
     launches["scaleout_global_gloo2"] = {
         k: ranks[0]["global"]["launches"][k]
         + ranks[1]["global"]["launches"][k]
@@ -2994,6 +3126,42 @@ def _bn_stats(net) -> dict:
             if k.endswith((".mean", ".var"))}
 
 
+def _small_step(stage: str, host_batch, dtype: str, device: str) -> tuple:
+    """(loss, f32 gradients on the CPU, BN statistics) of one `stage` step
+    on `host_batch` in `dtype` on `device`, no dropout."""
+    import torch
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.training.trainer import (batch_to_device,
+                                                 rcnn_gradients,
+                                                 rpn_gradients, step_inputs,
+                                                 trainable_parameters)
+    if stage == "rpn":
+        cfg = load_config()
+        cfg.RPN.DP_RATIO = 0.0
+    else:
+        cfg = _stage2_cfg(stage)
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    if stage == "rpn":
+        m = _rpn_model(cfg, device)
+        net = m.rpn
+        loss, _, grads = rpn_gradients(
+            m, cfg, batch_to_device(host_batch, device), None, 0.1,
+            dict(net.named_parameters(prefix="rpn")))
+    else:
+        m = _stage2_model(cfg, device)
+        net = m.rcnn
+        loss, _, grads = rcnn_gradients(
+            m, cfg, stage,
+            batch_to_device(host_batch, device,
+                            step_inputs(stage, host_batch)),
+            None, 0.1, trainable_parameters(m, stage))
+    if {g.dtype for g in grads.values()} != {torch.float32}:
+        raise AssertionError(f"{stage} {dtype} {device}: gradients not all "
+                             f"f32")
+    return (float(loss), {k: g.cpu() for k, g in grads.items()},
+            _bn_stats(net))
+
+
 def _bf16_small(stage: str, host_batch) -> str:
     """Phase 23 (c): one bf16 step of `stage` on a small batch on the card
     and on the CPU (the plain versions), and one f32 step on the CPU, from
@@ -3002,56 +3170,27 @@ def _bf16_small(stage: str, host_batch) -> str:
     BF16_GRAD_MEDIAN[stage] and below half the CPU's bf16-vs-f32 median
     gap, BN statistics within BF16_BN_TOL. Returns the readings."""
     import numpy as np
-    import torch
-    from ws3d_tpu_torch.config import load_config
-    from ws3d_tpu_torch.training.trainer import (batch_to_device,
-                                                 rcnn_gradients,
-                                                 rpn_gradients, step_inputs,
-                                                 trainable_parameters)
-    res = []
-    for dtype, device in (("bfloat16", "cuda"), ("bfloat16", "cpu"),
-                          ("float32", "cpu")):
-        if stage == "rpn":
-            cfg = load_config()
-            cfg.RPN.DP_RATIO = 0.0
-        else:
-            cfg = _stage2_cfg(stage)
-        cfg.TPU.COMPUTE_DTYPE = dtype
-        if stage == "rpn":
-            m = _rpn_model(cfg, device)
-            net = m.rpn
-            loss, _, grads = rpn_gradients(
-                m, cfg, batch_to_device(host_batch, device), None, 0.1,
-                dict(net.named_parameters(prefix="rpn")))
-        else:
-            m = _stage2_model(cfg, device)
-            net = m.rcnn
-            loss, _, grads = rcnn_gradients(
-                m, cfg, stage,
-                batch_to_device(host_batch, device,
-                                step_inputs(stage, host_batch)),
-                None, 0.1, trainable_parameters(m, stage))
-        if {g.dtype for g in grads.values()} != {torch.float32}:
-            raise AssertionError(f"{stage} {dtype} {device}: gradients not "
-                                 f"all f32")
-        res.append((float(loss), {k: g.cpu() for k, g in grads.items()},
-                    _bn_stats(net)))
-        del m, net
-    (gl, gg, gs), (cl, cg, cs), (fl, fg, _) = res
+    (gl, gg, gs), (cl, cg, cs), (fl, fg, _) = (
+        _small_step(stage, host_batch, dtype, device)
+        for dtype, device in (("bfloat16", "cuda"), ("bfloat16", "cpu"),
+                              ("float32", "cpu")))
     keys = [k for k in cg if cg[k].abs().max() > 0]
-    gap = float(np.median([_gap(gg[k], cg[k]) for k in keys]))
-    own = float(np.median([_gap(cg[k], fg[k]) for k in keys]))
+
+    def median_gap(a, ref):
+        return float(np.median([_gap(a[k], ref[k]) for k in keys]))
+    gap, own = median_gap(gg, cg), median_gap(cg, fg)
     bn = max((_gap(gs[k], cs[k]) for k in cs), default=0.0)
     rel = abs(gl - cl) / abs(cl)
+    ok = (math.isfinite(gl) and math.isfinite(cl)
+          and gap <= BF16_GRAD_MEDIAN[stage] and gap <= 0.5 * own
+          and bn <= BF16_BN_TOL)
     note = (f"{stage}: loss GPU bf16 {gl:.6f}, CPU bf16 {cl:.6f} (rel "
             f"{rel:.3g}), CPU f32 {fl:.6f}; median gradient gap GPU-CPU "
             f"bf16 {gap:.4g} (<= {BF16_GRAD_MEDIAN[stage]} and <= half the "
             f"CPU's bf16-vs-f32 {own:.4g}) over {len(keys)} tensors; BN "
             f"statistics {bn:.3g} (<= {BF16_BN_TOL})")
     print(f"#   {note}", flush=True)
-    if not (math.isfinite(gl) and math.isfinite(cl)
-            and gap <= BF16_GRAD_MEDIAN[stage] and gap <= 0.5 * own
-            and bn <= BF16_BN_TOL):
+    if not ok:
         raise AssertionError(f"phase 23 small batch: {note}")
     return note
 
@@ -3190,6 +3329,152 @@ def _bf16_train_phase(card, per_kernel, f32_steps) -> dict:
           + "; ".join(notes), flush=True)
     print(f"# phase 23: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+def _bench_phase(card, per_kernel, f32_steps) -> dict:
+    """Phase 24 (see the module docstring); returns the launch counts of
+    the bench's loops."""
+    import io
+    import torch
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.tools import bench
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    # (a) tools.bench at its defaults (batch 64, bf16), in-process
+    out = io.StringIO()
+    _kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        bench.main()
+    launches["bench_bf16"] = dict(_kernels.LAUNCHES)
+    printed = out.getvalue().splitlines()
+    for line in printed:
+        print(f"# phase 24: tools.bench: {line}", flush=True)
+    line = json.loads(printed[-1])
+    batches = bench.WARMUP + bench.ITERS
+    got = {k: v for k, v in launches["bench_bf16"].items() if v}
+    missing = [k for k in BF16_INFERENCE_KERNELS + BF16R_INFERENCE_KERNELS
+               if k not in got]
+    total = line["weights_overlaid"].split("/")
+    if missing or not (
+            line["weights"] == "fitted" and total[0] == total[1] != "0"
+            and line["detections_last_batch"] > 0
+            and math.isfinite(line["value"]) and line["value"] > 0
+            and line["batch"] == bench.DEFAULT_BATCH
+            and line["kitti_dump"] == "overlapped"):
+        raise AssertionError(f"tools.bench: {line}; launched no {missing}")
+    print(f"# phase 24: {card}: tools.bench bf16, {batches} batches of "
+          f"{line['batch']}: {line['value']} scenes/s with max_spilled "
+          f"{line['max_spilled']} (stage-2 slots a batch dropped: not the "
+          f"spill-free rate of phases 3 and 17); launches a batch "
+          f"{ {k: v / batches for k, v in got.items()} }", flush=True)
+    # the same loop in f32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    f32 = bench.run(bench.bench_config("float32"),
+                    batch=bench.DEFAULT_BATCH)
+    launches["bench_f32"] = dict(_kernels.LAUNCHES)
+    f32["device"] = card
+    missing = [k for k in INFERENCE_KERNELS if not launches["bench_f32"][k]]
+    if missing or not (math.isfinite(f32["value"]) and f32["value"] > 0):
+        raise AssertionError(f"tools.bench f32: {f32}; launched no "
+                             f"{missing}")
+    print(f"# phase 24: tools.bench f32: {f32['value']} scenes/s with "
+          f"max_spilled {f32['max_spilled']}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{json.dumps(f32)}", flush=True)
+    print(f"# phase 24: tools.bench in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # (b) the kernel calls of these paths at their shapes against the plain
+    # versions: an inference batch of 64 in bf16 and in f32, a stage-1 step
+    # at batch 25 (times stay out of the kernels line's totals)
+    _bench_kernels(per_kernel)
+
+    # (c) tools.bench_train --split at its defaults, one process a stage
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    run = subprocess.run(
+        [sys.executable, "-m", "ws3d_tpu_torch.tools.bench_train",
+         "--split"], cwd=ROOT, capture_output=True, text=True)
+    if run.returncode:
+        raise AssertionError(f"tools.bench_train --split exited with "
+                             f"{run.returncode}: {run.stderr[-4000:]}")
+    records = [json.loads(x) for x in run.stdout.splitlines()
+               if x.startswith("{")]
+    for x in run.stdout.splitlines():
+        if not x.startswith("{"):
+            print(f"# phase 24: tools.bench_train: {x}", flush=True)
+    keys = ("device_ms_per_step", "fwd_ms", "bwd_ms")
+    if [r["stage"] for r in records] != ["rpn", "rcnn", "ioun"] or not all(
+            math.isfinite(r[k]) and r[k] > 0 for r in records for k in keys):
+        raise AssertionError(f"tools.bench_train --split: {records}")
+    for r, phase in zip(records, (6, 9, 10)):
+        ms = f32_steps[r["stage"]][0]
+        print(f"# phase 24: {json.dumps(r)}", flush=True)
+        print(f"# phase 24: {card}: bench_train {r['stage']} "
+              f"{r['steps_per_sec']} steps/s at batch {r['batch']} "
+              f"(seeded init; fwd {r['fwd_ms']} + bwd {r['bwd_ms']} + "
+              f"optimizer {r['optimizer_ms']} ms); phase {phase} "
+              f"{1e3 / ms:.3f} steps/s (fitted weights"
+              + (f", batch {BATCH})" if r["stage"] == "rpn" else ")"),
+              flush=True)
+    print(f"# phase 24: tools.bench_train in {time.perf_counter() - t0:.1f} "
+          f"s; phase 24 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def _bench_kernels(per_kernel) -> None:
+    """Phase 24 (b): every kernel call of one inference batch of 64 through
+    tools.bench's model (fitted npz) and first input batch, in bf16 and in
+    f32, and of one stage-1 step at batch 25 through tools.bench_train's
+    seeded model and batch, against its plain version (compare_call's
+    gates); each path must have called each of its kernels."""
+    import torch
+    from ws3d_tpu_torch.config import load_config
+    from ws3d_tpu_torch.models import build_model
+    from ws3d_tpu_torch.pipeline import make_two_stage_fn
+    from ws3d_tpu_torch.tools import bench, bench_train
+
+    def compared(path, calls, want, t0):
+        rows = _compare_aside(calls, per_kernel, path)
+        keys = {r[0] for r in rows}
+        missing = [k for k in want if k not in keys]
+        if missing:
+            raise AssertionError(f"phase 24 {path}: no call of {missing}")
+        print(f"# phase 24: {path}: {len(rows)} kernel calls compared "
+              f"({time.perf_counter() - t0:.1f} s): "
+              + ", ".join(f"{k} {sum(r[0] == k for r in rows)}"
+                          for k in sorted(keys)), flush=True)
+
+    for dtype, path, want in (
+            ("bfloat16", "bench_bf16",
+             BF16_INFERENCE_KERNELS + BF16R_INFERENCE_KERNELS),
+            ("float32", "bench_f32", INFERENCE_KERNELS)):
+        t0 = time.perf_counter()
+        cfg = bench.bench_config(dtype)
+        model = build_model(cfg, device="cuda")
+        bench.load_weights(model)
+        fn = make_two_stage_fn(model, cfg)
+        buf = bench.input_batches(cfg, bench.DEFAULT_BATCH, 1, "cuda")[0]
+        with Recorder() as rec:
+            fn(buf)
+            torch.cuda.synchronize()
+        del model, fn, buf
+        compared(path, rec.calls, want, t0)
+        del rec
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    b = bench_train.rpn_bench(load_config(), 25, "cuda")
+    with Recorder() as rec:
+        b.gradients(b.batch, b.generator)
+        torch.cuda.synchronize()
+    del b
+    compared("bench_train_rpn", rec.calls, TRAIN_KERNELS, t0)
+    del rec
+    torch.cuda.empty_cache()
 
 
 def _snapshot(trainer) -> list:

@@ -14,7 +14,7 @@ BANNED = ("jax", "flax", "optax", "orbax", "tools", "common")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, f) for f in ("chip_smoke.py", "chip_gaps.py")]
     for root, dirs, files in os.walk(os.path.join(REPO, "ws3d_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]       # build outputs
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]

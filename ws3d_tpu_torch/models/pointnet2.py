@@ -31,7 +31,12 @@ f32 centre offsets promotes them, as in the JAX package. The BN-free
 stacks' train path (FusedSA) runs the fused SA's rounded-layer bf16 mode
 instead, each layer rounded as flax's bf16 Dense rounds it (the JAX
 package's bf16 XLA composition), and differentiates that composition
-(ops/fused_sa_idx.py).
+(ops/fused_sa_idx.py). Their eval takes the same rounded-layer mode: it
+matches the JAX package's XLA bf16 eval of the RCNN and IOUN outputs
+within 3.1e-7 of their f32 range, where the bf16 mode (f32 bias and
+layers) sits 1.3e-4 to 7.1e-3 away (tests/test_torch_bf16_eval_mode.py).
+The BN stacks' eval keeps the bf16 mode: BatchNorm is folded into their
+weights, so no layer output exists to round before it.
 """
 from __future__ import annotations
 
@@ -109,11 +114,12 @@ class PointnetSAModuleMSG(nn.Module):
                     kernels, biases, window, bf16=self.dtype is not None))
                 continue
             kernels, biases = mlp.folded()
+            bf16 = self.dtype is not None
             outs.append(fused_sa(
                 xyz, features, new_xyz, self.radii[i], self.nsamples[i],
                 kernels, biases, window,
                 params=mlp.packed() if xyz.is_cuda else None,
-                bf16=self.dtype is not None))
+                bf16=bf16, round_layers=bf16 and not self.use_bn))
         return new_xyz, torch.cat(outs, dim=-1)
 
     def _grouped_forward(self, xyz, features, new_xyz, train, bn_momentum):

@@ -27,8 +27,9 @@ mode. In bf16 its forward is the kernels' rounded-layer mode (the
 round_layers argument: each layer's output rounded as flax's
 Dense(dtype=bfloat16) rounds it, the bias added in bf16), which is the JAX
 package's bf16 XLA composition, and its backward the VJP of that composition
-(sa_from_idx_backward's bf16 mode; fused_sa_idx's docstring). Eval keeps the
-bf16 mode with f32 bias and last layer. Like the JAX custom VJPs
+(sa_from_idx_backward's bf16 mode; fused_sa_idx's docstring). The
+BN-free stacks' eval takes the rounded-layer mode too; the BN stacks' eval
+keeps the bf16 mode with f32 bias and last layer. Like the JAX custom VJPs
 (fused_sa_bq_pallas.py:213-239, fused_sa_window_pallas.py:326-351) it saves
 only xyz, features, new_xyz and the weights, never the grouped tensor. Its
 backward takes the ball-query indices from kernel 6 (grouping.ball_query)

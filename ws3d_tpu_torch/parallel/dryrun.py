@@ -1,11 +1,13 @@
 """The multi-rank parity dryrun: the port's twin of
 __graft_entry__.dryrun_multichip.
 
-    python -m ws3d_tpu_torch.parallel.dryrun 2            # gloo, CPU
-    python -m ws3d_tpu_torch.parallel.dryrun 4 --device cuda   # NCCL, 4 GPUs
+    python -m ws3d_tpu_torch.parallel.dryrun 4                 # NCCL, 4 GPUs
+    python -m ws3d_tpu_torch.parallel.dryrun 2 --device cpu    # gloo, CPU
 
-dryrun_multichip(n, device) starts n ranks (parallel.launch) and runs the
-JAX dryrun's three suites at its shapes and bounds:
+dryrun_multichip(n, device) starts n ranks (parallel.launch; by default
+one card a rank over NCCL, which raises with more ranks than visible cards
+and never switches to gloo; device="cpu" for gloo ranks on the CPU) and
+runs the JAX dryrun's three suites at its shapes and bounds:
 
 1. the stage-1 RPN train step at the tiny shapes (256 points, SA npoints
    64/32/16/8, DP_RATIO 0): exact parity with the single-process step when
@@ -289,12 +291,16 @@ def _check_infer(n: int, ranks: list) -> list:
     return lines
 
 
-def dryrun_multichip(n_devices: int, device="cpu", timeout: float = 1800.0,
+def dryrun_multichip(n_devices: int, device=None, timeout: float = 1800.0,
                      log=print) -> None:
-    """Run the three suites on `n_devices` ranks (gloo on the CPU; NCCL,
-    one card a rank, for device="cuda") and raise AssertionError unless
-    every bound holds."""
+    """Run the three suites on `n_devices` ranks (NCCL, one card a rank,
+    for device None or "cuda"; gloo on the CPU for device="cpu") and raise
+    AssertionError unless every bound holds."""
+    from ws3d_tpu_torch.device import resolve_device
     from ws3d_tpu_torch.parallel import launch
+    if device is None:
+        resolve_device()            # raises without a CUDA device
+        device = "cuda"             # one card a rank
     ranks = launch(_suites, n_devices, device=device, timeout=timeout)
     log(_check_train(n_devices, "rpn", [r["rpn"] for r in ranks], 5e-2))
     log(_check_train(n_devices, "ioun", [r["ioun"] for r in ranks], 0.15))
@@ -305,8 +311,9 @@ def dryrun_multichip(n_devices: int, device="cpu", timeout: float = 1800.0,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("n", type=int, nargs="?", default=2)
-    p.add_argument("--device", default="cpu",
-                   help="cpu (gloo ranks) or cuda (NCCL, one card a rank)")
+    p.add_argument("--device", default=None,
+                   help="cuda (the default: NCCL, one card a rank) or cpu "
+                        "(gloo ranks)")
     args = p.parse_args(argv)
     dryrun_multichip(args.n, device=args.device)
     return 0
