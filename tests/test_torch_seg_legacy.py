@@ -5,9 +5,10 @@ gradients within 2e-3 (see the test), the BN running statistics within
 1e-4, Adam's update against optax.adam on the same
 gradients within 1e-6); proposal_layer (exact slots, boxes within 1e-6);
 roi_target with a shared RandomState (equal draws and selections, floats
-within 1e-5: two IoU implementations); the T-Net (1e-4 of the largest magnitude); the profiling
-helpers."""
+within 1e-5: two IoU implementations); the T-Net (1e-4 of the largest magnitude); the tracer's
+spans and counters through trace_context."""
 import copy
+import json
 
 import jax
 import jax.numpy as jnp
@@ -291,25 +292,24 @@ def test_transformer_matches_jax(rng):
 
 # ------------------------------------------------------------ profiling
 def test_profiling_helpers(tmp_path):
-    from ws3d_tpu.utils.profiling import ThroughputMeter as JaxMeter
-    from ws3d_tpu_torch.utils.profiling import (ThroughputMeter, Timer,
-                                                force_sync, trace_context)
-    x = {"a": [torch.ones(3)], "b": (torch.zeros(2), 1)}
-    force_sync(x)                                   # CPU tensors: nothing
-    with Timer(x) as tm:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert tm.elapsed > 0.0
-    meters = (ThroughputMeter(warmup=2), JaxMeter(warmup=2))
-    for m in meters:
-        assert m.per_sec == 0.0
-        for _ in range(2):
-            m.tick(8)
-        assert m.per_sec == 0.0 and m.items == 0
-        m.tick(8)
-    assert [m.items for m in meters] == [8, 8]
-    assert all(m.per_sec > 0 for m in meters)
+    from ws3d_tpu_torch.utils.profiling import (TRACE, count, span,
+                                                trace_context)
     with trace_context(None) as prof:
         assert prof is None
+    with span("off"):                          # no profiler: nothing kept
+        count("off")
     with trace_context(str(tmp_path / "trace")):
-        torch.ones(8).sum()
+        with span("outer", step=7):
+            with span("inner"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+            count("items", 8)
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    assert "ws3d::inner" in (tmp_path / "trace" / "trace.json").read_text()
+    spans = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    inner, outer = spans["spans"]
+    assert (inner["name"], outer["name"]) == ("inner", "outer")
+    assert inner["parent"] == outer["id"] and inner["step"] == 7
+    assert outer["start"] <= inner["start"] < inner["end"] <= outer["end"]
+    assert set(spans["totals"]) == {"inner", "outer"}
+    assert spans["counters"] == {"items": 8}
+    assert TRACE.totals()["counters"] == {"items": 8}

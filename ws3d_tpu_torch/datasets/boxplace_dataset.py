@@ -25,6 +25,8 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from ws3d_tpu_torch.utils.profiling import span
+
 NPOINTS = 512
 
 
@@ -75,6 +77,7 @@ class BoxPlaceDataset:
     def __len__(self):
         return len(self.index)
 
+    @span("loader.sample")
     def get_sample(self, idx: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
         db_i, aug_flag = self.index[idx]
@@ -256,12 +259,14 @@ class BoxPlaceDataset:
             idxs = (self.rng.permutation(len(self)) if shuffle
                     else np.arange(len(self)))
             for lo in range(0, len(idxs) - batch_size + 1, batch_size):
-                chunk = [self.get_sample(int(i))
-                         for i in idxs[lo:lo + batch_size]]
-                batch = {k: np.stack([c[k] for c in chunk]) for k in chunk[0]}
-                use_prob = self.rng.random_sample() <= prob_mask_ratio
-                batch["train_mask"] = (batch["cur_prob_mask"] if use_prob
-                                       else batch["gt_mask"])
+                with span("loader.batch"):
+                    chunk = [self.get_sample(int(i))
+                             for i in idxs[lo:lo + batch_size]]
+                    batch = {k: np.stack([c[k] for c in chunk])
+                             for k in chunk[0]}
+                    use_prob = self.rng.random_sample() <= prob_mask_ratio
+                    batch["train_mask"] = (batch["cur_prob_mask"] if use_prob
+                                           else batch["gt_mask"])
                 yield batch
                 count += 1
                 if steps is not None and count >= steps:

@@ -12,6 +12,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from ws3d_tpu_torch.utils.profiling import span
+
 CLASS_IDS = {"Car": 1, "Pedestrian": 2, "Cyclist": 3, "Van": 4}
 
 
@@ -195,6 +197,7 @@ def boxes3d_to_corners3d_np(boxes3d: np.ndarray) -> np.ndarray:
     return np.stack([xr, ys + y, zr], axis=-1).astype(np.float32)
 
 
+@span("kitti_io.save")
 def save_kitti_format(sample_id, calib, bbox3d, out_dir, scores, img_shape,
                       classes="Car"):
     """KITTI txt writer: project the corners, clip them to the image and

@@ -11,6 +11,7 @@ from torch import nn
 from ws3d_tpu_torch.device import resolve_device
 from ws3d_tpu_torch.models.rcnn import RCNNNet
 from ws3d_tpu_torch.models.rpn import RPN
+from ws3d_tpu_torch.utils.profiling import span
 
 
 class PointRCNN(nn.Module):
@@ -21,6 +22,7 @@ class PointRCNN(nn.Module):
         self.rcnn: Optional[RCNNNet] = (
             RCNNNet(cfg) if (cfg.RCNN.ENABLED or cfg.IOUN.ENABLED) else None)
 
+    @span("rpn.forward")
     def rpn_forward(self, batch, train: bool = False,
                     bn_momentum: float = 0.1,
                     generator: Optional[torch.Generator] = None):
@@ -40,10 +42,12 @@ class PointRCNN(nn.Module):
                          train=train, bn_momentum=bn_momentum,
                          generator=generator)
 
+    @span("rcnn.trunk")
     def rcnn_trunk_forward(self, batch):
         return self.rcnn.trunk(batch["cur_box_point"],
                                batch["cur_box_reflect"], batch["train_mask"])
 
+    @span("ioun.forward")
     def ioun_forward(self, batch):
         return self.rcnn.cascade_fwd(
             batch["cur_box_point"], batch["cur_box_reflect"],

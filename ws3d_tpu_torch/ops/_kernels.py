@@ -7,9 +7,10 @@ and flags>/``, so a fresh checkout needs nothing but the CUDA toolkit.
 
 Every wrapper in ``ws3d_tpu_torch.ops`` follows one contract: on a CPU tensor
 it runs its plain PyTorch version; on a CUDA tensor it checks device, dtype,
-shape and contiguity, launches its kernel on the current stream, raises if the
-launch was refused, and adds one to its entry in ``LAUNCHES``. Nothing falls
-back from the kernel to the plain version.
+shape and contiguity and calls ``launch``, which launches its kernel on the
+current stream inside the span ``kernel.<name>``, raises if the launch was
+refused, and adds one to its entry in ``LAUNCHES``. Nothing falls back from
+the kernel to the plain version.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+from ws3d_tpu_torch.utils.profiling import span
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -184,6 +187,17 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, entry: str, *args) -> None:
+    """Call the library's `entry` with `args` inside the span
+    kernel.<name>, raise if the launch was refused, and add one to
+    LAUNCHES[name]."""
+    fn = getattr(library(), entry)
+    with span("kernel." + name):
+        rc = fn(*args)
+    raise_on_error(rc, name)
+    LAUNCHES[name] += 1
 
 
 def raise_on_error(rc: int, kernel: str) -> None:

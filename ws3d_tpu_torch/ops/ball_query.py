@@ -70,11 +70,10 @@ def ball_query_multi_cuda(radii: Sequence[float], nsamples: Sequence[int],
                              device=xyz.device) for s in nsamples)
     ptrs = (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs])
     bounds = _kernels.chunk_bounds_workspace(xyz)
-    rc = _kernels.library().ws3d_ball_query(
+    _kernels.launch(
+        "ball_query", "ws3d_ball_query",
         xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, len(outs), r2, ns, ptrs,
         bounds.data_ptr(), _kernels.stream_ptr(xyz))
-    _kernels.raise_on_error(rc, "ball_query")
-    _kernels.LAUNCHES["ball_query"] += 1
     return outs
 
 
@@ -117,13 +116,12 @@ def ball_query_wrap_cuda(radii: Sequence[float], nsamples: Sequence[int],
                 for _ in nsamples)
     n = len(idx)
     bounds = _kernels.chunk_bounds_workspace(xyz)
-    rc = _kernels.library().ws3d_ball_query_wrap(
+    _kernels.launch(
+        "ball_query_wrap", "ws3d_ball_query_wrap",
         xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, n, r2, ns,
         (ctypes.c_void_p * n)(*[o.data_ptr() for o in idx]),
         (ctypes.c_void_p * n)(*[o.data_ptr() for o in cnt]),
         bounds.data_ptr(), _kernels.stream_ptr(xyz))
-    _kernels.raise_on_error(rc, "ball_query_wrap")
-    _kernels.LAUNCHES["ball_query_wrap"] += 1
     return idx, cnt
 
 

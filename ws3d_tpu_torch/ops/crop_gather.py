@@ -138,14 +138,13 @@ def crop_gather_cuda(xyz: torch.Tensor, channels: torch.Tensor,
     cnt = torch.empty((B, M), dtype=torch.int32, device=xyz.device)
     bounds = _kernels.chunk_bounds_workspace(xyz)
     r = float(radius)
-    rc = _kernels.library().ws3d_crop_gather(
+    key = "crop_gather" if z_window is None else "crop_gather_window"
+    _kernels.launch(
+        key, "ws3d_crop_gather",
         xyz.data_ptr(), channels.data_ptr(), centers_xz.data_ptr(), B, N, C,
         M, int(k), r * r, int(bool(grouped)),
         0 if z_window is None else int(z_window), vals.data_ptr(),
         cnt.data_ptr(), bounds.data_ptr(), _kernels.stream_ptr(xyz))
-    key = "crop_gather" if z_window is None else "crop_gather_window"
-    _kernels.raise_on_error(rc, key)
-    _kernels.LAUNCHES[key] += 1
     return vals, cnt
 
 

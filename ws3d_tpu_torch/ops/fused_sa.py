@@ -90,15 +90,14 @@ def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
     prec = (2 if round_layers else 1) if bf16 else 0
     # the search skips chunks by their z range (a pre-pass writes them)
     bounds = _kernels.chunk_bounds_workspace(xyz)
-    rc = _kernels.library().ws3d_fused_sa(
+    name = ("fused_sa_window" if window else "fused_sa_full") + (
+        "", "_bf16", "_bf16r")[prec]
+    _kernels.launch(
+        name, "ws3d_fused_sa",
         xyz.data_ptr(), features.data_ptr(), new_xyz.data_ptr(), B, P, C, M,
         r * r, int(nsample), int(bool(window)), prec, len(kernels),
         widths, params.data_ptr(), out.data_ptr(), bounds.data_ptr(),
         _kernels.stream_ptr(xyz))
-    name = ("fused_sa_window" if window else "fused_sa_full") + (
-        "", "_bf16", "_bf16r")[prec]
-    _kernels.raise_on_error(rc, name)
-    _kernels.LAUNCHES[name] += 1
     return out
 
 

@@ -144,14 +144,13 @@ def fused_sa_idx_cuda(xyz, features, new_xyz, idx, kernels, biases,
     widths, params = check_mlp("fused_sa_idx", C, kernels, biases, None)
     out = torch.empty((B, M, widths[len(kernels)]), dtype=torch.float32,
                       device=xyz.device)
-    rc = _kernels.library().ws3d_fused_sa_idx(
+    name = "fused_sa_idx_bf16" if bf16 else "fused_sa_idx"
+    _kernels.launch(
+        name, "ws3d_fused_sa_idx",
         xyz.data_ptr(), features.data_ptr(), new_xyz.data_ptr(),
         idx.data_ptr(), B, P, C, M, S, len(kernels), widths,
         params.data_ptr(), out.data_ptr(), int(bool(bf16)),
         _kernels.stream_ptr(xyz))
-    name = "fused_sa_idx_bf16" if bf16 else "fused_sa_idx"
-    _kernels.raise_on_error(rc, name)
-    _kernels.LAUNCHES[name] += 1
     return out
 
 

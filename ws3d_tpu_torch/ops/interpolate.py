@@ -87,12 +87,11 @@ def three_nn_cuda(unknown: torch.Tensor, known: torch.Tensor,
     bounds = _workspace(known, bounds, "three_nn bounds")
     d2 = torch.empty((B, n, 3), dtype=torch.float32, device=unknown.device)
     idx = torch.empty((B, n, 3), dtype=torch.int32, device=unknown.device)
-    rc = _kernels.library().ws3d_three_nn(
+    _kernels.launch(
+        "three_nn", "ws3d_three_nn",
         unknown.data_ptr(), known.data_ptr(), B, n, m, d2.data_ptr(),
         idx.data_ptr(), bounds.data_ptr(), int(fill),
         _kernels.stream_ptr(unknown))
-    _kernels.raise_on_error(rc, "three_nn")
-    _kernels.LAUNCHES["three_nn"] += 1
     return d2, idx
 
 
@@ -232,13 +231,12 @@ def three_interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
     out = torch.empty((B, n, C), device=unknown.device,
                       dtype=torch.bfloat16 if bf16_out else torch.float32)
     bounds = _workspace(known, bounds, "interpolate bounds")
-    rc = _kernels.library().ws3d_three_interpolate(
+    name = "three_interpolate_bf16" if bf16_out else "three_interpolate"
+    _kernels.launch(
+        name, "ws3d_three_interpolate",
         unknown.data_ptr(), known.data_ptr(), known_feats.data_ptr(), B, n, m,
         C, out.data_ptr(), bounds.data_ptr(), int(bool(bf16_out)),
         _kernels.stream_ptr(unknown))
-    name = "three_interpolate_bf16" if bf16_out else "three_interpolate"
-    _kernels.raise_on_error(rc, name)
-    _kernels.LAUNCHES[name] += 1
     return out
 
 
@@ -269,12 +267,11 @@ def three_interpolate_window_cuda(unknown: torch.Tensor, known: torch.Tensor,
     if with_nn:
         d2 = torch.empty((B, n, 3), dtype=torch.float32, device=unknown.device)
         idx = torch.empty((B, n, 3), dtype=torch.int32, device=unknown.device)
-    rc = _kernels.library().ws3d_three_interpolate_window(
+    _kernels.launch(
+        "three_interpolate_window", "ws3d_three_interpolate_window",
         unknown.data_ptr(), known.data_ptr(), known_feats.data_ptr(), B, n, m,
         C, out.data_ptr(), None if idx is None else idx.data_ptr(),
         None if d2 is None else d2.data_ptr(), _kernels.stream_ptr(unknown))
-    _kernels.raise_on_error(rc, "three_interpolate_window")
-    _kernels.LAUNCHES["three_interpolate_window"] += 1
     return (out, d2, idx) if with_nn else out
 
 

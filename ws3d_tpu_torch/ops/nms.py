@@ -9,8 +9,10 @@ from typing import Optional
 import torch
 
 from ws3d_tpu_torch.ops.iou3d import aligned_overlap_bev, boxes_iou_bev
+from ws3d_tpu_torch.utils.profiling import count, span
 
 
+@span("nms.sweep")
 def greedy_suppress(pair_mat: torch.Tensor, thresh: float,
                     valid: torch.Tensor) -> torch.Tensor:
     """Greedy sweep over rows already sorted by descending score.
@@ -19,6 +21,7 @@ def greedy_suppress(pair_mat: torch.Tensor, thresh: float,
     kept iff valid and no kept j < i has pair_mat[j, i] > thresh.
     """
     K = pair_mat.shape[-1]
+    count("nms.sweep_steps", K)
     suppress = pair_mat > thresh
     keep = torch.zeros_like(valid)
     for i in range(K):

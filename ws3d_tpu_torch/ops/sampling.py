@@ -40,11 +40,9 @@ def fps_cuda(xyz: torch.Tensor, npoint: int):
     idx = torch.empty((R, npoint), dtype=torch.int32, device=xyz.device)
     coords = torch.empty((R, npoint, 3), dtype=torch.float32,
                          device=xyz.device)
-    rc = _kernels.library().ws3d_fps(
-        xyz.data_ptr(), R, N, int(npoint), idx.data_ptr(),
+    _kernels.launch(
+        "fps", "ws3d_fps", xyz.data_ptr(), R, N, int(npoint), idx.data_ptr(),
         coords.data_ptr(), _kernels.stream_ptr(xyz))
-    _kernels.raise_on_error(rc, "fps")
-    _kernels.LAUNCHES["fps"] += 1
     return idx, coords
 
 

@@ -23,6 +23,7 @@ from ws3d_tpu_torch.ops.crop_gather import crop_gather
 from ws3d_tpu_torch.ops.iou3d import boxes_iou3d
 from ws3d_tpu_torch.ops.nms import greedy_suppress
 from ws3d_tpu_torch.parallel.mesh import all_gather
+from ws3d_tpu_torch.utils.profiling import span
 
 GROUND_Y = 1.65
 MIN_VOTE_DIST = 0.2
@@ -50,6 +51,7 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                         .expand(idx.shape + tail))
 
 
+@span("inference.propose")
 def rpn_propose(rpn_cls, rpn_reg, backbone_xyz, loc_scope: float,
                 loc_bin_size: float, score_thresh: float = 0.3,
                 pre_nms_top: int = 512, max_proposals: int = 64,
@@ -186,6 +188,7 @@ def crop_for_rcnn_batched(pts_input: torch.Tensor, scores_norm: torch.Tensor,
     return crops, empty
 
 
+@span("inference.finalize")
 def finalize_detections(boxes, rcnn_cls, rcnn_iou, centers_xz, valid,
                         rcnn_thresh: float = 0.3, iou_thresh: float = 0.3,
                         size_gate: bool = True):
@@ -293,14 +296,16 @@ def make_two_stage_fn(model, cfg, num_points: int = 512,
             else W * BK
         rows = None
         if V < W * BK:
-            key1 = torch.where(live_f, prop_scores.reshape(BK), -torch.inf)
-            _, sel1 = top_k(gather(key1), V)
-            spilled = spilled + live_g.sum() - live_g[sel1].sum()
-            local = sel1 - lo
-            mine = (local >= 0) & (local < BK)
-            rows, pos = local[mine], mine.nonzero()[:, 0]
-            live_t = live_f[rows]
-            crops_t = {k: v[rows] for k, v in flat.items()}
+            with span("inference.compact"):
+                key1 = torch.where(live_f, prop_scores.reshape(BK),
+                                   -torch.inf)
+                _, sel1 = top_k(gather(key1), V)
+                spilled = spilled + live_g.sum() - live_g[sel1].sum()
+                local = sel1 - lo
+                mine = (local >= 0) & (local < BK)
+                rows, pos = local[mine], mine.nonzero()[:, 0]
+                live_t = live_f[rows]
+                crops_t = {k: v[rows] for k, v in flat.items()}
         else:
             pos = torch.arange(lo, lo + BK, device=pts_input.device)
             live_t, crops_t = live_f, flat
@@ -312,23 +317,27 @@ def make_two_stage_fn(model, cfg, num_points: int = 512,
             V2 = min(_round8(W * B * ioun_budget), V) if ioun_budget > 0 \
                 else V
             if V2 < V:
-                gate = live_t & (torch.sigmoid(cls_t) > rcnn_thresh)
-                key2 = torch.where(gate, cls_t, -torch.inf)
-                if group is not None:     # the pool's keys, in pool order
-                    ours = torch.full((2, V), -torch.inf, device=key2.device)
-                    ours[0, pos] = key2.float()
-                    ours[1, pos] = gate.float()
-                    key2, gate = gather(ours).reshape(W, 2, V).amax(0)
-                    gate = gate > 0
-                _, sel2 = top_k(key2, V2)
-                spilled = spilled + gate.sum() - gate[sel2].sum()
-                row_at = torch.full((V,), -1, dtype=torch.int64,
-                                    device=cls_t.device)
-                row_at[pos] = torch.arange(n_t, device=cls_t.device)
-                sel2 = row_at[sel2]
-                sel2 = sel2[sel2 >= 0]    # our rows among the selected
-                crops_c = {k: v[sel2] for k, v in crops_t.items()}
-                crops_c["pred_boxes3d"] = boxes_t[sel2]
+                # the host waits here for the trunk: the boolean index of
+                # sel2 reads its length back
+                with span("inference.compact"):
+                    gate = live_t & (torch.sigmoid(cls_t) > rcnn_thresh)
+                    key2 = torch.where(gate, cls_t, -torch.inf)
+                    if group is not None:   # the pool's keys, in pool order
+                        ours = torch.full((2, V), -torch.inf,
+                                          device=key2.device)
+                        ours[0, pos] = key2.float()
+                        ours[1, pos] = gate.float()
+                        key2, gate = gather(ours).reshape(W, 2, V).amax(0)
+                        gate = gate > 0
+                    _, sel2 = top_k(key2, V2)
+                    spilled = spilled + gate.sum() - gate[sel2].sum()
+                    row_at = torch.full((V,), -1, dtype=torch.int64,
+                                        device=cls_t.device)
+                    row_at[pos] = torch.arange(n_t, device=cls_t.device)
+                    sel2 = row_at[sel2]
+                    sel2 = sel2[sel2 >= 0]  # our rows among the selected
+                    crops_c = {k: v[sel2] for k, v in crops_t.items()}
+                    crops_c["pred_boxes3d"] = boxes_t[sel2]
                 refined, iou_c = run(model.ioun_forward, crops_c,
                                      ("refined_box", "rcnn_iou"))
                 # non-cascaded slots keep the trunk box with iou = -inf

@@ -25,6 +25,11 @@ runs its batch/N scenes, the stage-2 compaction budget pooled over the
 whole batch as in a single process (the JAX tool's jit on a sharded
 batch), and the packed records are all-gathered in scene order; rank 0
 alone writes the txt files, the recall tally and the AP.
+
+With --profile_dir DIR the eval loop runs under torch.profiler (rank 0's,
+with --mesh): DIR/trace.json holds the trace, the program's ws3d:: spans
+among the kernels, and DIR/spans.json the spans, their totals and the
+counters (ws3d_tpu_torch.utils.profiling).
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from ws3d_tpu_torch.pipeline import make_two_stage_fn
 from ws3d_tpu_torch.tools.train_rpn import (base_parser, close_log,
                                             make_scene_source, run_ranks,
                                             setup)
+from ws3d_tpu_torch.utils.profiling import trace_context
 
 BENCH_WEIGHTS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -66,6 +72,9 @@ def main(argv=None) -> int:
                    help="data-parallel inference over N ranks: batches "
                         "sharded on the scene axis, the weights replicated "
                         "(requires --batch %% N == 0)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="profile the eval loop into DIR/trace.json and "
+                        "DIR/spans.json")
     args = p.parse_args(argv)
     if args.mesh:
         if max(args.batch, 1) % args.mesh:
@@ -99,9 +108,11 @@ def _run(args, group) -> int:
             n = load_npz(model, BENCH_WEIGHTS)
             log.info("loaded the fitted bench weights (%d tensors)", n)
         log.info("device: %s", next(model.parameters()).device)
-        run_eval(model, cfg, src, ds, log, scenes=args.scenes,
-                 batch=args.batch, output_dir=args.output_dir,
-                 no_ap=args.no_ap, group=group)
+        main_rank = group is None or group.is_main
+        with trace_context(args.profile_dir if main_rank else None):
+            run_eval(model, cfg, src, ds, log, scenes=args.scenes,
+                     batch=args.batch, output_dir=args.output_dir,
+                     no_ap=args.no_ap, group=group)
         return 0
     finally:
         close_log(log)

@@ -25,6 +25,11 @@ recall of the held-out crops' boxes (IOUN: of the refined boxes, and the
 predicted-IoU error), logged as `val @ step i:`, each eval saved as
 OUTPUT_DIR/<stage>_ckpt_e{k}.pt and the best as <stage>_ckpt_best.pt, the
 scalars in OUTPUT_DIR/tb/scalars.jsonl.
+
+With --profile_dir DIR the training loop runs under torch.profiler:
+DIR/trace.json holds the trace, the program's ws3d:: spans among the
+kernels, and DIR/spans.json the spans (the prefetch thread's too), their
+totals and the counters (ws3d_tpu_torch.utils.profiling).
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import sys
 import numpy as np
 
 from ws3d_tpu_torch.tools.train_rpn import base_parser, close_log, setup
+from ws3d_tpu_torch.utils.profiling import trace_context
 
 STAGE_ALIASES = {"rcnn": "rcnn", "cascade1": "rcnn", "ioun": "ioun",
                  "cascade_later": "ioun"}
@@ -57,6 +63,9 @@ def main(argv=None) -> int:
                         "eval (0 disables)")
     p.add_argument("--val_every", type=int, default=None,
                    help="eval cadence in steps (default total/20)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="profile the training loop into DIR/trace.json "
+                        "and DIR/spans.json")
     args = p.parse_args(argv)
     cfg, log = setup(args, "train_cascade")
     try:
@@ -155,10 +164,11 @@ def train(args, cfg, log) -> int:
                                                     shuffle=False))
         log.info("in-training val: %d held-out crops", len(val_ds))
 
-    trainer.train_steps(batches(), total_steps=args.steps,
-                        log_every=max(args.steps // 100, 1),
-                        epoch_size=epoch_size, ckpt_dir=args.output_dir,
-                        val_fn=val_fn, val_every=args.val_every)
+    with trace_context(args.profile_dir):
+        trainer.train_steps(batches(), total_steps=args.steps,
+                            log_every=max(args.steps // 100, 1),
+                            epoch_size=epoch_size, ckpt_dir=args.output_dir,
+                            val_fn=val_fn, val_every=args.val_every)
     if trainer.best_val is not None:
         log.info("best val: %s", trainer.best_val)
     trainer.recalibrate_bn(ds.batches(args.batch, steps=20))

@@ -54,6 +54,7 @@ from ws3d_tpu_torch.parallel.mesh import (LocalShard, all_reduce_mean,
 from ws3d_tpu_torch.training.checkpoint import save_train_state
 from ws3d_tpu_torch.training.optim import AdamOneCycle, bn_momentum_schedule
 from ws3d_tpu_torch.utils.prefetch import prefetch
+from ws3d_tpu_torch.utils.profiling import span
 from ws3d_tpu_torch.utils.tb import ScalarWriter
 
 RPN_INPUTS = ("pts_input", "rpn_cls_label", "rpn_reg_label")
@@ -117,8 +118,9 @@ def _gradients(loss_fn, batch, generator, bn_momentum,
     gets a zero gradient, as jax.grad gives it. Inside a global batch
     (parallel.data_parallel_jit) the gradients are the mean of the ranks'."""
     total, aux = loss_fn(batch, generator, bn_momentum)
-    grads = torch.autograd.grad(total, list(params.values()),
-                                allow_unused=True)
+    with span("trainer.backward"):
+        grads = torch.autograd.grad(total, list(params.values()),
+                                    allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params.values(), grads)]
     group = global_batch.active()
@@ -346,8 +348,12 @@ class Trainer:
             if i >= total_steps:
                 break
             epoch = i // epoch_size if epoch_size else 0
-            aux = self.step_fn(self._step_batch(batch), self.generator,
-                               self.bn_sched(epoch))
+            step = self.step
+            with span("trainer.to_device", step):
+                inputs = self._step_batch(batch)
+            with span("trainer.step", step):
+                aux = self.step_fn(inputs, self.generator,
+                                   self.bn_sched(epoch))
             if i % log_every == 0:
                 vals = {k: float(v) for k, v in aux.items() if v.dim() == 0}
                 self.log_fn(f"step {i}: " + " ".join(

@@ -10,6 +10,8 @@ import queue
 import threading
 from typing import Iterator
 
+from ws3d_tpu_torch.utils.profiling import span
+
 _SENTINEL = object()
 
 
@@ -40,7 +42,8 @@ def prefetch(it: Iterator, size: int = 2) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("prefetch.wait"):
+                item = q.get()
             if item is _SENTINEL:
                 return
             if isinstance(item, BaseException):
