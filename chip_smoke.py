@@ -24,7 +24,11 @@ Phases (any failure exits non-zero; nothing is caught):
      memory) of each launch of kernels 2 and 3, the time of each launch of
      kernel 4, kernel 4 on FP0's inputs shuffled and kernel 5 on the first
      scene's points shuffled (nothing to prune; each held against its plain
-     version, kernel 5 exactly) and FPS's time per row class;
+     version, kernel 5 exactly), FPS's time per row class and each greedy
+     sweep's (rpn_propose's K 512, finalize_detections' K 64; its keep
+     mask equal to the plain loop's, its bound the strict upper triangle's
+     bytes); every later phase that records kernel calls holds the sweeps
+     it records to the plain loop too;
   3. the inference path: 16 synthetic scenes at full width with the fitted
      weights (ws3d_tpu/data/bench_weights.npz) through make_two_stage_fn,
      one warm-up and timed batches closed by torch.cuda.synchronize();
@@ -293,6 +297,9 @@ KERNELS = {
                                  "ws3d_tpu/ops/three_nn_pallas.py:105"),
     "crop_gather_window": ("ws3d_tpu_torch/csrc/crop_gather.cu",
                            "ws3d_tpu/ops/ball_query_pallas.py:113"),
+    # no Pallas kernel there: the sweep is a lax.fori_loop inside jit
+    "greedy_sweep": ("ws3d_tpu_torch/csrc/nms.cu",
+                     "ws3d_tpu/ops/nms.py:21"),
 }
 # the bf16 modes (cfg.TPU.COMPUTE_DTYPE=bfloat16) of kernels 2, 3, 9 and 4
 BF16_MODES = ("fused_sa_window", "fused_sa_full", "fused_sa_idx",
@@ -303,9 +310,10 @@ KERNELS.update({f"{k}_bf16": KERNELS[k] for k in BF16_MODES})
 BF16R_MODES = ("fused_sa_window", "fused_sa_full")
 KERNELS.update({f"{k}_bf16r": KERNELS[k] for k in BF16R_MODES})
 INFERENCE_KERNELS = ("fps", "fused_sa_window", "fused_sa_full",
-                     "three_interpolate", "crop_gather")
+                     "three_interpolate", "crop_gather", "greedy_sweep")
 BF16_INFERENCE_KERNELS = ("fps", "fused_sa_window_bf16", "fused_sa_full_bf16",
-                          "three_interpolate_bf16", "crop_gather")
+                          "three_interpolate_bf16", "crop_gather",
+                          "greedy_sweep")
 # the BN-free stage-2 stacks' bf16 eval: the rounded-layer mode
 BF16R_INFERENCE_KERNELS = ("fused_sa_window_bf16r", "fused_sa_full_bf16r")
 TRAIN_KERNELS = ("fps", "three_interpolate", "ball_query", "three_nn")
@@ -325,7 +333,7 @@ DB_SCORE_THRESH = 0.1
 DB_MAX_PROPOSALS = 64
 DB_MAX_CROP = 2048
 DB_KERNELS = ("fps", "fused_sa_window", "fused_sa_full", "three_interpolate",
-              "ball_query_wrap")
+              "ball_query_wrap", "greedy_sweep")
 CASCADE_CLI_BATCH = 64      # tools/train_cascade.py's default --batch
 EVAL_SCENES = 16            # the auto-annotator's scenes (phase 15)
 # phase 16: training with validation (the tools' validation sets: 8
@@ -416,7 +424,8 @@ class Recorder:
 
     def __init__(self, outputs: bool = False, only=None):
         from ws3d_tpu_torch.ops import (ball_query, crop_gather, fused_sa,
-                                        fused_sa_idx, interpolate, sampling)
+                                        fused_sa_idx, interpolate, nms,
+                                        sampling)
         self.calls, self.outputs, self.keep_outputs = [], [], outputs
         self.targets = [(sampling, "fps_cuda"), (fused_sa, "fused_sa_cuda"),
                         (interpolate, "three_interpolate_cuda"),
@@ -425,7 +434,8 @@ class Recorder:
                         (interpolate, "three_nn_cuda"),
                         (fused_sa_idx, "fused_sa_idx_cuda"),
                         (ball_query, "ball_query_wrap_cuda"),
-                        (interpolate, "three_interpolate_window_cuda")]
+                        (interpolate, "three_interpolate_window_cuda"),
+                        (nms, "greedy_suppress_cuda")]
         if only is not None:
             self.targets = [t for t in self.targets if t[1] in only]
         self.saved = {}
@@ -464,7 +474,7 @@ def compare_call(name, args, kw):
     """-> (kernel key, max_abs_err, ms, plain_ms, bytes, ops, shape note)."""
     import torch
     from ws3d_tpu_torch.ops import (ball_query, crop_gather, fused_sa,
-                                    fused_sa_idx, interpolate, sampling)
+                                    fused_sa_idx, interpolate, nms, sampling)
 
     if name == "fps_cuda":
         xyz, npoint = args
@@ -795,6 +805,27 @@ def compare_call(name, args, kw):
                 plain, nbytes, ops,
                 f"B{B} P{P} M{M} C{C} S{S} {widths} "
                 + _plan_note(feat, new_xyz, S, widths) + gate)
+
+    if name == "greedy_suppress_cuda":
+        pair, thresh, valid = args
+        keep = nms.greedy_suppress_cuda(*args)
+        ref = nms.greedy_suppress_plain(*args)
+        if not torch.equal(keep, ref):
+            bad = (keep != ref).sum().item()
+            raise AssertionError(f"greedy_sweep {tuple(pair.shape)}: {bad} "
+                                 f"keep flags differ from the plain loop")
+        ms = cuda_ms(lambda: nms.greedy_suppress_cuda(*args), 5)
+        dev = device_ms(lambda: nms.greedy_suppress_cuda(*args), 5)
+        plain = cuda_ms(lambda: nms.greedy_suppress_plain(*args), 1)
+        K = pair.shape[-1]
+        R = keep.numel() // K
+        # the strict upper triangle in f32, read once; valid in, keep out
+        nbytes = R * (2 * K * (K - 1) + 2 * K)
+        # one compare a pair of the triangle
+        ops = R * K * (K - 1) // 2
+        return ("greedy_sweep", 0.0, ms, plain, nbytes, ops,
+                f"R{R} K{K} thresh {thresh} (device {dev:.4f} ms queued; "
+                f"{int(keep.sum())} of {int(valid.sum())} valid kept)")
     raise KeyError(name)
 
 
@@ -1087,6 +1118,10 @@ def main() -> int:
         print(f"# phase 2: kernel {num} by launch ({len(kr)} a batch): "
               + "; ".join(f"{note} {ms:.4f} ms (bound {b:.4f})"
                           for _, note, ms, b in kr), flush=True)
+    ks = [r for r in rows if r[0] == "greedy_sweep"]
+    print(f"# phase 2: greedy sweep by launch ({len(ks)} a batch): "
+          + "; ".join(f"{note} {ms:.4f} ms (bound {b:.4f})"
+                      for _, note, ms, b in ks), flush=True)
     k1 = [r for r in rows if r[0] == "fps"]
     print(f"# phase 2: FPS by row class ({len(k1)} a batch): "
           + "; ".join(f"{note} {ms:.4f} ms" for _, note, ms, _ in k1)
@@ -2315,7 +2350,8 @@ def _bf16_phase(card, per_kernel) -> dict:
 ACTIVE_SCENES = 16         # tools/eval_active.py's defaults
 ACTIVE_BATCH = 8
 ACTIVE_MAX_POINTS = 16384
-ACTIVE_KERNELS = ("crop_gather", "fps", "fused_sa_window", "fused_sa_full")
+ACTIVE_KERNELS = ("crop_gather", "fps", "fused_sa_window", "fused_sa_full",
+                  "greedy_sweep")
 SEG_POINTS = 4096           # tools/pointnet2_seg.py's defaults
 SEG_BATCH = 4
 SEG_STEPS = 5

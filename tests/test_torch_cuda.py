@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import random_mlp, sorted_cloud
+from torch_port_helpers import (SWEEP_CASES, random_mlp, sorted_cloud,
+                                sweep_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -790,3 +791,126 @@ def test_interpolate_bf16_store(dev, rng):
     assert bool((d <= 1e-5 + 2.0 ** -7 * ref.float().abs()).all())
     assert (got == ref).float().mean().item() >= 0.99
     assert torch.equal(got, three_interpolate_cuda(u, k, f).to(torch.bfloat16))
+
+
+def _sweep_equal(pair, thresh, valid):
+    """The sweep kernel's keep mask equals the plain loop's, bit for bit;
+    returns it."""
+    from ws3d_tpu_torch.ops.nms import (greedy_suppress_cuda,
+                                        greedy_suppress_plain)
+    got = greedy_suppress_cuda(pair, thresh, valid)
+    ref = greedy_suppress_plain(pair, thresh, valid)
+    assert got.dtype == torch.bool and got.shape == valid.shape
+    assert torch.equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("lead", [(), (3,), (2, 2)])
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 64, 512, 1024, 2500])
+def test_greedy_sweep_kernel(dev, rng, K, lead):
+    """Every K the callers pass: 64 and 512 on the serving path, up to
+    1,024 in eval_active; 2,500 (the legacy proposal layer's pre-NMS top-N
+    can be thousands) gives each lane several words of the removed mask."""
+    pair = torch.from_numpy(rng.rand(*lead, K, K).astype(np.float32))
+    valid = torch.from_numpy(rng.rand(*lead, K) < 0.9)
+    keep = _sweep_equal(pair.to(dev), 1.0 - 8.0 / K, valid.to(dev))
+    if K >= 64:
+        assert 0 < keep.sum() < valid.sum()
+
+
+@pytest.mark.parametrize("name", sorted(SWEEP_CASES))
+def test_greedy_sweep_cases(dev, name):
+    """The cases the plain version's CPU test holds against the JAX
+    package: K 1, ties at thresh, NaN, asymmetric, all invalid, ..."""
+    pair, valid, thresh = sweep_case(name)
+    _sweep_equal(torch.from_numpy(pair).to(dev), thresh,
+                 torch.from_numpy(valid).to(dev))
+
+
+def _recorded_sweeps(monkeypatch, fn, *args, **kw):
+    """The (pair, thresh, valid) of each greedy sweep that `fn` runs."""
+    import ws3d_tpu_torch.pipeline.inference as inf
+    calls, sweep = [], inf.greedy_suppress
+
+    def record(pair, thresh, valid):
+        calls.append((pair.clone(), thresh, valid.clone()))
+        return sweep(pair, thresh, valid)
+    monkeypatch.setattr(inf, "greedy_suppress", record)
+    fn(*args, **kw)
+    return calls
+
+
+def test_greedy_sweep_rpn_propose(dev, rng, monkeypatch):
+    """rpn_propose's radius-0.3 matrix at the serving shape: batch 64,
+    512 candidates of 16,384 points in a crowded 8 m square."""
+    from ws3d_tpu_torch.pipeline.inference import rpn_propose
+    B, N = 64, 16384
+    xyz = rng.uniform(-4, 4, (B, N, 3)).astype(np.float32)
+    cls = rng.randn(B, N, 1).astype(np.float32)
+    reg = rng.randn(B, N, 40).astype(np.float32) * 3
+    (pair, thresh, valid), = _recorded_sweeps(
+        monkeypatch, rpn_propose, *[torch.from_numpy(a).to(dev)
+                                    for a in (cls, reg, xyz)], 4.0, 0.8)
+    assert pair.shape == (B, 512, 512)
+    keep = _sweep_equal(pair, thresh, valid)
+    assert 0 < keep.sum() < valid.sum()
+
+
+@pytest.mark.parametrize("B,K", [(64, 64), (8, 1024)])
+def test_greedy_sweep_finalize(dev, rng, monkeypatch, B, K):
+    """finalize_detections' 2-D IoU matrix at the serving shape (64 x 64)
+    and at eval_active's largest slot bucket (8 x 1,024)."""
+    from ws3d_tpu_torch.pipeline.inference import finalize_detections
+    boxes = np.concatenate([
+        rng.uniform(-6, 6, (B, K, 1)), rng.uniform(-0.3, 0.3, (B, K, 1)),
+        rng.uniform(-6, 6, (B, K, 1)),
+        rng.uniform([1.2, 1.3, 2.5], [2.2, 2.0, 5.0], (B, K, 3)),
+        rng.uniform(-np.pi, np.pi, (B, K, 1))], -1).astype(np.float32)
+    args = [boxes, rng.randn(B, K).astype(np.float32) * 2,
+            rng.rand(B, K).astype(np.float32),
+            rng.randn(B, K, 2).astype(np.float32), rng.rand(B, K) < 0.9]
+    (pair, thresh, valid), = _recorded_sweeps(
+        monkeypatch, finalize_detections,
+        *[torch.from_numpy(a).to(dev) for a in args])
+    keep = _sweep_equal(pair, thresh, valid)
+    assert 0 < keep.sum() < valid.sum()
+
+
+def test_greedy_sweep_launches_once_a_call(dev, rng, monkeypatch):
+    """One launch a call, one host step in nms.sweep_steps, and the plain
+    loop never runs on CUDA tensors."""
+    from ws3d_tpu_torch.ops import _kernels, nms
+    from ws3d_tpu_torch.utils.profiling import TRACE
+
+    def refuse(*args):
+        raise AssertionError("the plain loop ran on CUDA tensors")
+    monkeypatch.setattr(nms, "greedy_suppress_plain", refuse)
+    pair = torch.from_numpy(rng.rand(4, 512, 512).astype(np.float32)).to(dev)
+    valid = torch.ones((4, 512), dtype=torch.bool, device=dev)
+    before = _kernels.LAUNCHES["greedy_sweep"]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        for i in range(3):
+            nms.greedy_suppress(pair, 0.99, valid)
+            assert _kernels.LAUNCHES["greedy_sweep"] == before + i + 1
+    assert TRACE.totals()["counters"] == {"nms.sweep_steps": 3}
+
+
+def test_greedy_sweep_refuses(dev):
+    """Another dtype, device or layout raises; nothing falls back. An empty
+    input launches nothing."""
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.ops.nms import greedy_suppress_cuda
+    before = _kernels.LAUNCHES["greedy_sweep"]
+    empty = greedy_suppress_cuda(
+        torch.empty((0, 8, 8), device=dev), 0.5,
+        torch.empty((0, 8), dtype=torch.bool, device=dev))
+    assert empty.shape == (0, 8) and empty.dtype == torch.bool
+    assert _kernels.LAUNCHES["greedy_sweep"] == before
+    pair = torch.rand(2, 8, 8, device=dev)
+    valid = torch.ones((2, 8), dtype=torch.bool, device=dev)
+    for p, v in [(pair.double(), valid), (pair.bfloat16(), valid),
+                 (pair.transpose(1, 2), valid), (pair, valid.cpu()),
+                 (pair, valid.int()), (pair[:, :, :4], valid)]:
+        with pytest.raises(ValueError):
+            greedy_suppress_cuda(p, 0.5, v)

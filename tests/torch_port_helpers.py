@@ -299,3 +299,53 @@ def jax_rpn_gradients(batch, n_points: int, dtype: str = "float32"):
                 for k, v in flatten_dict(t).items()}
     return (float(loss), {k: np.asarray(v) for k, v in aux.items()},
             npz(grads, "params"), npz(new_bs, "batch_stats"))
+
+
+# The greedy sweep's cases (ops/nms.greedy_suppress), shared by the plain
+# path's test against the JAX package (test_torch_greedy_sweep.py) and the
+# kernel's test on the card (test_torch_cuda.py): name -> (leading shape,
+# K). Each is made by sweep_case from a seed.
+SWEEP_CASES = {"k1": ((), 1), "ties": ((2,), 40), "nan": ((2, 3), 48),
+               "asymmetric": ((3,), 64), "all_invalid": ((2,), 33),
+               "all_valid": ((), 33), "all_suppress": ((2, 2), 32),
+               "none_suppress": ((1,), 31), "ties_inexact": ((2,), 40)}
+SWEEP_THRESH = 0.5
+# a threshold f32 cannot hold (rotated_nms takes RPN_NMS_THRESH values such
+# as 0.85): the sweep compares against its f32 rounding, as `pair > thresh`
+# does on an f32 tensor
+SWEEP_THRESH_INEXACT = 0.85
+
+
+def sweep_case(name: str, seed: int = 0):
+    """(pair (..., K, K) f32, valid (..., K) bool, thresh) of SWEEP_CASES
+    `name`: entries on both sides of SWEEP_THRESH, the matrix never
+    symmetric; `ties` puts a third of them exactly at it, `ties_inexact`
+    a third each at float32(SWEEP_THRESH_INEXACT) and its two neighbouring
+    f32 values (thresh SWEEP_THRESH_INEXACT), `nan` a tenth at NaN,
+    `asymmetric` every entry on and below the diagonal above it."""
+    lead, K = SWEEP_CASES[name]
+    rng = np.random.RandomState(seed)
+    pair = rng.uniform(0.0, 0.6, lead + (K, K)).astype(np.float32)
+    valid = rng.rand(*lead, K) < 0.8
+    if name == "ties":
+        pair = rng.choice(np.float32([0.4, SWEEP_THRESH, 0.6]),
+                          lead + (K, K))
+    elif name == "ties_inexact":
+        at = np.float32(SWEEP_THRESH_INEXACT)
+        pair = rng.choice(np.float32([np.nextafter(at, np.float32(0)), at,
+                                      np.nextafter(at, np.float32(1))]),
+                          lead + (K, K))
+        return pair, valid, SWEEP_THRESH_INEXACT
+    elif name == "nan":
+        pair[rng.rand(*pair.shape) < 0.1] = np.nan
+    elif name == "asymmetric":
+        pair[..., np.tril(np.ones((K, K), bool))] = 1.0
+    elif name == "all_invalid":
+        valid[:] = False
+    elif name == "all_valid":
+        valid[:] = True
+    elif name == "all_suppress":
+        pair[:] = 1.0
+    elif name == "none_suppress":
+        pair[:] = 0.0
+    return pair, valid, SWEEP_THRESH

@@ -42,7 +42,8 @@ LAUNCHES = {"fps": 0, "fused_sa_window": 0, "fused_sa_full": 0,
             "three_interpolate_window": 0, "crop_gather_window": 0,
             "fused_sa_window_bf16": 0, "fused_sa_full_bf16": 0,
             "fused_sa_idx_bf16": 0, "three_interpolate_bf16": 0,
-            "fused_sa_window_bf16r": 0, "fused_sa_full_bf16r": 0}
+            "fused_sa_window_bf16r": 0, "fused_sa_full_bf16r": 0,
+            "greedy_sweep": 0}
 
 _lib = None
 
@@ -64,6 +65,7 @@ _SIGNATURES = {
     "ws3d_ball_query": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "ws3d_ball_query_wrap": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "ws3d_three_nn": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    "ws3d_greedy_sweep": [_P, _P, _F, _I, _I, _P, _P, _P],
 }
 
 

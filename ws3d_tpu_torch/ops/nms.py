@@ -8,8 +8,44 @@ from typing import Optional
 
 import torch
 
+from ws3d_tpu_torch.ops import _kernels
 from ws3d_tpu_torch.ops.iou3d import aligned_overlap_bev, boxes_iou_bev
 from ws3d_tpu_torch.utils.profiling import count, span
+
+
+def greedy_suppress_plain(pair_mat: torch.Tensor, thresh: float,
+                          valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of the sweep kernel: a K-step loop."""
+    suppress = pair_mat > thresh
+    keep = torch.zeros_like(valid)
+    for i in range(pair_mat.shape[-1]):
+        killed = torch.any(keep[..., :i] & suppress[..., :i, i], dim=-1)
+        keep[..., i] = valid[..., i] & ~killed
+    return keep
+
+
+def greedy_suppress_cuda(pair_mat: torch.Tensor, thresh: float,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """The sweep kernel (csrc/nms.cu), one launch for every leading row:
+    pair_mat (..., K, K) f32, valid (..., K) bool CUDA -> keep (..., K)
+    bool. The wrapper allocates the kernel's bitmask workspace, (R, K,
+    ceil(K / 32)) words."""
+    K = pair_mat.shape[-1]
+    lead = tuple(pair_mat.shape[:-2])
+    _kernels.check_cuda(pair_mat, "greedy_sweep pair_mat", torch.float32,
+                        lead + (K, K))
+    _kernels.check_cuda(valid, "greedy_sweep valid", torch.bool, lead + (K,))
+    keep = torch.empty_like(valid)
+    if keep.numel() == 0:
+        return keep
+    R = keep.numel() // K
+    mask = torch.empty((R, K, (K + 31) // 32), dtype=torch.int32,
+                       device=pair_mat.device)
+    _kernels.launch(
+        "greedy_sweep", "ws3d_greedy_sweep", pair_mat.data_ptr(),
+        valid.data_ptr(), thresh, R, K, mask.data_ptr(), keep.data_ptr(),
+        _kernels.stream_ptr(pair_mat))
+    return keep
 
 
 @span("nms.sweep")
@@ -18,16 +54,15 @@ def greedy_suppress(pair_mat: torch.Tensor, thresh: float,
     """Greedy sweep over rows already sorted by descending score.
 
     pair_mat (..., K, K), valid (..., K) bool -> keep (..., K) bool: i is
-    kept iff valid and no kept j < i has pair_mat[j, i] > thresh.
+    kept iff valid and no kept j < i has pair_mat[j, i] > thresh. The sweep
+    kernel on CUDA tensors, the plain loop on CPU tensors; `nms.sweep_steps`
+    counts the host-issued steps: 1 a launch, K a plain call.
     """
-    K = pair_mat.shape[-1]
-    count("nms.sweep_steps", K)
-    suppress = pair_mat > thresh
-    keep = torch.zeros_like(valid)
-    for i in range(K):
-        killed = torch.any(keep[..., :i] & suppress[..., :i, i], dim=-1)
-        keep[..., i] = valid[..., i] & ~killed
-    return keep
+    if pair_mat.is_cuda:
+        count("nms.sweep_steps", 1)
+        return greedy_suppress_cuda(pair_mat, thresh, valid)
+    count("nms.sweep_steps", pair_mat.shape[-1])
+    return greedy_suppress_plain(pair_mat, thresh, valid)
 
 
 def _score_order(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

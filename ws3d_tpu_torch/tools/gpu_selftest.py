@@ -9,11 +9,12 @@ and the 3-NN search (4 x 16,384 over 4 x 4,096 points), on clouds of
 N(0, 10) coordinates from seed 0; then the 3-NN interpolation, both fused
 SA searches, the SA on given indices, the crop-gather (both slot orders and
 the z window), the wrapped ball query and the windowed interpolation at
-the same scale, the window kernels on the clouds sorted by z. Indices,
-counts and gathers must be exact, sums within the tolerances the kernels'
-tests state. Prints the card's name and power limit, one line a kernel
-and SELFTEST PASSED or FAILED; exits 1 on a failure. Needs a CUDA device:
-there is no CPU run.
+the same scale, the window kernels on the clouds sorted by z; the greedy
+sweep on rpn_propose's radius-0.3 matrices at batch 64 and 1 (512 centres
+in an 8 m square). Indices, keep masks, counts and gathers must be exact,
+sums within the tolerances the kernels' tests state. Prints the card's
+name and power limit, one line a kernel and SELFTEST PASSED or FAILED;
+exits 1 on a failure. Needs a CUDA device: there is no CPU run.
 """
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ def _scale(b) -> float:
 def checks(device):
     """[(name, kernel fn, plain fn, tolerance(plain output))]."""
     from ws3d_tpu_torch.ops import (ball_query, crop_gather, fused_sa,
-                                    fused_sa_idx, interpolate, sampling)
+                                    fused_sa_idx, interpolate, nms, sampling)
     g = torch.Generator(device="cpu").manual_seed(0)
 
     def cloud(b, n, spread=10.0):
@@ -94,6 +95,11 @@ def checks(device):
     crops = scene[:, ::256, [0, 2]].contiguous()               # 64 centres
     crops3 = scene[:1, ::256].contiguous()
     sunk, skno = by_z(unk), by_z(kno)
+    votes = (torch.rand(64, 512, 2, generator=g) * 8.0).to(device)
+    dist = torch.sqrt(torch.sum(torch.square(
+        votes[:, :, None] - votes[:, None]), dim=-1))
+    radius = (-(dist - 0.3)).contiguous()
+    live = (torch.rand(64, 512, generator=g) < 0.9).to(device)
 
     exact = lambda ref: 0.0                                     # noqa: E731
     return [
@@ -145,6 +151,13 @@ def checks(device):
                                                  crops3),
          lambda: ball_query.ball_query_wrap_plain([4.0], [2048], scene[:1],
                                                   crops3), exact),
+        ("greedy_sweep 64 x 512",
+         lambda: nms.greedy_suppress_cuda(radius, 0.0, live),
+         lambda: nms.greedy_suppress_plain(radius, 0.0, live), exact),
+        ("greedy_sweep 1 x 512",
+         lambda: nms.greedy_suppress_cuda(radius[:1], 0.0, live[:1]),
+         lambda: nms.greedy_suppress_plain(radius[:1], 0.0, live[:1]),
+         exact),
         ("three_interpolate window (kernel 8)",
          lambda: interpolate.three_interpolate_window_cuda(sunk, skno,
                                                            feats),
