@@ -11,7 +11,12 @@ soft labels around the noisy weak-label centres. With a GT database (the
 cfg.GT_AUG_ENABLED, a TRAIN scene first draws GT_AUG_APPLY_PROB from the
 stream and, if taken, gets the copy-paste augmentation before the crop;
 the pasted boxes join its labels. A scene with more than MAX_GT boxes keeps
-every box for its labels and the first MAX_GT in gt_boxes3d / gt_centers."""
+every box for its labels and the first MAX_GT in gt_boxes3d / gt_centers.
+
+Spans (utils.profiling, recorded only while a profiler records):
+`loader.sample` a sample, `loader.batch` a stacked batch, `loader.gt_aug`
+the copy-paste augmentation, `loader.labels` the Gaussian labels; the
+counter `loader.gt_pasted` adds the boxes pasted into each sample."""
 from __future__ import annotations
 
 from typing import Dict, Iterator, Optional, Sequence
@@ -20,6 +25,7 @@ import numpy as np
 
 from ws3d_tpu_torch.datasets.gt_database import apply_gt_aug
 from ws3d_tpu_torch.datasets.kitti_io import objs_to_boxes3d
+from ws3d_tpu_torch.utils.profiling import count, span
 
 MAX_GT = 32
 
@@ -267,6 +273,7 @@ class RPNDataset:
                 "noise_boxes": boxes(scene.noise_labels),
                 "sample_id": np.int32(scene.sample_id)}
 
+    @span("loader.sample")
     def get_sample(self, index: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
         scene = self.source.get_scene(self.sample_ids[index], with_noise=True)
@@ -281,9 +288,11 @@ class RPNDataset:
                 and self.rng.rand() < cfg.GT_AUG_APPLY_PROB):
             noise_boxes = objs_to_boxes3d([o for o in scene.noise_labels
                                            if o.cls_type in ("Car", "Van")])
-            pts_rect, intensity, extra_boxes = apply_gt_aug(
-                pts_rect, intensity, noise_boxes, self.gt_database[0],
-                self.gt_database[1], self.rng)
+            with span("loader.gt_aug"):
+                pts_rect, intensity, extra_boxes = apply_gt_aug(
+                    pts_rect, intensity, noise_boxes, self.gt_database[0],
+                    self.gt_database[1], self.rng)
+            count("loader.gt_pasted", extra_boxes.shape[0])
 
         pts_img, depth = scene.calib.rect_to_img(pts_rect)
         ok = valid_point_mask(pts_rect, pts_img, depth, scene.image_shape,
@@ -322,12 +331,13 @@ class RPNDataset:
         sample = {"sample_id": np.int32(scene.sample_id),
                   "pts_input": pts_input}
         if train:
-            cls_label, reg_label = gaussian_weak_labels(
-                pts_input[:, :3], gt[:, :3] if len(gt) else
-                np.zeros((0, 3), np.float32),
-                gauss_height=cfg.RPN.GAUSS_HEIGHT,
-                gauss_status=cfg.RPN.GAUSS_STATUS,
-                gauss_cov=cfg.RPN.GAUSS_COV)
+            with span("loader.labels"):
+                cls_label, reg_label = gaussian_weak_labels(
+                    pts_input[:, :3], gt[:, :3] if len(gt) else
+                    np.zeros((0, 3), np.float32),
+                    gauss_height=cfg.RPN.GAUSS_HEIGHT,
+                    gauss_status=cfg.RPN.GAUSS_STATUS,
+                    gauss_cov=cfg.RPN.GAUSS_COV)
             gt_centers = np.zeros((MAX_GT, 3), np.float32)
             gt_centers[:n_gt] = gt[:n_gt, :3]
             sample.update(rpn_cls_label=cls_label, rpn_reg_label=reg_label,
@@ -348,9 +358,12 @@ class RPNDataset:
             idxs = (self.rng.permutation(len(self)) if shuffle
                     else np.arange(len(self)))
             for lo in range(0, len(idxs) - batch_size + 1, batch_size):
-                chunk = [self.get_sample(int(i))
-                         for i in idxs[lo:lo + batch_size]]
-                yield {k: np.stack([c[k] for c in chunk]) for k in chunk[0]}
+                with span("loader.batch"):
+                    chunk = [self.get_sample(int(i))
+                             for i in idxs[lo:lo + batch_size]]
+                    batch = {k: np.stack([c[k] for c in chunk])
+                             for k in chunk[0]}
+                yield batch
                 count += 1
                 if steps is not None and count >= steps:
                     return
