@@ -52,20 +52,30 @@ SUM_ORDERS = ("halves", "quarters", "k8", "reversed")
 # ------------------------------------------------------------------ 1.
 @contextlib.contextmanager
 def _bn_outputs(out: list):
-    """Appends each train-mode BatchNorm output (detached) to `out`."""
+    """Appends each train-mode BatchNorm output (detached) to `out`: the
+    composition's, or on the fused path (ops.batchnorm.bn_relu_train) the
+    same bits before its ReLU, recomputed from its arguments."""
     from ws3d_tpu_torch.models import layers
+    from ws3d_tpu_torch.ops import batchnorm
     saved = layers.BatchNorm.forward
+    saved_fused = batchnorm.bn_relu_train
 
     def forward(self, x, train=False, momentum=0.1):
         y = saved(self, x, train, momentum)
         if train:
             out.append(y.detach().clone())
         return y
+
+    def fused(x, mean, inv, scale, bias):
+        out.append(((x - mean) * inv * scale + bias).detach())
+        return saved_fused(x, mean, inv, scale, bias)
     layers.BatchNorm.forward = forward
+    batchnorm.bn_relu_train = fused
     try:
         yield
     finally:
         layers.BatchNorm.forward = saved
+        batchnorm.bn_relu_train = saved_fused
 
 
 def global_step_orders(card) -> None:

@@ -300,6 +300,13 @@ KERNELS = {
     # no Pallas kernel there: the sweep is a lax.fori_loop inside jit
     "greedy_sweep": ("ws3d_tpu_torch/csrc/nms.cu",
                      "ws3d_tpu/ops/nms.py:21"),
+    # no Pallas kernel there either: a flax module that XLA fuses
+    "bn_relu": ("ws3d_tpu_torch/csrc/batchnorm.cu",
+                "ws3d_tpu/models/layers.py:21"),
+    "bn_relu_sums": ("ws3d_tpu_torch/csrc/batchnorm.cu",
+                     "ws3d_tpu/models/layers.py:21"),
+    "bn_relu_dx": ("ws3d_tpu_torch/csrc/batchnorm.cu",
+                   "ws3d_tpu/models/layers.py:21"),
 }
 # the bf16 modes (cfg.TPU.COMPUTE_DTYPE=bfloat16) of kernels 2, 3, 9 and 4
 BF16_MODES = ("fused_sa_window", "fused_sa_full", "fused_sa_idx",
@@ -317,6 +324,10 @@ BF16_INFERENCE_KERNELS = ("fps", "fused_sa_window_bf16", "fused_sa_full_bf16",
 # the BN-free stage-2 stacks' bf16 eval: the rounded-layer mode
 BF16R_INFERENCE_KERNELS = ("fused_sa_window_bf16r", "fused_sa_full_bf16r")
 TRAIN_KERNELS = ("fps", "three_interpolate", "ball_query", "three_nn")
+# the train-mode BatchNorm + ReLU: its forward, and its backward's sums
+# and dx, each launched once a layer of a stage-1 step
+BN_KERNELS = ("bn_relu", "bn_relu_sums", "bn_relu_dx")
+BN_LAYERS = 34              # 24 SA, 8 FP and 2 head layers
 STAGE2_BATCH = 800          # crops of a step (tools/bench_train.py)
 STAGE2_POINTS = 512
 # kernel launches of one stage-2 step: the SA stack's forward (FPS per
@@ -423,9 +434,9 @@ class Recorder:
     `outputs`, of its outputs (`outputs`)."""
 
     def __init__(self, outputs: bool = False, only=None):
-        from ws3d_tpu_torch.ops import (ball_query, crop_gather, fused_sa,
-                                        fused_sa_idx, interpolate, nms,
-                                        sampling)
+        from ws3d_tpu_torch.ops import (ball_query, batchnorm, crop_gather,
+                                        fused_sa, fused_sa_idx, interpolate,
+                                        nms, sampling)
         self.calls, self.outputs, self.keep_outputs = [], [], outputs
         self.targets = [(sampling, "fps_cuda"), (fused_sa, "fused_sa_cuda"),
                         (interpolate, "three_interpolate_cuda"),
@@ -435,7 +446,10 @@ class Recorder:
                         (fused_sa_idx, "fused_sa_idx_cuda"),
                         (ball_query, "ball_query_wrap_cuda"),
                         (interpolate, "three_interpolate_window_cuda"),
-                        (nms, "greedy_suppress_cuda")]
+                        (nms, "greedy_suppress_cuda"),
+                        (batchnorm, "bn_relu_forward_cuda"),
+                        (batchnorm, "bn_relu_sums_cuda"),
+                        (batchnorm, "bn_relu_dx_cuda")]
         if only is not None:
             self.targets = [t for t in self.targets if t[1] in only]
         self.saved = {}
@@ -473,8 +487,43 @@ class Recorder:
 def compare_call(name, args, kw):
     """-> (kernel key, max_abs_err, ms, plain_ms, bytes, ops, shape note)."""
     import torch
-    from ws3d_tpu_torch.ops import (ball_query, crop_gather, fused_sa,
-                                    fused_sa_idx, interpolate, nms, sampling)
+    from ws3d_tpu_torch.ops import (ball_query, batchnorm, crop_gather,
+                                    fused_sa, fused_sa_idx, interpolate, nms,
+                                    sampling)
+
+    if name == "bn_relu_forward_cuda":
+        x = args[0]
+        y = batchnorm.bn_relu_forward_cuda(*args)
+        if not torch.equal(y, batchnorm.bn_relu_plain(*args)):
+            raise AssertionError(f"bn_relu {tuple(x.shape)}: the forward "
+                                 f"differs from the composition")
+        ms = cuda_ms(lambda: batchnorm.bn_relu_forward_cuda(*args), 5)
+        plain = cuda_ms(lambda: batchnorm.bn_relu_plain(*args), 1)
+        # x in, y out; 5 operations an element
+        return ("bn_relu", 0.0, ms, plain, 8 * x.numel(), 5 * x.numel(),
+                f"R{x.numel() // x.shape[-1]} C{x.shape[-1]}")
+
+    if name in ("bn_relu_sums_cuda", "bn_relu_dx_cuda"):
+        x = args[1]
+        kernel = getattr(batchnorm, name)
+        plain_fn = getattr(batchnorm, name.replace("_cuda", "_plain"))
+        got, ref = kernel(*args), plain_fn(*args)
+        err = (got - ref).abs().max().item()
+        rel = err / max(ref.abs().max().item(), 1e-30)
+        # the same sums in another order, or the formula's rounding
+        if not rel <= 1e-4:
+            raise AssertionError(f"{name} {tuple(x.shape)}: differs by "
+                                 f"{rel:.3g} of its max")
+        ms = cuda_ms(lambda: kernel(*args), 5)
+        plain = cuda_ms(lambda: plain_fn(*args), 1)
+        # the sums read x and g (about 9 operations an element); dx reads
+        # them and writes dx (about 10)
+        key, nbytes, ops = (("bn_relu_sums", 8, 9)
+                            if name == "bn_relu_sums_cuda"
+                            else ("bn_relu_dx", 12, 10))
+        return (key, err, ms, plain, nbytes * x.numel(), ops * x.numel(),
+                f"R{x.numel() // x.shape[-1]} C{x.shape[-1]} "
+                f"(rel {rel:.3g})")
 
     if name == "fps_cuda":
         xyz, npoint = args
@@ -1467,7 +1516,9 @@ def _train_phases(card, per_kernel) -> tuple:
                       trainer.optimizer.params)
         torch.cuda.synchronize()
     calls = [c for c in rec.calls
-             if c[0] in ("ball_query_multi_cuda", "three_nn_cuda")]
+             if c[0] in ("ball_query_multi_cuda", "three_nn_cuda",
+                         "bn_relu_forward_cuda", "bn_relu_sums_cuda",
+                         "bn_relu_dx_cuda")]
     rows = _compare_calls(calls, per_kernel, "train")
     kr = [r for r in rows if r[0] == "ball_query"]
     print(f"# phase 5: kernel 6 by launch ({len(kr)} a step): "
@@ -1487,7 +1538,11 @@ def _train_phases(card, per_kernel) -> tuple:
           + _shuffled("three_nn_cuda",
                       [a for n, a, _ in calls if n == "three_nn_cuda"]),
           flush=True)
-    for key in ("ball_query", "three_nn"):
+    kr = [r for r in rows if r[0] in BN_KERNELS]
+    print(f"# phase 5: BatchNorm + ReLU by launch ({len(kr)} a step): "
+          + "; ".join(f"{key} {note} {ms:.4f} ms (bound {b:.4f})"
+                      for key, note, ms, b in kr), flush=True)
+    for key in ("ball_query", "three_nn") + BN_KERNELS:
         if per_kernel[key]["ms"] == 0.0:
             raise AssertionError(f"kernel {key} was never called in a step")
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1537,6 +1592,7 @@ def _train_phases(card, per_kernel) -> tuple:
     missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"training path launched no {missing}")
+    _check_bn_launches("the training path", launches, 1 + TIMED_STEPS)
     if not all(math.isfinite(v) for v in step_losses):
         raise AssertionError(f"non-finite loss {step_losses}")
     if torch.equal(stats[0], bn.mean) or torch.equal(stats[1], bn.var):
@@ -2665,6 +2721,15 @@ def _eval_inputs(device):
     return cfg, model, src, RPNDataset(src, cfg, mode="EVAL", seed=0)
 
 
+def _check_bn_launches(what: str, launches: dict, steps: int) -> None:
+    """Raise unless each BatchNorm + ReLU kernel ran once a layer of each
+    of `steps` stage-1 steps."""
+    got = {k: launches[k] for k in BN_KERNELS}
+    if got != {k: BN_LAYERS * steps for k in BN_KERNELS}:
+        raise AssertionError(f"{what}: {steps} steps launched {got}, not "
+                             f"{BN_LAYERS} a step of each")
+
+
 def _timed_trainer(trainer, host, batches) -> list:
     """A warm-up step through train_steps on host[0], then one timed step
     a device batch; returns the steps' ms."""
@@ -2904,6 +2969,8 @@ def _global_parity(ranks, single, split) -> str:
     bound_median = GLOBAL_GRAD_MEDIAN
     missing = [k for k in TRAIN_KERNELS
                if not (g0["launches"][k] and g1["launches"][k])]
+    for r, g in enumerate((g0, g1)):
+        _check_bn_launches(f"global-batch rank {r}", g["launches"], 1)
     note = (f"global-batch stage-1 step (data_parallel_jit) on 8 + 8 "
             f"scenes: loss {g0['loss']:.6f} vs the single step's "
             f"{ref_loss:.6f} (rel {rel:.3g}), BN statistics within "
@@ -2992,6 +3059,8 @@ def _scaleout_phase(card, phase6_ms: float) -> dict:
         missing = [k for k in TRAIN_KERNELS if not w1["train_launches"][k]]
         if missing:
             raise AssertionError(f"world-1 Trainer launched no {missing}")
+        _check_bn_launches("the world-1 Trainer", w1["train_launches"],
+                           1 + SCALEOUT_STEPS)
         dp_ms = sum(w1["train_ms"]) / len(w1["train_ms"])
         print(f"# phase 22: {card}: NCCL world 1 Trainer (deterministic "
               f"algorithms, as the plain one beside it) {1e3 / dp_ms:.3f} "
@@ -3009,6 +3078,8 @@ def _scaleout_phase(card, phase6_ms: float) -> dict:
                  and all(torch.equal(g1["grads"][k], v)
                          for k, v in single["grads"].items()))
         missing = [k for k in TRAIN_KERNELS if not g1["launches"][k]]
+        _check_bn_launches("the world-1 global-batch step", g1["launches"],
+                           1)
         if not equal or missing:
             raise AssertionError(f"the NCCL world-1 global-batch step is not "
                                  f"bit-equal to the plain step (loss "
@@ -3508,7 +3579,7 @@ def _bench_kernels(per_kernel) -> None:
         b.gradients(b.batch, b.generator)
         torch.cuda.synchronize()
     del b
-    compared("bench_train_rpn", rec.calls, TRAIN_KERNELS, t0)
+    compared("bench_train_rpn", rec.calls, TRAIN_KERNELS + BN_KERNELS, t0)
     del rec
     torch.cuda.empty_cache()
 

@@ -92,3 +92,46 @@ def global_rank(group, cases: dict) -> dict:
         if stage == "rpn":
             out[name]["step"] = one_step(cfg, stage, flat, batch, group)
     return out
+
+
+def bn_relu_rank(group, state: dict, channels: list, x: torch.Tensor,
+                 w: torch.Tensor) -> dict:
+    """A SharedMLP's train step in a global batch, on the rank's rows of x
+    on its device, twice from `state`: through SharedMLP.forward
+    (BatchNorm.relu: on the card the kernels of ops/batchnorm.py) and
+    through the composition, BatchNorm's own forward then torch.relu. The
+    global loss sums out * w over the whole batch. Each side's output, BN
+    state, parameter and input gradients, and BatchNorm + ReLU launches."""
+    from ws3d_tpu_torch.models.layers import SharedMLP
+    from ws3d_tpu_torch.ops import _kernels
+    from ws3d_tpu_torch.parallel.global_batch import batch_sum, global_batch
+    per = x.shape[0] // group.world_size
+    rows = slice(group.rank * per, (group.rank + 1) * per)
+    xs, ws = x[rows].to(group.device), w[rows].to(group.device)
+    keys = ("bn_relu", "bn_relu_sums", "bn_relu_dx")
+
+    def side(fused: bool) -> dict:
+        mlp = SharedMLP(x.shape[-1], channels)
+        mlp.load_state_dict(state)
+        mlp.to(group.device)
+        xl = xs.clone().requires_grad_(True)
+        before = dict(_kernels.LAUNCHES)
+        with global_batch(group):
+            if fused:
+                out = mlp(xl, train=True, bn_momentum=0.05)
+            else:
+                out = xl
+                for k in range(len(channels)):
+                    out = getattr(mlp, f"Dense_{k}")(out)
+                    out = torch.relu(getattr(mlp, f"BatchNorm_{k}")(
+                        out.float(), True, 0.05))
+            params = [p for _, p in sorted(mlp.named_parameters())]
+            grads = torch.autograd.grad(batch_sum(torch.sum(out * ws)),
+                                        params + [xl])
+        return {"out": out.detach().cpu(),
+                "state": {k: v.cpu() for k, v in mlp.state_dict().items()},
+                "grads": [g.cpu() for g in grads],
+                "launches": {k: _kernels.LAUNCHES[k] - before[k]
+                             for k in keys}}
+
+    return {"fused": side(True), "composition": side(False)}

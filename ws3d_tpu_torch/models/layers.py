@@ -14,6 +14,10 @@ bf16, sums the products in f32 and returns bf16, the bias added in bf16;
 BatchNorm upcasts to f32 first; SharedMLP returns f32 unless `out_f32` is
 False; HeadMLP's last layer is f32 on an f32 input. Parameters, BatchNorm
 statistics and the folded weights stay f32.
+
+Train-mode BatchNorm + ReLU on the card runs on hand-written kernels
+(BatchNorm.relu, ops/batchnorm.py), in a global batch of several ranks
+too; on CPU tensors it stays the composition below.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ws3d_tpu_torch.ops import batchnorm
 from ws3d_tpu_torch.ops.fused_sa import pack_params
 from ws3d_tpu_torch.ops.fused_sa_idx import dense_bf16
 from ws3d_tpu_torch.parallel import global_batch
@@ -65,16 +70,35 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 momentum: float = 0.1) -> torch.Tensor:
-        if train:
-            mean, var = global_batch.mean_var(x)
-            with torch.no_grad():
-                m = float(momentum)
-                self.mean.copy_((1 - m) * self.mean + m * mean)
-                self.var.copy_((1 - m) * self.var + m * var)
-        else:
-            mean, var = self.mean, self.var
+        mean, var = self._statistics(x, train, momentum)
         inv = torch.reciprocal(torch.sqrt(var + BN_EPS))
         return (x - mean) * inv * self.scale + self.bias
+
+    def relu(self, x: torch.Tensor, train: bool = False,
+             momentum: float = 0.1) -> torch.Tensor:
+        """torch.relu(self(x, train, momentum)). In train mode on a CUDA
+        tensor the statistics (a global batch's in a global batch) are
+        taken without autograd and ops.batchnorm.bn_relu_train runs the
+        rest: the same output and running statistics bit for bit, the
+        gradient by its formula."""
+        if not (train and x.is_cuda):
+            return torch.relu(self(x, train, momentum))
+        with torch.no_grad():
+            mean, var = self._statistics(x, True, momentum)
+            inv = torch.reciprocal(torch.sqrt(var + BN_EPS))
+        return batchnorm.bn_relu_train(x, mean, inv, self.scale, self.bias)
+
+    def _statistics(self, x: torch.Tensor, train: bool, momentum: float):
+        """(mean, var) to normalise with: the batch's, with the running
+        ones updated, in train mode; the running ones in eval."""
+        if not train:
+            return self.mean, self.var
+        mean, var = global_batch.mean_var(x)
+        with torch.no_grad():
+            m = float(momentum)
+            self.mean.copy_((1 - m) * self.mean + m * mean)
+            self.var.copy_((1 - m) * self.var + m * var)
+        return mean, var
 
 
 class SharedMLP(nn.Module):
@@ -104,9 +128,10 @@ class SharedMLP(nn.Module):
         for k in range(len(self.channels)):
             x = getattr(self, f"Dense_{k}")(x)
             if self.use_bn:
-                x = getattr(self, f"BatchNorm_{k}")(x.float(), train,
-                                                    bn_momentum)
-            x = torch.relu(x)
+                x = getattr(self, f"BatchNorm_{k}").relu(x.float(), train,
+                                                         bn_momentum)
+            else:
+                x = torch.relu(x)
         return x.float() if self.out_f32 else x
 
     def folded(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -164,9 +189,10 @@ class HeadMLP(nn.Module):
         for i in range(self.n_hidden):
             x = getattr(self, f"Dense_{i}")(x)
             if self.use_bn:
-                x = getattr(self, f"BatchNorm_{i}")(x.float(), train,
-                                                    bn_momentum)
-            x = torch.relu(x)
+                x = getattr(self, f"BatchNorm_{i}").relu(x.float(), train,
+                                                         bn_momentum)
+            else:
+                x = torch.relu(x)
             if i == 0 and train and self.dp_ratio > 0:
                 x = dropout(x, self.dp_ratio, generator)
         return getattr(self, f"Dense_{self.n_hidden}")(x.float())

@@ -43,12 +43,14 @@ LAUNCHES = {"fps": 0, "fused_sa_window": 0, "fused_sa_full": 0,
             "fused_sa_window_bf16": 0, "fused_sa_full_bf16": 0,
             "fused_sa_idx_bf16": 0, "three_interpolate_bf16": 0,
             "fused_sa_window_bf16r": 0, "fused_sa_full_bf16r": 0,
-            "greedy_sweep": 0}
+            "greedy_sweep": 0, "bn_relu": 0, "bn_relu_sums": 0,
+            "bn_relu_dx": 0}
 
 _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "ws3d_fps": [_P, _I, _I, _I, _P, _P, _P],
@@ -66,6 +68,9 @@ _SIGNATURES = {
     "ws3d_ball_query_wrap": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "ws3d_three_nn": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     "ws3d_greedy_sweep": [_P, _P, _F, _I, _I, _P, _P, _P],
+    "ws3d_bn_relu_forward": [_P, _P, _P, _P, _P, _L, _I, _P, _P],
+    "ws3d_bn_relu_sums": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P],
+    "ws3d_bn_relu_dx": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _L, _P, _P],
 }
 
 

@@ -11,7 +11,8 @@ SA searches, the SA on given indices, the crop-gather (both slot orders and
 the z window), the wrapped ball query and the windowed interpolation at
 the same scale, the window kernels on the clouds sorted by z; the greedy
 sweep on rpn_propose's radius-0.3 matrices at batch 64 and 1 (512 centres
-in an 8 m square). Indices, keep masks, counts and gathers must be exact,
+in an 8 m square); the train-mode BatchNorm + ReLU at SA0's widest layer
+of a batch of 25 (3,276,800 rows of 64). Indices, keep masks, counts and gathers must be exact,
 sums within the tolerances the kernels' tests state. Prints the card's
 name and power limit, one line a kernel and SELFTEST PASSED or FAILED;
 exits 1 on a failure. Needs a CUDA device: there is no CPU run.
@@ -61,8 +62,9 @@ def _scale(b) -> float:
 
 def checks(device):
     """[(name, kernel fn, plain fn, tolerance(plain output))]."""
-    from ws3d_tpu_torch.ops import (ball_query, crop_gather, fused_sa,
-                                    fused_sa_idx, interpolate, nms, sampling)
+    from ws3d_tpu_torch.ops import (ball_query, batchnorm, crop_gather,
+                                    fused_sa, fused_sa_idx, interpolate, nms,
+                                    sampling)
     g = torch.Generator(device="cpu").manual_seed(0)
 
     def cloud(b, n, spread=10.0):
@@ -100,6 +102,13 @@ def checks(device):
         votes[:, :, None] - votes[:, None]), dim=-1))
     radius = (-(dist - 0.3)).contiguous()
     live = (torch.rand(64, 512, generator=g) < 0.9).to(device)
+    # SA0's second scale at batch 25: its widest BatchNorm
+    bnx = (torch.randn(25 * 4096 * 32, 64, generator=g) + 0.3).to(device)
+    bng = torch.randn(25 * 4096 * 32, 64, generator=g).to(device)
+    bnp = [(torch.rand(64, generator=g) + 0.5).to(device),
+           (torch.randn(64, generator=g) * 0.5).to(device)]
+    bns = [torch.mean(bnx, 0), torch.reciprocal(torch.sqrt(
+        torch.var(bnx, 0, correction=0) + 1e-5))]
 
     exact = lambda ref: 0.0                                     # noqa: E731
     return [
@@ -158,6 +167,17 @@ def checks(device):
          lambda: nms.greedy_suppress_cuda(radius[:1], 0.0, live[:1]),
          lambda: nms.greedy_suppress_plain(radius[:1], 0.0, live[:1]),
          exact),
+        ("bn_relu 3,276,800 x 64",
+         lambda: batchnorm.bn_relu_forward_cuda(bnx, *bns, *bnp),
+         lambda: batchnorm.bn_relu_plain(bnx, *bns, *bnp), exact),
+        ("bn_relu_backward dx",
+         lambda: batchnorm.bn_relu_backward_cuda(bng, bnx, *bns, *bnp)[0],
+         lambda: batchnorm.bn_relu_backward_plain(bng, bnx, *bns, *bnp)[0],
+         lambda ref: 1e-5 * _scale(ref)),
+        ("bn_relu_backward dscale, dbias",
+         lambda: batchnorm.bn_relu_backward_cuda(bng, bnx, *bns, *bnp)[1:],
+         lambda: batchnorm.bn_relu_backward_plain(bng, bnx, *bns, *bnp)[1:],
+         lambda ref: 1e-5 * _scale(ref)),
         ("three_interpolate window (kernel 8)",
          lambda: interpolate.three_interpolate_window_cuda(sunk, skno,
                                                            feats),
