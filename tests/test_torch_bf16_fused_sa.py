@@ -23,15 +23,18 @@ fused_sa_tc_kernel<MODE, true>) on the CPU.
    8, each k8 step's eight exact products summed and rounded to f32 once,
    then added in f32 (the accumulators), against the plain bf16 version
    (one f32 matmul): within the card's gate for the bf16 mode
-   (chip_smoke.py:_bf16_gate), max|diff| <= 1e-3 + 2^-7 max|ref| (other sum
-   orders can move an activation's bf16 rounding by one ulp) and mean|diff|
-   <= 0.1 mean|bf16 - f32| (such moves are rare)."""
+   (tests/torch_card_helpers.py: BF16_GATE, BF16_MEAN_SHARE), max|diff| <=
+   1e-3 + 2^-7 max|ref| (other sum orders can move an activation's bf16
+   rounding by one ulp) and mean|diff| <= 0.1 mean|bf16 - f32| (such moves
+   are rare)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from test_torch_tf32_split_full import CASES, _inputs, pad_rows
+from torch_card_helpers import BF16_GATE as CHIP_GATE
+from torch_card_helpers import BF16_MEAN_SHARE
 from torch_port_helpers import n, t
 from ws3d_tpu.ops import (fused_sa_bq_pallas, fused_sa_pallas,
                           fused_sa_window_pallas)
@@ -41,7 +44,6 @@ from ws3d_tpu_torch.ops.fused_sa_idx import fused_sa_idx_plain, matmul_bf16
 from ws3d_tpu_torch.ops.grouping import group_with_idx
 
 BF16 = torch.bfloat16
-CHIP_GATE = (1e-3, 2.0 ** -7)   # abs + rel of max|ref|: chip_smoke.py
 
 
 def _j(a):
@@ -172,7 +174,7 @@ def test_emulated_sums_hold_the_chip_gate(rng, name):
           f"{err:.3g} of max|ref| {scale:.4g}, mean {mean:.3g} against "
           f"bf16's {rounding:.3g} from f32")
     assert err <= CHIP_GATE[0] + CHIP_GATE[1] * scale
-    assert mean <= 0.1 * rounding
+    assert mean <= BF16_MEAN_SHARE * rounding
     # the plain version's product is the f32 sum of exact bf16 products
     a, w = h[..., :8], ks[-1][:8]
     exact = (a.to(BF16).double() @ w.to(BF16).double()).float()

@@ -13,8 +13,15 @@ from torch_port_helpers import REPO
 BANNED = ("jax", "flax", "optax", "orbax", "tools", "common")
 
 
+# the card's test files, run with --noconftest on a machine that may have
+# no JAX (torch_port_helpers.py is not one: its JAX references import JAX)
+CARD_TESTS = ("test_torch_cuda.py", "test_torch_bn_relu.py",
+              "torch_parallel_ranks.py", "test_torch_card_paths.py",
+              "torch_card_helpers.py")
+
+
 def _port_files():
-    out = [os.path.join(REPO, f) for f in ("chip_smoke.py", "chip_gaps.py")]
+    out = [os.path.join(REPO, "tests", f) for f in CARD_TESTS]
     for root, dirs, files in os.walk(os.path.join(REPO, "ws3d_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]       # build outputs
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]

@@ -1,16 +1,23 @@
-"""Each CUDA kernel against its plain PyTorch version on the card (small
-shapes; chip_smoke.py runs the main-path shapes). Marked `cuda`: without a
-CUDA device these skip. Run them on the card with
+"""Each CUDA kernel against its plain PyTorch version on the card, at
+small shapes and at the main path's launch shapes, within the gates of
+tests/torch_card_helpers.py (tests/test_torch_card_paths.py holds whole
+paths). Marked `cuda`: without a CUDA device these skip. Run them on the
+card with the other card files:
 
-    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+    python -m pytest tests/test_torch_cuda.py tests/test_torch_bn_relu.py \\
+        tests/test_torch_card_paths.py -q -m cuda --noconftest
 
 (--noconftest: tests/conftest.py imports JAX, which the card's machine
 need not have.)
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
+from torch_card_helpers import (BF16_GATE, BF16_MEAN_SHARE, F32_SA_GATE,
+                                GIVEN_GATE, INTERP_GATE, within)
 from torch_port_helpers import (SWEEP_CASES, random_mlp, sorted_cloud,
                                 sweep_case)
 
@@ -284,40 +291,40 @@ def _tie_cloud(rng, R, N, spread=10.0):
 
 @pytest.mark.parametrize("R,N,npoint", [(1, 16384, 4096), (16, 16384, 4096),
                                         (1024, 512, 256), (16, 1024, 256)])
-def test_fps_row_classes(dev, rng, R, N, npoint):
+def test_fps_row_classes(dev, rng, tmp_path, R, N, npoint):
     """Kernel 1 at the main path's row classes, indices and coordinates
-    exact against the plain version (the cluster route above 1,024 points,
-    the warp route below)."""
+    exact against the plain version. Rows above 1,024 points take the
+    cluster route, 16,384-point rows as clusters of 8 CTAs or more (the
+    launch's grid over R, read from the profiler's trace); smaller rows
+    the warp route."""
     from ws3d_tpu_torch.ops.sampling import fps_cuda, fps_plain, gather_points
     xyz = torch.from_numpy(_tie_cloud(rng, R, N)).to(dev)
     ref = fps_plain(xyz, npoint)
-    idx, coords = fps_cuda(xyz, npoint)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        idx, coords = fps_cuda(xyz, npoint)
+        torch.cuda.synchronize()
     assert torch.equal(idx, ref)
     assert torch.equal(coords, gather_points(xyz, ref.long()))
-
-
-def test_fps_routes_bench(dev, tmp_path):
-    """csrc/bench/fps_routes.cu builds and passes its own checks: both of
-    kernel 1's routes agree at every row class, row 0 matches its host
-    reference, and 16,384-point rows run as clusters of 8 CTAs or more."""
-    import subprocess
-    from ws3d_tpu_torch.ops import _kernels
-    src = _kernels.CSRC / "bench" / "fps_routes.cu"
-    exe = tmp_path / "fps_routes"
-    subprocess.run([_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-Xcompiler", "-ffp-contract=off",
-                    "-o", str(exe), str(src)], check=True)
-    out = subprocess.run([str(exe)], capture_output=True, text=True)
-    assert out.returncode == 0, out.stdout + out.stderr
-    assert out.stdout.splitlines()[-1] == "ok"
+    trace = tmp_path / "fps.json"
+    prof.export_chrome_trace(str(trace))
+    launches = [e for e in json.loads(trace.read_text())["traceEvents"]
+                if e.get("cat") == "kernel" and "fps_" in e["name"]]
+    assert len(launches) == 1, [e["name"] for e in launches]
+    name, grid = launches[0]["name"], launches[0]["args"]["grid"]
+    if N > 1024:
+        assert "fps_cluster_kernel" in name, name
+        assert grid[0] % R == 0 and grid[0] // R >= 8, grid
+    else:
+        assert "fps_warp_kernel" in name, name
 
 
 @pytest.mark.parametrize("S", [8, 16, 24, 32])
 def test_fused_sa_window_tensor_cores(dev, rng, S):
     """Kernel 2's 3xTF32 MLP against the f32 plain version at the
     backbone's widest stages (Cin 259 with a 196-wide layer; Cin 515 with a
-    384-wide one), with empty balls and a ragged last block, within the
-    chip_smoke gate 1e-3 + 1e-4 max|ref|."""
+    384-wide one), with empty balls and a ragged last block, within
+    F32_SA_GATE (1e-3 + 1e-4 max|ref|)."""
     from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda, fused_sa_plain
     for C, widths, P, M, r in ((256, [128, 196, 256], 1024, 200, 1.0),
                                (512, [256, 384, 512], 256, 64, 2.0)):
@@ -333,7 +340,7 @@ def test_fused_sa_window_tensor_cores(dev, rng, S):
         got = fused_sa_cuda(*args, r, S, ks, bs, True)
         ref = fused_sa_plain(*args, r, S, ks, bs)
         err = float((got - ref).abs().max())
-        assert err <= 1e-3 + 1e-4 * float(ref.abs().max()), (C, S, err)
+        assert within(err, float(ref.abs().max()), F32_SA_GATE), (C, S, err)
 
 
 # kernel 3's main-path shapes, cut to 2 batch rows: backbone SA1 (both
@@ -373,14 +380,14 @@ def _full_case(rng, dev, name):
 def test_fused_sa_full_tensor_cores(dev, rng, name):
     """Kernel 3 (full mode) on the 3xTF32 tensor-core routine against the
     f32 plain version at its main-path widths, with empty balls and a
-    ragged last block, within the chip_smoke gate 1e-3 + 1e-4 max|ref|."""
+    ragged last block, within F32_SA_GATE (1e-3 + 1e-4 max|ref|)."""
     from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda, fused_sa_plain
     args, ks, bs, S, r = _full_case(rng, dev, name)
     got = fused_sa_cuda(*args, r, S, ks, bs, False)
     ref = fused_sa_plain(*args, r, S, ks, bs)
     err = float((got - ref).abs().max())
     assert float(ref.abs().max()) > 0.1
-    assert err <= 1e-3 + 1e-4 * float(ref.abs().max()), (name, err)
+    assert within(err, float(ref.abs().max()), F32_SA_GATE), (name, err)
 
 
 @pytest.mark.parametrize("name", sorted(FULL_CASES))
@@ -388,8 +395,8 @@ def test_fused_sa_idx_tensor_cores(dev, rng, name):
     """Kernel 9 (given mode) at kernel 3's shapes: on kernel 6's indices it
     runs the same rows through the same routine as the full mode, so the
     two agree bit for bit; on random indices with S + 8 slots (not a
-    multiple of 16) it holds its chip_smoke gate 1e-4 max|ref| + 1e-6
-    against the plain version."""
+    multiple of 16) it holds GIVEN_GATE (1e-4 max|ref| + 1e-6) against the
+    plain version."""
     from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda
     from ws3d_tpu_torch.ops.fused_sa_idx import (fused_sa_idx_cuda,
                                                  fused_sa_idx_plain)
@@ -403,25 +410,7 @@ def test_fused_sa_idx_tensor_cores(dev, rng, name):
     got = fused_sa_idx_cuda(*args, idx, ks, bs)
     ref = fused_sa_idx_plain(idx, *args, ks, bs)
     err = float((got - ref).abs().max())
-    assert err <= 1e-4 * float(ref.abs().max()) + 1e-6, (name, err)
-
-
-def test_fused_sa_layouts_bench(dev, tmp_path):
-    """csrc/bench/fused_sa_layouts.cu builds and passes its own checks: at
-    every main-path launch shape of the fused SA each sizing gives the kept
-    sizing's output bit for bit, and the searching modes give the given
-    mode's output on a host ball query's indices bit for bit."""
-    import subprocess
-    from ws3d_tpu_torch.ops import _kernels
-    src = _kernels.CSRC / "bench" / "fused_sa_layouts.cu"
-    exe = tmp_path / "fused_sa_layouts"
-    subprocess.run([_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-Xcompiler", "-ffp-contract=off",
-                    "-o", str(exe), str(src)], check=True)
-    out = subprocess.run([str(exe)], capture_output=True, text=True)
-    print(out.stdout)
-    assert out.returncode == 0, out.stdout + out.stderr
-    assert out.stdout.splitlines()[-1] == "ok"
+    assert within(err, float(ref.abs().max()), GIVEN_GATE), (name, err)
 
 
 def _search_cloud(rng, B, N, kind):
@@ -485,8 +474,8 @@ def test_ball_query_pruned(dev, rng, kind, N, M, radii, ks):
     (300, 2, 16),                             # m < 3
 ])
 def test_interpolate_pruned(dev, rng, kind, n_u, m, C):
-    """Kernel 4's staged, pruned search within the chip_smoke gate
-    (1e-4 + 1e-5 max|ref|) of the plain version, on kernel 7's neighbours,
+    """Kernel 4's staged, pruned search within INTERP_GATE (1e-4 + 1e-5
+    max|ref|) of the plain version, on kernel 7's neighbours,
     and bit-equal to kernel 8 where both clouds are sorted by z."""
     from ws3d_tpu_torch.ops.interpolate import (
         _weighted_rows, three_interpolate_cuda, three_interpolate_plain,
@@ -500,13 +489,13 @@ def test_interpolate_pruned(dev, rng, kind, n_u, m, C):
     got = three_interpolate_cuda(u, k, f)
     ref = three_interpolate_plain(u, k, f)
     err = float((got - ref).abs().max())
-    assert err <= 1e-4 + 1e-5 * float(ref.abs().max()), err
+    assert within(err, float(ref.abs().max()), INTERP_GATE), err
     d2, idx = three_nn_cuda(u, k)
     if kind != "shuffled":
         assert torch.equal(got, three_interpolate_window_cuda(u, k, f))
     # the neighbours are kernel 7's: the plain weights on them agree too
     err7 = float((_weighted_rows(f, d2, idx) - got).abs().max())
-    assert err7 <= 1e-4 + 1e-5 * float(ref.abs().max()), err7
+    assert within(err7, float(ref.abs().max()), INTERP_GATE), err7
 
 
 @pytest.mark.parametrize("kind", SEARCH_KINDS)
@@ -620,7 +609,7 @@ def test_crop_gather_pruned(dev, rng, kind):
 
 def test_fused_sa_full_shuffled(dev, rng):
     """Kernel 3's search is kernel 6's: on a shuffled cloud (nothing to
-    skip) at backbone SA1's width it holds the gate 1e-3 + 1e-4 max|ref|
+    skip) at backbone SA1's width it holds F32_SA_GATE (1e-3 + 1e-4 max|ref|)
     against the plain version, and kernel 9 on kernel 6's indices equals
     it bit for bit."""
     from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda, fused_sa_plain
@@ -638,34 +627,15 @@ def test_fused_sa_full_shuffled(dev, rng):
         got = fused_sa_cuda(*args, r, S, ks, bs, False)
         ref = fused_sa_plain(*args, r, S, ks, bs)
         err = float((got - ref).abs().max())
-        assert err <= 1e-3 + 1e-4 * float(ref.abs().max()), (S, err)
+        assert within(err, float(ref.abs().max()), F32_SA_GATE), (S, err)
         idx = ball_query(r, S, args[0], args[2])
         assert torch.equal(fused_sa_idx_cuda(*args, idx, ks, bs), got)
-
-
-def test_neighbour_search_bench(dev, tmp_path):
-    """csrc/bench/neighbour_search.cu builds and passes its own checks:
-    kernels 6, 4, 7, 6w, 5 and 10 give the outputs of the searches they
-    replaced bit for bit at every main-path launch shape, sorted and
-    shuffled, in every sizing tried, kernel 6's first row matches a host
-    ball query and kernel 5's first row's counts the host's."""
-    import subprocess
-    from ws3d_tpu_torch.ops import _kernels
-    src = _kernels.CSRC / "bench" / "neighbour_search.cu"
-    exe = tmp_path / "neighbour_search"
-    subprocess.run([_kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-Xcompiler", "-ffp-contract=off",
-                    "-o", str(exe), str(src)], check=True)
-    out = subprocess.run([str(exe)], capture_output=True, text=True)
-    print(out.stdout)
-    assert out.returncode == 0, out.stdout + out.stderr
-    assert out.stdout.splitlines()[-1] == "ok"
 
 
 @pytest.mark.parametrize("mode", ["window", "full", "given"])
 def test_fused_sa_bf16_kernels(dev, rng, mode):
     """The bf16 mode of kernels 2, 3 and 9 (bf16 factors, f32 sums) against
-    the plain bf16 versions within chip_smoke.py's gate (_bf16_gate), and
+    the plain bf16 versions within BF16_GATE and BF16_MEAN_SHARE, and
     kernel 9 on kernel 6's indices bit-equal to kernel 2."""
     from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda, fused_sa_plain
     from ws3d_tpu_torch.ops.fused_sa_idx import (fused_sa_idx_cuda,
@@ -690,16 +660,16 @@ def test_fused_sa_bf16_kernels(dev, rng, mode):
         ref = fused_sa_plain(*args, 0.4, 32, ks, bs, bf16=True)
     f32 = fused_sa_plain(*args, 0.4, 32, ks, bs)
     scale = ref.abs().max().item()
-    assert (got - ref).abs().max().item() <= 1e-3 + 2.0 ** -7 * scale
+    assert within((got - ref).abs().max().item(), scale, BF16_GATE)
     assert ((got - ref).abs().mean().item()
-            <= 0.1 * (ref - f32).abs().mean().item())
+            <= BF16_MEAN_SHARE * (ref - f32).abs().mean().item())
 
 
 @pytest.mark.parametrize("window", [True, False])
 def test_fused_sa_bf16_rounded_layers(dev, rng, window):
     """The rounded-layer bf16 mode of kernels 2 and 3 (each layer's output
     rounded as flax's bf16 Dense rounds it; the BN-free stacks' train
-    forward) against its plain version within chip_smoke.py's bf16 gate:
+    forward) against its plain version within BF16_GATE and BF16_MEAN_SHARE:
     bf16-valued outputs, a sum in another order moving a rounding by one
     ulp at most at a time; kernel 9 refuses the mode."""
     from ws3d_tpu_torch.ops import _kernels
@@ -722,9 +692,9 @@ def test_fused_sa_bf16_rounded_layers(dev, rng, window):
     f32 = fused_sa_plain(*args, 0.4, 32, ks, bs)
     assert torch.equal(got, got.to(torch.bfloat16).float())
     scale = ref.abs().max().item()
-    assert (got - ref).abs().max().item() <= 1e-3 + 2.0 ** -7 * scale
+    assert within((got - ref).abs().max().item(), scale, BF16_GATE)
     assert ((got - ref).abs().mean().item()
-            <= 0.1 * (ref - f32).abs().mean().item())
+            <= BF16_MEAN_SHARE * (ref - f32).abs().mean().item())
     lib = _kernels.library()
     w = (_kernels.ctypes.c_int * 4)(128, 128, 128, 256)
     rc = lib.ws3d_fused_sa_idx(0, 0, 0, 0, 2, 512, 125, 128, 32, 3, w, 0, 0,

@@ -9,8 +9,9 @@ ws3d_tpu/ops/fused_sa_bq_pallas.py:_xla_reference (full) and
 ws3d_tpu/ops/fused_sa_pallas.py:_xla_reference (given), at the widths these
 kernels run: the fitted stage-2 SA2 MLP (131 -> 128 -> 128 -> 256) at S 64
 and the backbone SA1 MLPs (99 -> 64 -> 64 -> 128 at S 16, 99 -> 64 -> 96 ->
-128 at S 32). The kernel's chip gates (1e-3 + 1e-4 max|ref| and 1e-4
-max|ref|, chip_smoke.py) are far wider."""
+128 at S 32). The kernel's card gates (1e-3 + 1e-4 max|ref| and 1e-4
+max|ref| + 1e-6, tests/torch_card_helpers.py: F32_SA_GATE, GIVEN_GATE)
+are far wider."""
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,10 +6,12 @@ starts in a few seconds.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
-from torch_port_helpers import WEIGHTS
+from torch_card_helpers import WEIGHTS
 from ws3d_tpu_torch.models import build_model
 from ws3d_tpu_torch.parallel import data_parallel_infer, shard_batch_multihost
 from ws3d_tpu_torch.parallel.dryrun import cpu_state
@@ -135,3 +137,54 @@ def bn_relu_rank(group, state: dict, channels: list, x: torch.Tensor,
                              for k in keys}}
 
     return {"fused": side(True), "composition": side(False)}
+
+
+def trainer_rank(group, cfg, flat: dict, host: list) -> dict:
+    """A data-parallel Trainer from `flat` over the host batches `host`,
+    one step a batch: its state and step count."""
+    model = build_model(cfg, device=group.device)
+    load_flat(model, flat)
+    trainer = Trainer(model, cfg, total_steps=1000, seed=0, group=group,
+                      log_fn=lambda msg: None)
+    trainer.train_steps(host, total_steps=len(host), log_every=1,
+                        prefetch_size=0)
+    return {"state": cpu_state(model), "step": trainer.step}
+
+
+def eval_rank(group, cfg, out_dir: str) -> int:
+    """eval_auto's run_eval with the fitted npz on 16 synthetic scenes at
+    batch 16 into `out_dir`, the stage-2 budget pooled over the group: the
+    detections."""
+    import logging
+    from ws3d_tpu_torch.datasets import RPNDataset, SyntheticKitti
+    from ws3d_tpu_torch.tools.eval_auto import run_eval
+    model = build_model(cfg, device=group.device)
+    load_npz(model, WEIGHTS)
+    src = SyntheticKitti(num_scenes=16, points_per_scene=20000, seed=3)
+    log = logging.getLogger("eval_rank")
+    log.addHandler(logging.NullHandler())
+    log.propagate = False
+    stats = {}
+    run_eval(model, cfg, src, RPNDataset(src, cfg, mode="EVAL", seed=0),
+             log, scenes=16, batch=16, output_dir=out_dir, no_ap=True,
+             group=group, stats=stats)
+    return stats["detections"]
+
+
+def card_rank(group, calls: list) -> list:
+    """On the card, with TF32 off: each (rank function, its arguments,
+    deterministic) of `calls` in turn, under PyTorch's deterministic
+    algorithms where asked; each one's result and the kernel launches it
+    made."""
+    from torch_card_helpers import deterministic
+    from ws3d_tpu_torch.ops import _kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for fn, args, det in calls:
+        _kernels.reset_launch_counts()
+        with deterministic() if det else contextlib.nullcontext():
+            res = fn(group, *args)
+        torch.cuda.synchronize(group.device)
+        out.append({"out": res, "launches": dict(_kernels.LAUNCHES)})
+    return out

@@ -7,16 +7,14 @@ wrapper runs its plain PyTorch version.
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 import torch
 
+from torch_card_helpers import REPO, WEIGHTS  # noqa: F401
+
 # six xdist workers share the machine
 torch.set_num_threads(2)
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WEIGHTS = os.path.join(REPO, "ws3d_tpu", "data", "bench_weights.npz")
 
 
 def t(a) -> torch.Tensor:

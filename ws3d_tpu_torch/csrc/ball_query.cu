@@ -37,7 +37,7 @@
 // On an unsorted cloud every chunk spans the z range and nothing is
 // skipped: the block then reads each point from global memory once for 16
 // queries, where the index-order scan read it once a query. 2 queries a
-// warp: csrc/bench/neighbour_search.cu measures 1 and 4 too; 2 is fastest
+// warp: 1 and 4 were measured too (PERF.md §6); 2 is fastest
 // at the stage-1 launches, 4 at the RCNN step's SA0 and SA1.
 //
 // Kernel 6w, the same TPU kernel's wrap_pad mode (wrap_pad=True in
@@ -60,7 +60,7 @@
 // chunks a warp with the points read straight from global memory (L2), a
 // count a warp and a block prefix ranking the members (listed_rank_search
 // in search.cuh; the crop-gather, kernels 5 and 10, runs it too).
-// csrc/bench/neighbour_search.cu measures the alternatives: 8 or 32 warps,
+// The alternatives were measured (PERF.md §6): 8 or 32 warps,
 // 2 or 8 chunks a warp a round, and the staged ring of search.cuh (one
 // centre a block, or 2-8 centres taken in z order), which lost: every tile
 // waits on warp 0's walk over the chunk bounds and on its copies. The

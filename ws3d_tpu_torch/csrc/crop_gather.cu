@@ -49,7 +49,7 @@
 // the listed search runs over the chunks that meet the range, the points
 // outside it masked.
 //
-// csrc/bench/neighbour_search.cu measures both modes against the dense
+// Both modes were measured (PERF.md §6) against the dense
 // block scan they replaced (one block of 256 threads a centre ranking all
 // N points, 64 barrier-separated steps), sorted and shuffled, at the
 // inference launch, with 4, 8 and 16 warps a centre and 2, 4 and 8 chunks

@@ -11,8 +11,8 @@
 // the floor is the step count times the latency of that reduction.
 //
 // Two designs, by row size (cut-over kWarpMaxN points, measured on the
-// card by csrc/bench/fps_routes.cu, which times both at every row class of
-// the main path). In both, a thread keeps its points and their min-d2 cache
+// card with both timed at every row class of the main path, PERF.md
+// §6). In both, a thread keeps its points and their min-d2 cache
 // in registers and takes its best (d2, index) by a tree; a warp reduces with
 // two redux.sync (max of the d2 bits, then min of the index among equals);
 // the pick's coordinates come from a copy of the points in shared memory.
@@ -290,7 +290,7 @@ ClusterKernel cluster_kernel(int ppt) {
 // Picks C for R rows of N points on the current device; returns a
 // cudaError_t. Both kernels are opted in to the largest slice any plan
 // uses. Every cluster launch plans anew: it costs about 1 us of host time
-// (csrc/bench/fps_routes.cu measures it) against a launch of 1.3 ms or more.
+// (measured on an H100) against a launch of 1.3 ms or more.
 int cluster_plan(int R, int N, Plan& plan) {
   int dev = 0, sms = 0;
   int err = (int)cudaGetDevice(&dev);

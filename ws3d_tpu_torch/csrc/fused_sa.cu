@@ -204,7 +204,7 @@ __host__ __device__ __forceinline__ size_t act_floats(const TCLayout& lay) {
 // bits 0: cvt.rna.tf32.f32's rounding, bit for bit on finite x, done with
 // two integer ops (half a magnitude ulp added, then truncated), which run
 // faster than cvt on its narrower conversion pipe
-// (csrc/bench/tf32_split_rate.cu measures both)
+// (both measured on an H100)
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
@@ -599,7 +599,7 @@ int tc_warps(const TCLayout& lay, const MLPDesc& d, int max_warps) {
 // query takes up to kSmemMax and up to kTCMaxWarps warps instead. Then the
 // chunks grow as deep as the rest allows (at most 32 rows, both within
 // kWChunkBudget). Warps: tc_warps, at most kTCWarps when two blocks share
-// an SM. csrc/bench/fused_sa_layouts.cu times this against other sizings.
+// an SM. It was timed against other sizings on an H100 (PERF.md §6).
 TCPlan plan_tc(int C, int M, int S, const MLPDesc& d, const float* feat) {
   const int* widths = d.width;
   const int L = d.n_layers;
@@ -767,22 +767,4 @@ WS3D_EXPORT int ws3d_fused_sa_idx(const float* xyz, const float* feat,
   return launch_mode<kGiven>(bf16, plan_tc(C, M, S, d, feat), xyz, feat,
                              new_xyz, idx, B, P, C, M, 0.f, S, d, params, out,
                              nullptr, stream);
-}
-
-// The launch either entry makes for these shapes (the same in every mode
-// and both precisions: the bf16 mode packs its fragments from the same f32
-// buffers): plan[0..6] = feature gather by cp.async (1) or scalar loads
-// (0), Q, Sp, KC, warps, bytes of shared memory, blocks. Returns a
-// cudaError_t.
-WS3D_EXPORT int ws3d_fused_sa_plan(int B, int P, int C, int M, int S,
-                                   int n_layers, const int* widths,
-                                   const float* feat, int* plan) {
-  MLPDesc d;
-  const int err = make_desc(B, P, C, M, S, n_layers, widths, d);
-  if (err) return err;
-  const TCPlan p = plan_tc(C, M, S, d, feat);
-  const int v[7] = {p.lay.feat_async, p.lay.Q, p.lay.Sp, p.lay.KC, p.warps,
-                    (int)p.smem, B * ((M + p.lay.Q - 1) / p.lay.Q)};
-  for (int i = 0; i < 7; ++i) plan[i] = v[i];
-  return 0;
 }

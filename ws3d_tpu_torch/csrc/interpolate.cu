@@ -26,12 +26,12 @@
 // strictly greater than the third-best d2 of every query it could serve, so
 // the result is the full search's on any input, with the top-3 in (d2,
 // index) order, the order of the TPU's three masked-min passes.
-// The library launches kQPT 1: csrc/bench/neighbour_search.cu measures 2
-// and 4 too, and more queries a thread lost at every main-path shape (the
+// The library launches kQPT 1: 2 and 4 were measured too (PERF.md §6),
+// and more queries a thread lost at every main-path shape (the
 // pruned search leaves few pairs to share a load, and the registers cut
 // the warps that hide latency); the launch bounds ask for
-// kInterpMinBlocks blocks an SM, 64 registers a thread (the bench measures
-// 4 and 12 too; at 12, 40 registers a thread, the kernel spills).
+// kInterpMinBlocks blocks an SM, 64 registers a thread (4 and 12 were
+// measured too; at 12, 40 registers a thread, the kernel spills).
 // Small launches (FP2, FP3: a few thousand queries, 512 channels) would
 // leave most SMs idle, so below two blocks an SM, where the known cloud is
 // small beside the channels, the host splits the channels over blocks,
@@ -57,8 +57,8 @@
 // thread a query, a serial binary search, then a two-sided walk of
 // dependent global loads) took 0.646 ms on an H100 over the inference
 // batch's four FP launches against kernel 4's 0.369 (PERF.md);
-// csrc/bench/neighbour_search.cu measures it against this launch and
-// against kernel 4's, the pre-pass included.
+// It was measured against this launch and against kernel 4's, the
+// pre-pass included (PERF.md §6).
 #include <stdint.h>
 
 #include <algorithm>

@@ -25,9 +25,9 @@
 // consecutive queries and stages only the chunks that can still hold a
 // neighbour (exact on any input; see search.cuh). Each thread writes its
 // queries' d2 and indices; a warp's rows are contiguous. The library
-// launches kQPT 1 with launch bounds for kNNMinBlocks blocks an SM:
-// csrc/bench/neighbour_search.cu measures 2 and 4 queries a thread and 4
-// and 12 blocks an SM too.
+// launches kQPT 1 with launch bounds for kNNMinBlocks blocks an SM: 2 and
+// 4 queries a thread and 4 and 12 blocks an SM were measured too (PERF.md
+// §6).
 #include <stdint.h>
 
 #include "search.cuh"

@@ -101,24 +101,6 @@ def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
     return out
 
 
-def fused_sa_plan(features, new_xyz, nsample: int, widths) -> dict:
-    """The launch csrc/fused_sa.cu plans for these shapes, in any of its
-    three modes and either precision: the feature gather ("cp.async" or
-    "scalar" loads), Q queries of Sp rows a block, KC weight rows a chunk,
-    warps, bytes of shared memory and blocks. Launches nothing."""
-    B, P, C = features.shape
-    w = (_kernels.ctypes.c_int * len(widths))(*widths)
-    plan = (_kernels.ctypes.c_int * 7)()
-    rc = _kernels.library().ws3d_fused_sa_plan(
-        B, P, C, new_xyz.shape[1], int(nsample), len(widths) - 1, w,
-        features.data_ptr(), plan)
-    _kernels.raise_on_error(rc, "fused_sa_plan")
-    out = dict(zip(("gather", "Q", "Sp", "KC", "warps", "smem", "blocks"),
-                   plan))
-    out["gather"] = "cp.async" if out["gather"] else "scalar"
-    return out
-
-
 def fused_sa(xyz, features, new_xyz, radius: float, nsample: int, kernels,
              biases, window: bool, params: torch.Tensor | None = None,
              bf16: bool = False, round_layers: bool = False) -> torch.Tensor:
