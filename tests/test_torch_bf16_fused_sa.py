@@ -20,8 +20,10 @@ fused_sa_tc_kernel<MODE, true>) on the CPU.
    columns 2t and 2t + 1. Rebuilt lane by lane as the PTX ISA lays out the
    fragments, the product is bf16(A) @ bf16(B) exactly.
 3. The kernel's sums emulated: rows padded to Sp with slot 0, K padded to
-   8, each k8 step's eight exact products summed and rounded to f32 once,
-   then added in f32 (the accumulators), against the plain bf16 version
+   the k step, each step's exact products summed and rounded to f32 once,
+   then added in f32 (the accumulators), at the two groupings the kernels
+   use (k8: mma.sync m16n8k8; k16: the weight-stationary route's wgmma
+   m64n64k16), against the plain bf16 version
    (one f32 matmul): within the card's gate for the bf16 mode
    (tests/torch_card_helpers.py: BF16_GATE, BF16_MEAN_SHARE), max|diff| <=
    1e-3 + 2^-7 max|ref| (other sum orders can move an activation's bf16
@@ -141,27 +143,29 @@ def test_fragment_pairing_is_a_k_permutation(rng):
     assert torch.equal(A @ Bm, X @ W)
 
 
-def _mm_k8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """bf16 factors, K padded to 8; each k8 step's exact products summed
+def _mm_k(a: torch.Tensor, b: torch.Tensor, step: int) -> torch.Tensor:
+    """bf16 factors, K padded to `step`; each step's exact products summed
     and rounded to f32 once, the steps added in f32."""
-    pad = (-a.shape[-1]) % 8
+    pad = (-a.shape[-1]) % step
     a = torch.nn.functional.pad(a, (0, pad)).to(BF16).double()
     b = torch.nn.functional.pad(b, (0, 0, 0, pad)).to(BF16).double()
     acc = torch.zeros(a.shape[:-1] + (b.shape[1],))
-    for k0 in range(0, a.shape[-1], 8):
-        acc = acc + (a[..., k0:k0 + 8] @ b[k0:k0 + 8]).float()
+    for k0 in range(0, a.shape[-1], step):
+        acc = acc + (a[..., k0:k0 + step] @ b[k0:k0 + step]).float()
     return acc
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_emulated_sums_hold_the_chip_gate(rng, name):
+@pytest.mark.parametrize("name,step", [
+    pytest.param(n, k, id=n if k == 8 else f"{n}-k{k}")
+    for k in (8, 16) for n in sorted(CASES)])
+def test_emulated_sums_hold_the_chip_gate(rng, name, step):
     C, radius, S, *_ = CASES[name]
     xyz, feat, new_xyz, ks, bs = _inputs(rng, name)
     ks, bs = [t(k) for k in ks], [t(b) for b in bs]
     idx = ball_query_multi_plain([radius], [S], t(xyz), t(new_xyz))[0]
     h = group_with_idx(pad_rows(idx).long(), t(xyz), t(new_xyz), t(feat))
     for k, b in zip(ks, bs):
-        h = torch.relu(_mm_k8(h, k) + b)
+        h = torch.relu(_mm_k(h, k, step) + b)
     got = torch.amax(h, dim=2)
     ref = fused_sa_idx_plain(idx, t(xyz), t(feat), t(new_xyz), ks, bs,
                              bf16=True)
@@ -170,7 +174,7 @@ def test_emulated_sums_hold_the_chip_gate(rng, name):
     err = float((got - ref).abs().max())
     mean, rounding = (float((got - ref).abs().mean()),
                       float((ref - f32).abs().mean()))
-    print(f"{name}: emulated k8 sums vs the plain bf16 version: max|diff| "
+    print(f"{name}: emulated k{step} sums vs the plain bf16 version: max|diff| "
           f"{err:.3g} of max|ref| {scale:.4g}, mean {mean:.3g} against "
           f"bf16's {rounding:.3g} from f32")
     assert err <= CHIP_GATE[0] + CHIP_GATE[1] * scale
@@ -180,3 +184,21 @@ def test_emulated_sums_hold_the_chip_gate(rng, name):
     exact = (a.to(BF16).double() @ w.to(BF16).double()).float()
     assert float((matmul_bf16(a, w) - exact).abs().max()) <= 1e-5 * float(
         exact.abs().max())
+
+
+def test_fused_sa_resident_reader():
+    """benchmark/metrics/fused_sa.resident.py: the program's
+    `fused_sa.resident` counter a traced batch or scene, None without it."""
+    from benchmark import harness
+    from ws3d_tpu_torch.utils.profiling import count
+    rec = {"iters": 2}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity
+                                            .CPU]):
+        pass                                 # no counter
+    assert harness.read_metric("infer.fused_sa.resident", rec) is None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity
+                                            .CPU]):
+        for _ in range(20):
+            count("fused_sa.resident")
+    assert harness.read_metric("infer.fused_sa.resident", rec) == 10.0
+    assert harness.read_metric("scene.fused_sa.resident", rec) == 10.0

@@ -29,13 +29,13 @@ import numpy as np
 import pytest
 import torch
 
-from torch_card_helpers import (BF16_BN_TOL, BF16_GRAD_MEDIAN,
+from torch_card_helpers import (BF16_BN_TOL, BF16_GATE, BF16_GRAD_MEDIAN,
                                 GLOBAL_GRAD_FACTOR, GLOBAL_GRAD_MEDIAN,
                                 GLOBAL_GRAD_WORST, GLOBAL_GRAD_WORST_FLOOR,
-                                REPO, WEIGHTS, Recorder, check_call,
-                                check_calls, check_detections, check_records,
-                                check_txt, deterministic, gap, grad_gaps,
-                                split_bn_sums)
+                                REPO, WEIGHTS, Recorder, bf16_gate,
+                                check_call, check_calls, check_detections,
+                                check_records, check_txt, deterministic, gap,
+                                grad_gaps, split_bn_sums, within)
 from ws3d_tpu_torch.config import load_config
 from ws3d_tpu_torch.datasets import (BoxPlaceDataset, RPNDataset,
                                      SyntheticKitti,
@@ -56,6 +56,7 @@ from ws3d_tpu_torch.training.trainer import (RPN_INPUTS, batch_to_device,
                                              rcnn_gradients, rpn_gradients,
                                              step_inputs,
                                              trainable_parameters)
+from ws3d_tpu_torch.utils.profiling import TRACE
 from ws3d_tpu_torch.weights import load_flat, to_flat
 
 pytestmark = pytest.mark.cuda
@@ -237,14 +238,16 @@ def test_sass_instructions(card):
     """The fused SA routine (kernels 3, 2 and 9: modes 0, 1 and 2) has TF32
     HMMA only in each mode's 3xTF32 instance, bf16 HMMA
     (HMMA.1688.F32.BF16) only in its bf16 instance and in the rounded-layer
-    instance of kernels 3 and 2; no SIMT MLP routine (fused_sa_kernel) is
+    instance of kernels 3 and 2; the weight-stationary route of kernels 2
+    and 3 (fused_sa_resident_kernel, both bf16 precisions) has bf16 wgmma
+    (HGMMA ... BF16) and no HMMA; no SIMT MLP routine (fused_sa_kernel) is
     left; each FPS cluster kernel has cluster barriers (UCGABAR)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_kernels.build())],
                           capture_output=True, text=True, check=True).stdout
-    # (mangled name, HMMA and UCGABAR instructions) of each function
+    # (mangled name, HMMA, HGMMA and UCGABAR instructions) of each function
     funcs = [(p.split("\n", 1)[0], set(re.findall(
-        r"\b(HMMA\.[\w.]+|UCGABAR_\w+)", p)))
+        r"\b(HG?MMA\.[\w.]+|UCGABAR_\w+)", p)))
         for p in sass.split("Function : ")[1:]]
     for mode in range(3):
         for prec, want in [(0, "TF32"), (1, "HMMA.1688.F32.BF16")] + (
@@ -254,6 +257,10 @@ def test_sass_instructions(card):
                 rf"fused_sa_tc_kernelIL[a-z]+{mode}EL[a-z]+{prec}EE", name)
                 for o in ops if o.startswith("HMMA")]
             assert ops and all(want in o for o in ops), (mode, prec, ops)
+    res = [ops for name, ops in funcs if "fused_sa_resident_kernel" in name]
+    assert len(res) == 2 and all(
+        "HGMMA.64x64x16.F32.BF16" in ops and
+        not any(o.startswith("HMMA") for o in ops) for ops in res), res
     assert not any("fused_sa_kernel" in name for name, _ in funcs)
     fps = [ops for name, ops in funcs if "fps_cluster_kernel" in name]
     assert fps and all(any(o.startswith("UCGABAR") for o in ops)
@@ -270,7 +277,10 @@ def test_inference_kernel_calls(card, dtype, batch):
     modes and no f32 mode), a finite packed record, no spill at batch 16.
     In bf16 at batch 16, kernel 9's bf16 mode on kernel 6's indices for
     each fused call is bit-equal to the fused kernel's bf16 mode and holds
-    its plain version, directly and through its entry point."""
+    its plain version, directly and through its entry point; within
+    BF16_GATE of the fused kernel where that took the weight-stationary
+    route, which sums the same products by k16 (wgmma) where kernel 9 sums
+    by k8."""
     cfg = bench.bench_config(dtype)
     fn = make_two_stage_fn(_fitted(cfg, "cuda"), cfg)
     pts = bench.input_batches(cfg, batch, 1, "cuda")[0]
@@ -305,8 +315,14 @@ def test_inference_kernel_calls(card, dtype, batch):
                 # kernel 9 has no rounded-layer mode: the same call in the
                 # bf16 mode is its reference
                 o = fused_sa.fused_sa_cuda(*a, **{**kw, "round_layers": False})
-            assert torch.equal(fused_sa_idx.fused_sa_idx_cuda(*calls[-1],
-                                                              bf16=True), o)
+            given = fused_sa_idx.fused_sa_idx_cuda(*calls[-1], bf16=True)
+            C = feat.shape[-1]
+            if fused_sa.resident(C, nsample, 1, tuple(
+                    [C + 3] + [int(k.shape[1]) for k in kernels])):
+                assert within((given - o).abs().max().item(),
+                              o.abs().max().item(), BF16_GATE)
+            else:
+                assert torch.equal(given, o)
             check_call("fused_sa_idx_cuda", calls[-1], {"bf16": True})
         _reset()
         for a in calls:
@@ -325,6 +341,103 @@ def test_one_scene_card_against_cpu(card, dtype):
             _fitted(cfg, "cuda"), cfg)(scene.cuda()).items()}
         ref = make_two_stage_fn(_fitted(cfg, "cpu"), cfg)(scene)
     check_detections(got, ref, float(cfg.IOUN.SCORE_THRESH))
+
+
+# ------------------------------- the weight-stationary route of kernels 2, 3
+# (radius, S, queries, widths past C + 3): the stage-2 SA0 and SA2 stacks;
+# 254 = 31 x 8 + 6 and 31 = 15 x 2 + 1 queries leave a ragged last tile
+RESIDENT_CASES = [(0.2, 16, 254, [128, 128, 128]),
+                  (1.0, 64, 31, [128, 128, 256])]
+RESIDENT_CROPS = 260        # 8,320 and 4,160 tiles: more than the SMs
+
+
+def _crops(rng, B, P, C, device):
+    """B crops of P z-sorted points with C features."""
+    xyz = (rng.randn(B, P, 3) * 0.6).astype(np.float32)
+    xyz = np.take_along_axis(xyz, np.argsort(xyz[..., 2], axis=1,
+                                             kind="stable")[..., None], 1)
+    feat = rng.randn(B, P, C).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (xyz, feat)]
+
+
+def _he_mlp(rng, ci, widths, device):
+    ks, bs = [], []
+    for co in widths:
+        ks.append(torch.from_numpy((rng.randn(ci, co) * math.sqrt(
+            2.0 / ci)).astype(np.float32)).to(device))
+        bs.append(torch.from_numpy((rng.randn(co) * 0.1).astype(
+            np.float32)).to(device))
+        ci = co
+    return ks, bs
+
+
+def _counted_call(*args, **kw):
+    """fused_sa_cuda under a recording profiler: (out, fused_sa.resident
+    counts)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fused_sa.fused_sa_cuda(*args, **kw)
+        n = TRACE.totals()["counters"].get("fused_sa.resident", 0)
+    return out, n
+
+
+@pytest.mark.parametrize("window", [True, False], ids=["window", "full"])
+@pytest.mark.parametrize("rounded", [False, True], ids=["bf16", "bf16r"])
+def test_resident_route_against_plain(card, rounded, window):
+    """Kernels 2 and 3 in both bf16 precisions at stage-2 widths on
+    RESIDENT_CROPS crops of 512 points: the weight-stationary route taken
+    and counted once a call, within BF16_GATE and BF16_MEAN_SHARE of the
+    plain bf16 version (bf16-valued outputs in the rounded-layer mode), and
+    bit-equal across two launches."""
+    rng = np.random.RandomState(24)
+    P, C = 512, 128
+    xyz, feat = _crops(rng, RESIDENT_CROPS, P, C, card)
+    prec = 2 if rounded else 1
+    for radius, S, M, widths in RESIDENT_CASES:
+        new_xyz = xyz[:, np.sort(rng.choice(P, M, replace=False))]
+        new_xyz = new_xyz.contiguous()
+        ks, bs = _he_mlp(rng, C + 3, widths, card)
+        assert fused_sa.resident(C, S, prec, tuple([C + 3] + widths))
+        args = (xyz, feat, new_xyz, radius, S, ks, bs, window)
+        kw = dict(bf16=True, round_layers=rounded)
+        with torch.no_grad():
+            got, n = _counted_call(*args, **kw)
+            assert n == 1
+            assert torch.equal(fused_sa.fused_sa_cuda(*args, **kw), got)
+            ref = fused_sa.fused_sa_plain(xyz, feat, new_xyz, radius, S, ks,
+                                          bs, True, rounded)
+            f32 = fused_sa.fused_sa_plain(xyz, feat, new_xyz, radius, S, ks,
+                                          bs)
+        bf16_gate(got, ref, f32, f"S {S} widths {widths}")
+        assert not rounded or torch.equal(got, got.bfloat16().float())
+
+
+def test_resident_route_left_to_wide_stacks(card):
+    """Stage 1's SA2 (259 -> 128 -> 196 -> 256) and SA3 (515 -> 256 -> 256
+    -> 512) stacks in bf16 do not fit the route: they keep
+    fused_sa_tc_kernel, count 0 and hold their plain version; nor does any
+    3xTF32 call, at stage-2 widths too."""
+    rng = np.random.RandomState(25)
+    for C, widths, P, M, radius in [(256, [128, 196, 256], 1024, 256, 2.0),
+                                    (512, [256, 256, 512], 256, 64, 4.0)]:
+        xyz, feat = _crops(rng, 2, P, C, card)
+        new_xyz = xyz[:, np.sort(rng.choice(P, M, replace=False))]
+        new_xyz = new_xyz.contiguous()
+        ks, bs = _he_mlp(rng, C + 3, widths, card)
+        for S in (16, 32):
+            assert not fused_sa.resident(C, S, 1, tuple([C + 3] + widths))
+            args = (xyz, feat, new_xyz, radius, S, ks, bs, True)
+            with torch.no_grad():
+                got, n = _counted_call(*args, bf16=True)
+                ref = fused_sa.fused_sa_plain(xyz, feat, new_xyz, radius, S,
+                                              ks, bs, True)
+                f32 = fused_sa.fused_sa_plain(xyz, feat, new_xyz, radius, S,
+                                              ks, bs)
+            assert n == 0
+            bf16_gate(got, ref, f32, f"C {C} S {S}")
+    for radius, S, M, widths in RESIDENT_CASES:
+        assert not fused_sa.resident(128, S, 0, tuple([131] + widths))
 
 
 def test_window_kernels_on_inference_inputs(card):

@@ -636,8 +636,11 @@ def test_fused_sa_full_shuffled(dev, rng):
 def test_fused_sa_bf16_kernels(dev, rng, mode):
     """The bf16 mode of kernels 2, 3 and 9 (bf16 factors, f32 sums) against
     the plain bf16 versions within BF16_GATE and BF16_MEAN_SHARE, and
-    kernel 9 on kernel 6's indices bit-equal to kernel 2."""
-    from ws3d_tpu_torch.ops.fused_sa import fused_sa_cuda, fused_sa_plain
+    kernel 9 on kernel 6's indices within BF16_GATE of kernel 2: these
+    widths take kernel 2's weight-stationary route, whose wgmma sums the
+    same products by k16 where kernel 9's mma.sync sums by k8."""
+    from ws3d_tpu_torch.ops.fused_sa import (fused_sa_cuda, fused_sa_plain,
+                                             resident)
     from ws3d_tpu_torch.ops.fused_sa_idx import (fused_sa_idx_cuda,
                                                  fused_sa_idx_plain)
     from ws3d_tpu_torch.ops.grouping import ball_query
@@ -653,7 +656,9 @@ def test_fused_sa_bf16_kernels(dev, rng, mode):
         got = fused_sa_idx_cuda(*args, idx, ks, bs, bf16=True)
         ref = fused_sa_idx_plain(idx, *args, ks, bs, bf16=True)
         fused = fused_sa_cuda(*args, 0.4, 32, ks, bs, True, bf16=True)
-        assert torch.equal(got, fused)
+        assert resident(61, 32, 1, (64, 64, 96, 128))
+        assert within((got - fused).abs().max().item(),
+                      fused.abs().max().item(), BF16_GATE)
     else:
         got = fused_sa_cuda(*args, 0.4, 32, ks, bs, mode == "window",
                             bf16=True)

@@ -62,8 +62,10 @@
 // the three passes pass by pass so consecutive mma are independent. A k8
 // step of a warp is 48 mma, 24 fragment loads and 24 splits of five
 // integer/f32 operations: three issued instructions for each mma, which
-// keeps it well below the tensor pipe's rate; wgmma (one instruction a 64 x
-// N x 8 tile, B read from shared memory by the hardware) is the next step.
+// keeps it well below the tensor pipe's rate. The bf16 precisions of
+// kernels 2 and 3 take a persistent wgmma route with the weights resident
+// in shared memory wherever the widths let them fit (plan_resident, below
+// launch_mode).
 // The bf16 mode (PREC = kBF16; cfg.TPU.COMPUTE_DTYPE=bfloat16) rounds as the
 // JAX package's XLA bf16 path does: every product's two factors (the
 // centre-relative rows [feat, xyz - q] and the weights) rounded to bf16
@@ -725,6 +727,656 @@ int launch_mode(int bf16, const TCPlan& p, const float* xyz,
                                                 out, bounds, stream);
 }
 
+// ---- the weight-stationary route: kernels 2 and 3 in bf16 -----------------
+//
+// The bf16 precisions of kernels 2 and 3 (kBF16, kBF16Layers) on stacks whose
+// bf16 weights and tile buffers fit in one SM's shared memory (plan_resident
+// decides, from the widths alone) take a persistent, warp-specialised
+// kernel instead of fused_sa_tc_kernel, which stages every layer's f32
+// weights again for each block of 64 rows:
+//   - one block an SM (or one a tile, if fewer) walks the launch's tiles of
+//     kResRows rows (Q = kResRows / Sp queries of one cloud) in a fixed
+//     stride. At its start it stages every layer's weights once, converted
+//     from pack_params' f32 buffer with the same cvt.rn the other route
+//     applies on every k step, so the factors are the same values;
+//   - two producer warpgroups, taking the tiles in turn, run the staged
+//     search (block_ball_query on the warpgroup's own named barrier, its
+//     ring in the buffer the tile will fill) and gather the rows
+//     [feat, xyz - q] rounded to bf16 into one of two or three tile
+//     buffers, the search and the subtraction exact f32 as before; an
+//     mbarrier hands the tile over, another hands the buffer back, so the
+//     next tiles' searches and gathers run under this tile's MLP;
+//   - two consumer warpgroups, 64 rows each, run the MLP with wgmma bf16
+//     (m64n128k16, or m64n64k16 for a 64-wide layer), A and B from shared
+//     memory in the canonical K-major layout without swizzle (8 x 8 core
+//     matrices of 16-byte rows, contiguous, so no K padding past 16) and
+//     f32 accumulators in registers. A layer's epilogue (bias, ReLU, the
+//     rounded-layer rounding on packed bf16 pairs) writes its output in
+//     bf16 over the warpgroup's own rows of the tile buffer, which layer 0
+//     has consumed, as the next layer's A. The last layer is max-pooled in
+//     registers as the other route does and the Sp / 16 tile maxima of a
+//     query combined through shared memory: no atomics.
+// Every product's factors are the other route's, bit for bit (kBF16: each
+// layer's f32 output rounded by the next layer as before; kBF16Layers: the
+// outputs are bf16 values already); only the f32 sums group by k16 where
+// the other route groups by k8. What bounds it on the H100 (PERF.md §6):
+// no longer the MLP's FLOPs (about a fifth of its time at the bf16 peak)
+// but the SIMT work around them, the epilogues and the searches, which
+// share the SM's issue slots; the tensor cores wait on them.
+
+constexpr int kResRows = 128;       // rows a tile
+constexpr int kResConsumers = 2;    // consumer warpgroups, 64 rows each
+constexpr int kResProducers = 2;    // producer warpgroups, tiles in turn
+constexpr int kResThreads = 128 * (kResConsumers + kResProducers);
+constexpr int kResN = 64;           // columns an accumulator chunk
+constexpr int kResMidCols = 128;    // widest layer that feeds another
+constexpr int kResLastCols = 256;   // widest last layer
+constexpr int kResMaxQ = kResRows / 16;
+constexpr int kResMaxStages = 3;    // tile buffers, as many as fit
+constexpr uint32_t kResLBO = kResRows * 16;  // bytes a k8 column block
+// named barriers: 0 is __syncthreads, 1 + p producer p's, then consumer
+// w's
+constexpr int kResProducerBar = 1;
+constexpr int kResConsumerBar = 1 + kResProducers;
+
+__host__ __device__ __forceinline__ int pad16(int c) { return (c + 15) & ~15; }
+__host__ __device__ __forceinline__ int pad_n(int c) {
+  return (c + kResN - 1) / kResN * kResN;
+}
+
+struct ResLayout {
+  int Sp, Q;                 // rows a query (16, 32 or 64); queries a tile
+  int k0;                    // layer 0's depth: C + 3 rounded up to 16
+  int np[kMaxLayers];        // layer l's columns rounded up to kResN
+  int w_off[kMaxLayers];     // bytes: layer l's bf16 weights
+  int p_off[kMaxLayers];     // floats: layer l's weights in params
+  int b_off[kMaxLayers];     // floats: layer l's bias in params
+  int bias_s[kMaxLayers];    // floats: layer l's bias in shared memory
+  int stages;                // tile buffers
+  int in_off, in_bytes;      // bytes: the tile buffers
+  int pool_off, idx_off, qs_off, bar_off, smem;   // bytes
+};
+
+// Whether kernels 2 and 3 take the weight-stationary route, and its shared
+// memory: bf16 precisions only; at least two layers, each but the last at
+// most kResMidCols wide, the last at most kResLastCols; Sp dividing 64, so
+// that a query's rows lie in one consumer's 64; and every layer's bf16
+// weights and f32 biases, two tile buffers (three where they fit), the
+// pooled maxima, the indices and the barriers within kSmemMax. The one
+// place that decides the route (ws3d_fused_sa launches it,
+// ws3d_fused_sa_resident reports it).
+bool plan_resident(int C, int S, int prec, const MLPDesc& d, ResLayout& lay) {
+  const int L = d.n_layers;
+  if ((prec != kBF16 && prec != kBF16Layers) || L < 2) return false;
+  lay.Sp = (S + 15) & ~15;
+  if (lay.Sp > 64 || 64 % lay.Sp) return false;
+  lay.Q = kResRows / lay.Sp;
+  lay.k0 = pad16(C + 3);
+  size_t off = 0;
+  int poff = 0, widest = lay.k0, boff = 0;
+  for (int l = 0; l < L; ++l) {
+    const int ci = d.width[l], co = d.width[l + 1];
+    lay.np[l] = pad_n(co);
+    if (lay.np[l] > (l + 1 < L ? kResMidCols : kResLastCols)) return false;
+    if (l + 1 < L && lay.np[l] > widest) widest = lay.np[l];
+    const int rows = l == 0 ? lay.k0 : lay.np[l - 1];
+    lay.w_off[l] = (int)off;
+    off += (size_t)rows * lay.np[l] * 2;
+    lay.p_off[l] = poff;
+    lay.b_off[l] = poff + pad4(ci) * co;
+    poff = lay.b_off[l] + co;
+    lay.bias_s[l] = boff;
+    boff += lay.np[l];
+    if (off > kSmemMax) return false;
+  }
+  // the biases (f32, padded with zeros to np)
+  for (int l = 0; l < L; ++l) lay.bias_s[l] += (int)(off / sizeof(float));
+  off += sizeof(float) * (size_t)boff;
+  // a tile buffer holds the search's ring, then the gathered rows, then
+  // each layer's output
+  const size_t ring = sizeof(float) * (size_t)kRingFloats;
+  size_t in = (size_t)kResRows * widest * 2;
+  in = ((in > ring ? in : ring) + 127) & ~(size_t)127;
+  lay.in_off = (int)off;
+  lay.in_bytes = (int)in;
+  const size_t rest =
+      sizeof(float) * (kResRows / 16) * (size_t)lay.np[L - 1] +
+      kResMaxStages * (sizeof(int) * kResRows + sizeof(float) * 3 * kResMaxQ) +
+      2 * kResMaxStages * sizeof(uint64_t) + 8;
+  for (lay.stages = kResMaxStages; lay.stages >= 2; --lay.stages)
+    if (off + lay.stages * in + rest <= kSmemMax) break;
+  if (lay.stages < 2) return false;
+  off += lay.stages * in;
+  lay.pool_off = (int)off;
+  off += sizeof(float) * (kResRows / 16) * (size_t)lay.np[L - 1];
+  lay.idx_off = (int)off;
+  off += sizeof(int) * kResMaxStages * kResRows;
+  lay.qs_off = (int)off;
+  off += sizeof(float) * kResMaxStages * 3 * kResMaxQ;
+  lay.bar_off = (int)((off + 7) & ~(size_t)7);
+  off = lay.bar_off + 2 * kResMaxStages * sizeof(uint64_t);
+  if (off > kSmemMax) return false;
+  lay.smem = (int)off;
+  return true;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// arrive (release: this thread's earlier shared-memory writes are visible
+// to a thread whose wait sees the phase complete)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed (acquire)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// generic-proxy writes to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Producer warpgroup p as block_ball_query's team.
+struct ProducerTeam {
+  int p;
+  __device__ __forceinline__ int rank() const {
+    return threadIdx.x - 128 * (kResConsumers + p);
+  }
+  __device__ __forceinline__ int size() const { return 128; }
+  __device__ __forceinline__ void sync() const {
+    named_sync(kResProducerBar + p, 128);
+  }
+};
+
+// A wgmma operand descriptor: K-major, no swizzle; lbo the bytes between
+// core matrices along K, sbo between core matrices along M (or N)
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads and writes of r across the
+// asynchronous products that write it
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r) :: "memory");
+}
+
+// d (+)= A (64 x 16) @ B (16 x 64), both from shared memory; d is
+// overwritten when acc == 0
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// Eight values rounded to bf16 and packed, lowest k in the lowest half
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&x)[8]) {
+  return make_uint4(pack_bf16x2(x[0], x[1]), pack_bf16x2(x[2], x[3]),
+                    pack_bf16x2(x[4], x[5]), pack_bf16x2(x[6], x[7]));
+}
+
+// Every layer's weights into shared memory as bf16 (cvt.rn, as pack_bf16x2
+// rounds them on the other route), B of layer l an np[l] x rows K-major
+// tile: element (n, k) at (k / 8) * np * 16 + n * 16 + (k % 8) * 2 bytes.
+// Rows past a layer's depth and columns past its width are zeros; layer
+// 0's rows follow the [feat (C), xyz - q] inputs (pack_params keeps W0's
+// rows in [xyz, feat] order).
+__device__ __forceinline__ void stage_resident_weights(
+    const float* __restrict__ params, int C, const MLPDesc& d,
+    const ResLayout& lay, unsigned char* smem) {
+  for (int l = 0; l < d.n_layers; ++l) {
+    const int ci = d.width[l], co = d.width[l + 1], np = lay.np[l];
+    const int nkb = (l == 0 ? lay.k0 : lay.np[l - 1]) >> 3;
+    const float* wl = params + lay.p_off[l];
+    unsigned char* ws = smem + lay.w_off[l];
+    for (int it = threadIdx.x; it < nkb * np; it += blockDim.x) {
+      const int kb = it / np, n = it - kb * np;
+      float x[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int k = kb * 8 + e;
+        const int src = l > 0 ? (k < ci ? k : -1)
+                        : k < C ? k + 3 : k < C + 3 ? k - C : -1;
+        x[e] = src >= 0 && n < co ? wl[(size_t)src * co + n] : 0.f;
+      }
+      *reinterpret_cast<uint4*>(ws + (size_t)kb * np * 16 + n * 16) =
+          pack_bf16x8(x);
+    }
+  }
+}
+
+// Producer p: for each kResProducers-th of the block's tiles from its p-th,
+// the search and the gather into tile buffer k % stages once the consumers
+// have handed it back.
+__device__ __forceinline__ void resident_producer(
+    const float* __restrict__ xyz, const float* __restrict__ feat,
+    const float* __restrict__ new_xyz, int B, int P, int C, int M, float r2,
+    int S, const ResLayout& lay, const float2* __restrict__ bounds, int a16,
+    int fvec, unsigned char* smem, uint64_t* bars) {
+  const ProducerTeam team{(int)(threadIdx.x / 128) - kResConsumers};
+  const int r = team.rank();          // the row this thread gathers
+  const int groups = (M + lay.Q - 1) / lay.Q, tiles = B * groups;
+  const int nch = n_chunks(P), nkb = lay.k0 >> 3;
+  const size_t kstride = (size_t)kResRows * 16;  // bytes a k8 column block
+  for (int k = team.p, t = blockIdx.x + team.p * gridDim.x; t < tiles;
+       k += kResProducers, t += kResProducers * gridDim.x) {
+    const int stage = k % lay.stages, round = k / lay.stages;
+    unsigned char* in = smem + lay.in_off + stage * lay.in_bytes;
+    int* idx = reinterpret_cast<int*>(smem + lay.idx_off) + stage * kResRows;
+    float* qs = reinterpret_cast<float*>(smem + lay.qs_off) +
+                stage * 3 * kResMaxQ;
+    if (round > 0) mbar_wait(&bars[kResMaxStages + stage], (round - 1) & 1);
+    const int b = t / groups, q0 = (t - b * groups) * lay.Q;
+    const int nq = min(lay.Q, M - q0);
+    const float* pb = xyz + (size_t)b * P * 3;
+    if (r < nq * 3) qs[r] = new_xyz[((size_t)b * M + q0) * 3 + r];
+    team.sync();
+    BallScales sc;
+    sc.n = 1;
+    sc.r2[0] = r2;
+    sc.S[0] = S;
+    BallRows rows;
+    rows.base = idx;
+    rows.stride = lay.Sp;
+    rows.off[0] = 0;
+    block_ball_query<kSearchQW>(pb, P, bounds + (size_t)b * nch, a16 != 0,
+                                qs, nq, sc, rows,
+                                ring_at(reinterpret_cast<float*>(in)), team);
+    team.sync();
+    const int pad = lay.Sp - S;
+    for (int u = r; u < nq * pad; u += 128) {
+      const int q = u / pad;
+      idx[q * lay.Sp + S + (u - q * pad)] = idx[q * lay.Sp];
+    }
+    team.sync();
+    // row r: [feat, xyz - q, zeros up to k0] in bf16; rows past the
+    // tile's queries zeros
+    unsigned char* dst = in + (size_t)r * 16;
+    if (r < nq * lay.Sp) {
+      const int p = idx[r];
+      const float* fr = feat + ((size_t)b * P + p) * C;
+      const float* q = qs + 3 * (r / lay.Sp);
+      const float dx = pb[3 * p] - q[0], dy = pb[3 * p + 1] - q[1],
+                  dz = pb[3 * p + 2] - q[2];
+      int kb = 0;
+      if (fvec) {
+        const int nv = C >> 3;
+#pragma unroll 8
+        for (; kb < nv; ++kb) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(fr) + 2 * kb);
+          const float4 c =
+              __ldg(reinterpret_cast<const float4*>(fr) + 2 * kb + 1);
+          *reinterpret_cast<uint4*>(dst + kb * kstride) = make_uint4(
+              pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w),
+              pack_bf16x2(c.x, c.y), pack_bf16x2(c.z, c.w));
+        }
+      }
+      for (; kb < nkb; ++kb) {
+        float x[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int c = kb * 8 + e;
+          x[e] = c < C ? __ldg(fr + c)
+                 : c == C ? dx : c == C + 1 ? dy : c == C + 2 ? dz : 0.f;
+        }
+        *reinterpret_cast<uint4*>(dst + kb * kstride) = pack_bf16x8(x);
+      }
+    } else {
+      for (int kb = 0; kb < nkb; ++kb)
+        *reinterpret_cast<uint4*>(dst + kb * kstride) = make_uint4(0, 0, 0, 0);
+    }
+    fence_async_shared();
+    mbar_arrive(&bars[stage]);
+  }
+}
+
+// max of two packed bf16 pairs, lane by lane (exact)
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Two epilogue values of a layer packed in bf16, the lower column in the
+// lower half: layer_out of (a0, b0) and (a1, b1) rounded to bf16 (in the
+// rounded-layer mode they are bf16 values already: the f32 sum of the
+// rounded accumulator and the rounded bias, rounded again, then the ReLU
+// on the packed pair)
+template <int PREC>
+__device__ __forceinline__ uint32_t layer_pair(float a0, float a1, float b0,
+                                               float b1) {
+  if constexpr (PREC == kBF16Layers) {
+    const uint32_t x = pack_bf16x2(a0, a1);
+    return max_bf16x2(pack_bf16x2(__uint_as_float(x << 16) + b0,
+                                  __uint_as_float(x & 0xffff0000u) + b1),
+                      0u);
+  }
+  return pack_bf16x2(layer_out<PREC>(a0, b0), layer_out<PREC>(a1, b1));
+}
+
+// d (+)= A (64 x 16) @ B (16 x 128), both from shared memory, d[c] holding
+// columns 64c .. 64c + 63 (the m64n128 accumulator is the two m64n64 ones
+// in a row); d is overwritten when acc == 0
+__device__ __forceinline__ void wgmma_ss128(float (&d)[2][32], uint64_t a,
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]),
+        "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+        "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+        "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+        "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]),
+        "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]),
+        "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+        "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]),
+        "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+        "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
+        "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// nc (1 or 2) chunks of kResN columns of a layer: acc[c] = A @ B[:, chunk
+// c] over ks k16 steps, A and B from shared memory (descriptors a and b,
+// a_step and b_step bytes a k16 step); two chunks as one m64n128 product.
+// Waits for the products.
+__device__ __forceinline__ void resident_layer(float (&acc)[2][32], int nc,
+                                               int ks, uint64_t a,
+                                               uint32_t a_step, uint64_t b,
+                                               uint32_t b_step) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(acc[c][i]);
+  wgmma_fence();
+  if (nc == 2) {
+    for (int s = 0; s < ks; ++s)
+      wgmma_ss128(acc, a + ((s * a_step) >> 4), b + ((s * b_step) >> 4),
+                  s > 0);
+  } else {
+    for (int s = 0; s < ks; ++s)
+      wgmma_ss(acc[0], a + ((s * a_step) >> 4), b + ((s * b_step) >> 4),
+               s > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) reg_fence(acc[c][i]);
+}
+
+// A layer's epilogue in bf16 over the warp's 16 rows of the tile buffer
+// (h: its row g, column block 0), the next layer's A: chunk c's n8 tile j
+// holds columns 64c + 8j + 2t, + 1 of rows g and g + 8. bias: the layer's
+// staged biases (resident_biases)
+template <int PREC>
+__device__ __forceinline__ void resident_store(
+    const float (&acc)[2][32], int nc, const float* bias, int tq,
+    unsigned char* h) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (c >= nc) continue;
+#pragma unroll
+    for (int j = 0; j < kResN / 8; ++j) {
+      const int col = c * kResN + 8 * j + 2 * tq;
+      const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+      const float b0 = bb.x, b1 = bb.y;
+      const float* v = acc[c] + 4 * j;
+      unsigned char* dst = h + (size_t)(8 * c + j) * kResLBO + 4 * tq;
+      *reinterpret_cast<uint32_t*>(dst) =
+          layer_pair<PREC>(v[0], v[1], b0, b1);
+      *reinterpret_cast<uint32_t*>(dst + 8 * 16) =
+          layer_pair<PREC>(v[2], v[3], b0, b1);
+    }
+  }
+}
+
+// The last layer's epilogue: each warp's 16 rows max-pooled in registers
+// (rows g and g + 8, then the quad's row groups) into pool[c0 + column]
+template <int PREC>
+__device__ __forceinline__ void resident_pool(const float (&acc)[2][32],
+                                              int nc, int c0,
+                                              const float* bias, int co,
+                                              int g, int tq, float* pool) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (c >= nc) continue;
+#pragma unroll
+    for (int j = 0; j < kResN / 8; ++j) {
+      const int col = c0 + c * kResN + 8 * j + 2 * tq;
+      const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+      const float b0 = bb.x, b1 = bb.y;
+      const float* v = acc[c] + 4 * j;
+      float m0, m1;
+      if constexpr (PREC == kBF16Layers) {
+        // bf16 values: the max of the packed pairs, one shuffle a step
+        uint32_t m = max_bf16x2(layer_pair<PREC>(v[0], v[1], b0, b1),
+                                layer_pair<PREC>(v[2], v[3], b0, b1));
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          m = max_bf16x2(m, __shfl_xor_sync(0xffffffffu, m, off));
+        m0 = __uint_as_float(m << 16);
+        m1 = __uint_as_float(m & 0xffff0000u);
+      } else {
+        m0 = fmaxf(layer_out<PREC>(v[0], b0), layer_out<PREC>(v[2], b0));
+        m1 = fmaxf(layer_out<PREC>(v[1], b1), layer_out<PREC>(v[3], b1));
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+        }
+      }
+      if (g == 0 && col < co) {
+        pool[col] = m0;
+        pool[col + 1] = m1;
+      }
+    }
+  }
+}
+
+// A consumer warpgroup: rows [64 w, 64 w + 64) of each of the block's tiles
+template <int PREC>
+__device__ __forceinline__ void resident_consumer(
+    int B, int M, const ResLayout& lay, const MLPDesc& d,
+    float* __restrict__ out, unsigned char* smem, uint64_t* bars) {
+  const int w = threadIdx.x >> 7, wt = threadIdx.x & 127;
+  const int warp = wt >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int L = d.n_layers, cout = d.width[L], npl = lay.np[L - 1];
+  const int groups = (M + lay.Q - 1) / lay.Q, tiles = B * groups;
+  const int T = lay.Sp >> 4;                  // m16 tiles a query
+  const int bar = kResConsumerBar + w;
+  const float* fsmem = reinterpret_cast<const float*>(smem);
+  float* pool = reinterpret_cast<float*>(smem + lay.pool_off) +
+                (size_t)4 * w * npl;          // [4 warps][npl]
+  float acc[2][32];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  for (int k = 0, t = blockIdx.x; t < tiles; ++k, t += gridDim.x) {
+    const int stage = k % lay.stages, round = k / lay.stages;
+    const int b = t / groups, q0 = (t - b * groups) * lay.Q;
+    const int nq = min(lay.Q, M - q0);
+    // the warpgroup's 64 rows of the tile buffer (a ragged tile's rows past
+    // its queries are zeros and run too: the products stay out of any
+    // branch on the thread's rows)
+    unsigned char* rows = smem + lay.in_off + stage * lay.in_bytes +
+                          64 * w * 16;
+    const uint64_t a_desc = wgmma_desc(rows, kResLBO, 128);
+    mbar_wait(&bars[stage], round & 1);
+    resident_layer(acc, lay.np[0] / kResN, lay.k0 >> 4, a_desc, 2 * kResLBO,
+                   wgmma_desc(smem + lay.w_off[0], lay.np[0] * 16, 128),
+                   2 * lay.np[0] * 16);
+    for (int l = 1; l < L; ++l) {
+      // layer l - 1's output over its input: every warp's products are
+      // done, then the stores are made visible to the products that read
+      // them
+      named_sync(bar, 128);
+      resident_store<PREC>(acc, lay.np[l - 1] / kResN,
+                           fsmem + lay.bias_s[l - 1], tq,
+                           rows + (16 * warp + g) * 16);
+      fence_async_shared();
+      named_sync(bar, 128);
+      const int co = d.width[l + 1], ks = lay.np[l - 1] >> 4;
+      const uint32_t b_lbo = lay.np[l] * 16;
+      if (l + 1 < L) {
+        resident_layer(acc, lay.np[l] / kResN, ks, a_desc, 2 * kResLBO,
+                       wgmma_desc(smem + lay.w_off[l], b_lbo, 128),
+                       2 * b_lbo);
+        continue;
+      }
+      const float* bias = fsmem + lay.bias_s[l];
+      for (int c0 = 0; c0 < lay.np[l]; c0 += 2 * kResN) {
+        const int nc = min(2, (lay.np[l] - c0) / kResN);
+        resident_layer(acc, nc, ks, a_desc, 2 * kResLBO,
+                       wgmma_desc(smem + lay.w_off[l] + c0 * 16, b_lbo, 128),
+                       2 * b_lbo);
+        resident_pool<PREC>(acc, nc, c0, bias, co, g, tq,
+                            pool + (size_t)warp * npl);
+      }
+    }
+    mbar_arrive(&bars[kResMaxStages + stage]);  // the buffer is free
+    named_sync(bar, 128);
+    // a query's rows lie in this warpgroup's 64 (Sp divides 64): combine
+    // its T tile maxima
+    const int qa = min(nq, 64 * w / lay.Sp);
+    const int qb = min(nq, (64 * w + 64) / lay.Sp);
+    for (int u = wt; u < (qb - qa) * cout; u += 128) {
+      const int q = qa + u / cout, c = u - (u / cout) * cout;
+      const float* pr = pool + (size_t)(q * T - 4 * w) * npl + c;
+      float m = pr[0];
+      for (int i = 1; i < T; ++i) m = fmaxf(m, pr[(size_t)i * npl]);
+      out[((size_t)b * M + q0 + q) * cout + c] = m;
+    }
+    named_sync(bar, 128);                     // pool free for the next tile
+  }
+}
+
+template <int PREC>
+__global__ void __launch_bounds__(kResThreads, 1)
+fused_sa_resident_kernel(const float* __restrict__ xyz,
+                         const float* __restrict__ feat,
+                         const float* __restrict__ new_xyz, int B, int P,
+                         int C, int M, float r2, int S, ResLayout lay,
+                         MLPDesc desc, const float2* __restrict__ bounds,
+                         int a16, int fvec, const float* __restrict__ params,
+                         float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  // full[kResMaxStages] (a producer's 128 threads arrive), then
+  // empty[kResMaxStages] (the consumers')
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+  if (threadIdx.x < kResMaxStages) {
+    mbar_init(&bars[threadIdx.x], 128);
+    mbar_init(&bars[kResMaxStages + threadIdx.x], 128 * kResConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  stage_resident_weights(params, C, desc, lay, smem);
+  // the biases, zeros past each layer's width; in the rounded-layer mode
+  // rounded to bf16 as the layer adds them
+  for (int l = 0; l < desc.n_layers; ++l)
+    for (int i = threadIdx.x; i < lay.np[l]; i += blockDim.x) {
+      float v = i < desc.width[l + 1] ? params[lay.b_off[l] + i] : 0.f;
+      if constexpr (PREC == kBF16Layers) v = round_bf16(v);
+      reinterpret_cast<float*>(smem)[lay.bias_s[l] + i] = v;
+    }
+  fence_async_shared();
+  __syncthreads();
+  if (threadIdx.x >= 128 * kResConsumers)
+    resident_producer(xyz, feat, new_xyz, B, P, C, M, r2, S, lay, bounds,
+                      a16, fvec, smem, bars);
+  else
+    resident_consumer<PREC>(B, M, lay, desc, out, smem, bars);
+}
+
+// Launches the weight-stationary route (kernels 2 and 3: the same search
+// either way) in precision PREC; returns a cudaError_t.
+template <int PREC>
+int launch_resident(const ResLayout& lay, const float* xyz, const float* feat,
+                    const float* new_xyz, int B, int P, int C, int M,
+                    float r2, int S, const MLPDesc& d, const float* params,
+                    float* out, float2* bounds, void* stream) {
+  int e = launch_chunk_bounds(xyz, B, P, bounds, (cudaStream_t)stream);
+  if (e) return e;
+  const int a16 =
+      (reinterpret_cast<uintptr_t>(xyz) & 15) == 0 && P % 4 == 0 ? 1 : 0;
+  const int fvec =
+      C % 4 == 0 && (reinterpret_cast<uintptr_t>(feat) & 15) == 0 ? 1 : 0;
+  int dev = 0, sms = 0;
+  e = (int)cudaGetDevice(&dev);
+  if (!e)
+    e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev);
+  if (e) return e;
+  const long long tiles = (long long)B * ((M + lay.Q - 1) / lay.Q);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  const void* kernel = (const void*)fused_sa_resident_kernel<PREC>;
+  e = ws3d_set_smem(kernel, (size_t)lay.smem);
+  if (e) return e;
+  fused_sa_resident_kernel<PREC><<<grid, kResThreads, lay.smem,
+                                   (cudaStream_t)stream>>>(
+      xyz, feat, new_xyz, B, P, C, M, r2, S, lay, d, bounds, a16, fvec,
+      params, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // xyz (B, P, 3), feat (B, P, C), new_xyz (B, M, 3) f32; params packs
@@ -746,6 +1398,15 @@ WS3D_EXPORT int ws3d_fused_sa(const float* xyz, const float* feat,
   const int err = make_desc(B, P, C, M, S, n_layers, widths, d);
   if (err) return err;
   if (bounds == nullptr) return (int)cudaErrorInvalidValue;
+  ResLayout lay;
+  if (plan_resident(C, S, bf16, d, lay))
+    return bf16 == kBF16Layers
+               ? launch_resident<kBF16Layers>(lay, xyz, feat, new_xyz, B, P,
+                                              C, M, r2, S, d, params, out,
+                                              (float2*)bounds, stream)
+               : launch_resident<kBF16>(lay, xyz, feat, new_xyz, B, P, C, M,
+                                        r2, S, d, params, out,
+                                        (float2*)bounds, stream);
   const TCPlan p = plan_tc(C, M, S, d, feat);
   if (windowed)
     return launch_mode<kWindow>(bf16, p, xyz, feat, new_xyz, nullptr, B, P, C,
@@ -753,6 +1414,18 @@ WS3D_EXPORT int ws3d_fused_sa(const float* xyz, const float* feat,
                                 stream);
   return launch_mode<kFull>(bf16, p, xyz, feat, new_xyz, nullptr, B, P, C, M,
                             r2, S, d, params, out, (float2*)bounds, stream);
+}
+
+// 1 if ws3d_fused_sa takes the weight-stationary route for these widths,
+// S and precision bf16 (plan_resident), else 0.
+WS3D_EXPORT int ws3d_fused_sa_resident(int C, int S, int bf16, int n_layers,
+                                       const int* widths) {
+  MLPDesc d;
+  ResLayout lay;
+  return make_desc(1, 1, C, 1, S, n_layers, widths, d) == 0 &&
+                 plan_resident(C, S, bf16, d, lay)
+             ? 1
+             : 0;
 }
 
 // The same with the indices given: idx (B, M, S) int32, each in [0, P).

@@ -212,6 +212,15 @@ __device__ __forceinline__ void ring_stage(const float* __restrict__ pb, int n,
 __device__ __forceinline__ void ring_wait() { cp_async_wait<kStages - 2>(); }
 __device__ __forceinline__ void ring_drain() { cp_async_wait<0>(); }
 
+// The threads that run block_ball_query together: the whole block, or
+// a group of whole warps with a barrier of its own (a warp-specialised
+// block's producer warpgroup: fused_sa.cu); rank() counts from 0 in it.
+struct BlockTeam {
+  __device__ __forceinline__ int rank() const { return threadIdx.x; }
+  __device__ __forceinline__ int size() const { return blockDim.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+
 // Where query qi's hits of scale s go: base + qi * stride + off[s].
 struct BallRows {
   int* base;
@@ -232,15 +241,16 @@ struct BallRows {
 // consecutive queries (z neighbours on sorted clouds); a lane tests one
 // point of a chunk against each of them (the point is read from shared
 // memory once), ranks hits with ballot + popc, and a query stops once every
-// scale is full. All threads of the block call it (it synchronises the
-// block); bounds are pb's chunk bounds (launch_chunk_bounds).
-template <int kQW>
+// scale is full. All threads of the team call it (it synchronises the
+// team: by default the block); bounds are pb's chunk bounds
+// (launch_chunk_bounds).
+template <int kQW, class Team = BlockTeam>
 __device__ __forceinline__ void block_ball_query(
     const float* __restrict__ pb, int n, const float2* __restrict__ bounds,
     bool a16, const float* qs, int nq, const BallScales& sc,
-    const BallRows& rows, const TileRing& ring) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
+    const BallRows& rows, const TileRing& ring, Team team = Team()) {
+  const int lane = threadIdx.x & 31, warp = team.rank() >> 5;
+  const int nw = team.size() >> 5;
   const unsigned below = (1u << lane) - 1u;
   const float inf = __int_as_float(0x7f800000);
   const int per = (nq + nw - 1) / nw;
@@ -281,7 +291,7 @@ __device__ __forceinline__ void block_ball_query(
     return t;
   };
   if (lane == 0) ring.warp_v[warp] = ring.warp_v[32 + warp] = warp_thr();
-  __syncthreads();
+  team.sync();
 
   const int nch = n_chunks(n);
   const auto order = [](int p) { return p; };
@@ -295,7 +305,7 @@ __device__ __forceinline__ void block_ball_query(
   }
   for (int t = 0;; ++t) {
     if (warp == 0) ring_wait();
-    __syncthreads();
+    team.sync();
     const int slot = t % kStages;
     const int nc = ring.cnt[slot];
     if (nc == 0) break;  // block-uniform
@@ -336,7 +346,7 @@ __device__ __forceinline__ void block_ball_query(
     if (lane == 0) ring.warp_v[32 * (t & 1) + warp] = warp_thr();
   }
   if (warp == 0) ring_drain();
-  __syncthreads();
+  team.sync();
 #pragma unroll
   for (int i = 0; i < kQW; ++i) {
     if (i < mine) {

@@ -58,6 +58,7 @@ _SIGNATURES = {
                       _P, _P, _P],
     "ws3d_fused_sa_idx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                           _I, _P],
+    "ws3d_fused_sa_resident": [_I, _I, _I, _I, _P],
     "ws3d_three_interpolate": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
     "ws3d_three_interpolate_window": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                       _P],

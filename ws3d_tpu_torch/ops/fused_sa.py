@@ -18,9 +18,13 @@ f32 sums (fused_sa_idx.matmul_bf16), on CUDA the kernels' bf16 mode; the
 search stays exact f32. That is the rounding of the JAX package's XLA bf16
 path; the TPU kernels round layer 0 otherwise (fused_sa_bq_pallas.
 layer0_preact: [xyz, feat] @ W0 with absolute coordinates, stored in bf16),
-which the port does not reproduce (ROADMAP.md queue 3). Features that
-arrive in bf16 (the stage-2 up/merge chains) are cast to f32 first, which
-is exact.
+which the port does not reproduce (ROADMAP.md queue 3). Where the stack's
+bf16 weights fit in shared memory (`resident`: stage 1's SA0 and SA1, the
+stage-2 stacks) the bf16 modes run on the kernels' weight-stationary route
+(persistent blocks, the MLP on wgmma, the next tiles' searches and gathers
+under it): the same factors, their f32 sums grouped by k16 instead of k8.
+Features that arrive in bf16 (the stage-2 up/merge chains) are cast to f32
+first, which is exact.
 
 FusedSA gives both a backward, for the BN-free stage-2 SA stacks in train
 mode. In bf16 its forward is the kernels' rounded-layer mode (the
@@ -41,6 +45,7 @@ here.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -51,6 +56,7 @@ from ws3d_tpu_torch.ops.fused_sa_idx import (  # noqa: F401 (re-exported)
     check_mlp, fused_sa_idx_plain, matmul_bf16, pack_params,
     sa_from_idx_backward)
 from ws3d_tpu_torch.ops.grouping import ball_query
+from ws3d_tpu_torch.utils.profiling import count
 
 
 def fused_sa_plain(xyz, features, new_xyz, radius: float, nsample: int,
@@ -66,6 +72,17 @@ def fused_sa_plain(xyz, features, new_xyz, radius: float, nsample: int,
                               bf16, round_layers)
 
 
+@functools.lru_cache(maxsize=None)
+def resident(C: int, nsample: int, prec: int, widths: tuple) -> bool:
+    """Whether ws3d_fused_sa runs a call of these shapes in precision
+    `prec` (0 3xTF32, 1 bf16, 2 rounded-layer bf16) on its weight-stationary
+    route: the kernel library's own rule (csrc/fused_sa.cu:
+    plan_resident), asked through ws3d_fused_sa_resident."""
+    w = (_kernels.ctypes.c_int * len(widths))(*widths)
+    return bool(_kernels.library().ws3d_fused_sa_resident(
+        int(C), int(nsample), int(prec), len(widths) - 1, w))
+
+
 def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
                   kernels, biases, window: bool,
                   params: torch.Tensor | None = None,
@@ -74,7 +91,9 @@ def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
     """Kernels 2 (window=True) and 3: (B, P, 3), (B, P, C), (B, M, 3) f32
     CUDA -> (B, M, C_last), in the bf16 mode with `bf16`, its rounded-layer
     mode with `round_layers` too. `params` is pack_params(kernels, biases)
-    made ahead by the caller, or None to pack here."""
+    made ahead by the caller, or None to pack here. Counts
+    `fused_sa.resident` once a call that takes the weight-stationary
+    route (`resident`)."""
     B, P, _ = xyz.shape
     M = new_xyz.shape[1]
     C = features.shape[-1]
@@ -98,6 +117,8 @@ def fused_sa_cuda(xyz, features, new_xyz, radius: float, nsample: int,
         r * r, int(nsample), int(bool(window)), prec, len(kernels),
         widths, params.data_ptr(), out.data_ptr(), bounds.data_ptr(),
         _kernels.stream_ptr(xyz))
+    if prec and resident(C, int(nsample), prec, tuple(widths)):
+        count("fused_sa.resident")
     return out
 
 
